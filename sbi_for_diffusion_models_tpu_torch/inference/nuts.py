@@ -1,0 +1,600 @@
+"""No-U-Turn Sampler over a batch of chains, in PyTorch.
+
+Counterpart of ``sbi_for_diffusion_models_tpu/inference/nuts.py``:
+iterative multinomial NUTS (Betancourt 2017) with Stan-style warmup (dual
+averaging of the step size, windowed diagonal mass matrix), optional
+replica exchange (parallel tempering) across the chain axis and an optional
+Metropolis move after every transition.
+
+Where the JAX package writes one chain and ``vmap``s a ``while_loop`` over
+chains, this module advances every chain of the batch together. All chains
+double their trees in lockstep: at tree depth ``d`` each chain still
+building grows a subtree of ``2**d`` leaves, and chains that have stopped
+(U-turn or divergence) are carried along under a mask. So each leapfrog step
+is ONE call of the batched potential over all chains: one forward and one
+backward of the log-likelihood for every chain and replica at once. The leaf
+index inside a subtree is then the same for every chain, which makes the
+U-turn checkpoint slots (``popcount``/trailing ones of the leaf index) plain
+Python integers.
+
+``logp_fn(u)`` (or ``logp_fn(u, data)`` with per-chain ``data``) maps
+positions (C, D) to log-densities (C,) and is differentiable in ``u``; the
+gradient comes from ``torch.autograd``. Random numbers come from one
+``torch.Generator`` on the chains' device, seeded from an integer seed.
+
+Not ported yet: the segment launches, host mirrors, checkpoint/resume and
+device-loss replay of the JAX ``run_nuts``. Their arguments raise if set to
+anything but their defaults.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..utils.rng import child_seed, make_generator
+
+__all__ = [
+    "run_nuts",
+    "nuts_step",
+    "find_reasonable_step_size",
+    "ReplicaExchange",
+    "geometric_ladder",
+]
+
+_MAX_DELTA_ENERGY = 1000.0  # divergence threshold (Stan's default)
+_LATER = "is not ported to PyTorch yet (see ROADMAP.md, Queue 1)"
+
+
+def _const(v: float, like: torch.Tensor) -> torch.Tensor:
+    """A float32 constant on ``like``'s device. Dividing by a tensor (not a
+    Python scalar) keeps PyTorch from multiplying by a rounded reciprocal,
+    so the adaptation arithmetic rounds as the JAX package's does."""
+    return torch.tensor(v, dtype=torch.float32, device=like.device)
+
+
+# ---------------------------------------------------------------------------
+# Hamiltonian pieces
+# ---------------------------------------------------------------------------
+def _kinetic(p, inv_mass):
+    return 0.5 * (p * p * inv_mass).sum(-1)
+
+
+def _leapfrog(vg_fn, u, p, g, eps, inv_mass):
+    """One leapfrog step for every chain; eps (C,). Returns (u', p', logp', g')."""
+    e = eps[:, None]
+    p_half = p + 0.5 * e * g
+    u_new = u + e * inv_mass * p_half
+    logp_new, g_new = vg_fn(u_new)
+    p_new = p_half + 0.5 * e * g_new
+    return u_new, p_new, logp_new, g_new
+
+
+def _popcount(n: int) -> int:
+    return bin(n).count("1")
+
+
+def _trailing_ones(n: int) -> int:
+    c = 0
+    while n & 1:
+        n >>= 1
+        c += 1
+    return c
+
+
+def _is_turning(v_left, v_right, rho):
+    """Generalized U-turn criterion per chain, velocities v = inv_mass * p."""
+    return ((v_left * rho).sum(-1) <= 0.0) | ((v_right * rho).sum(-1) <= 0.0)
+
+
+def value_and_grad(logp_fn: Callable, data=None) -> Callable:
+    """``vg(u, need_grad=True) -> (logp (C,), grad (C, D) or None)``.
+
+    With ``need_grad=False`` only the value is computed (no backward pass):
+    the slice move's bracket search needs no gradient."""
+
+    def f(u):
+        return logp_fn(u) if data is None else logp_fn(u, data)
+
+    def vg(u, need_grad: bool = True):
+        if not need_grad:
+            with torch.no_grad():
+                return f(u), None
+        with torch.enable_grad():
+            u_ = u.detach().requires_grad_(True)
+            lp = f(u_)
+            (g,) = torch.autograd.grad(lp.sum(), u_)
+        return lp.detach(), g
+
+    return vg
+
+
+# ---------------------------------------------------------------------------
+# Subtree construction (iterative, fixed-size checkpoint stack)
+# ---------------------------------------------------------------------------
+class _LaggedAny:
+    """``any(mask)`` read back one step late, so the host does not wait for
+    the device at every leaf: the flag of leaf n is copied to pinned memory
+    behind an event as soon as it is computed and read at leaf n + 2, while
+    leaf n + 1 is already queued. A loop that stops on it runs at most one
+    extra leaf, on which every chain is masked (a no-op)."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.host = torch.ones((2,), dtype=torch.bool, pin_memory=self.cuda)
+        self.events = [None, None]
+        self.n = 0
+
+    def push(self, mask: torch.Tensor) -> None:
+        i = self.n % 2
+        self.host[i].copy_(mask.any(), non_blocking=self.cuda)
+        if self.cuda:
+            self.events[i] = torch.cuda.Event()
+            self.events[i].record()
+        self.n += 1
+
+    def any_before_last(self) -> bool:
+        """The flag pushed before the most recent one (True until two were pushed)."""
+        if self.n < 2:
+            return True
+        i = self.n % 2
+        if self.events[i] is not None:
+            self.events[i].synchronize()
+        return bool(self.host[i])
+
+
+def _build_subtree(gen, edge, depth: int, direction, eps, inv_mass, H0, max_depth: int, vg_fn, active):
+    """Build 2**depth leaves by repeated leapfrog from ``edge`` = [u | p |
+    g | logp] (C, 3D+1), per chain in its ``direction`` (+1/-1). Chains
+    outside ``active``, and chains whose subtree has turned or diverged,
+    keep their state. Returns a dict: the far ``edge``, the multinomial
+    proposal ``prop`` = [u | g | logp] (C, 2D+1), the momentum sum ``rho``,
+    ``log_w`` (logsumexp of leaf weights relative to H0), ``sum_accept``,
+    ``n_leaves``, ``turning`` and ``diverging``."""
+    C = edge.shape[0]
+    D = (edge.shape[1] - 1) // 3
+    dev = edge.device
+    half_e = (0.5 * eps * direction)[:, None]
+    e_im = (eps * direction)[:, None] * inv_mass
+    prop = torch.cat([edge[:, :D], edge[:, 2 * D :]], dim=1)
+    rho = torch.zeros((C, D), dtype=edge.dtype, device=dev)
+    log_w = torch.full((C,), -math.inf, device=dev)
+    sum_accept = torch.zeros((C,), device=dev)
+    n_leaves = torch.zeros((C,), dtype=torch.int64, device=dev)
+    turning = torch.zeros((C,), dtype=torch.bool, device=dev)
+    diverging = torch.zeros_like(turning)
+    r_ckpts = torch.zeros((C, max_depth + 1, D), dtype=edge.dtype, device=dev)
+    rsum_ckpts = torch.zeros_like(r_ckpts)
+    live = active.clone()
+    flag = _LaggedAny(dev)
+    flag.push(live)
+    for n in range(1 << depth):
+        if not flag.any_before_last():
+            break
+        u, p, g = edge[:, :D], edge[:, D : 2 * D], edge[:, 2 * D : 3 * D]
+        p_half = torch.addcmul(p, half_e, g)
+        u_new = torch.addcmul(u, e_im, p_half)
+        logp_new, g_new = vg_fn(u_new)
+        p_new = torch.addcmul(p_half, half_e, g_new)
+        delta = (_kinetic(p_new, inv_mass) - logp_new) - H0
+        delta = torch.nan_to_num(delta, nan=math.inf, posinf=math.inf, neginf=-math.inf)
+        leaf_log_w = -delta
+
+        # Progressive multinomial sampling within the subtree.
+        new_log_w = torch.logaddexp(log_w, leaf_log_w)
+        uni = torch.rand((C,), generator=gen, device=dev)
+        take = live & (torch.log(uni) < leaf_log_w - new_log_w)
+        rho_after = rho + p_new
+        live_col = live[:, None]
+
+        if n % 2 == 0:
+            # Checkpoint store at even leaves.
+            slot = _popcount(n >> 1)
+            r_ckpts[:, slot] = torch.where(live_col, p_new, r_ckpts[:, slot])
+            rsum_ckpts[:, slot] = torch.where(live_col, rho, rsum_ckpts[:, slot])
+            leaf_turning = None
+        else:
+            # U-turn checks for the aligned segments that end at odd leaf n.
+            idx_max = _popcount(n >> 1)
+            idx_min = idx_max - _trailing_ones(n) + 1
+            v_new = p_new * inv_mass
+            rho_seg = rho_after[:, None, :] - rsum_ckpts[:, idx_min : idx_max + 1]
+            v_ckpt = r_ckpts[:, idx_min : idx_max + 1] * inv_mass[:, None, :]
+            leaf_turning = (((v_ckpt * rho_seg).sum(-1) <= 0.0) | ((v_new[:, None, :] * rho_seg).sum(-1) <= 0.0)).any(-1)
+
+        new_edge = torch.cat([u_new, p_new, g_new, logp_new[:, None]], dim=1)
+        edge = torch.where(live_col, new_edge, edge)
+        prop = torch.where(take[:, None], torch.cat([u_new, g_new, logp_new[:, None]], dim=1), prop)
+        rho = torch.where(live_col, rho_after, rho)
+        log_w = torch.where(live, new_log_w, log_w)
+        sum_accept = sum_accept + torch.where(live, torch.clamp(torch.exp(-delta), max=1.0), 0.0)
+        n_leaves = n_leaves + live
+        if leaf_turning is not None:
+            turning = turning | (live & leaf_turning)
+        diverging = diverging | (live & (delta > _MAX_DELTA_ENERGY))
+        live = live & ~(turning | diverging)
+        flag.push(live)
+    return dict(edge=edge, prop=prop, rho=rho, log_w=log_w, sum_accept=sum_accept, n_leaves=n_leaves,
+                turning=turning, diverging=diverging)
+
+
+# ---------------------------------------------------------------------------
+# One NUTS transition
+# ---------------------------------------------------------------------------
+def nuts_step(gen, u, logp, g, *, vg_fn, eps, inv_mass, max_depth: int = 10):
+    """One NUTS draw for every chain from positions u (C, D); eps (C,),
+    inv_mass (C, D). Returns (u', logp', g', info dict of (C,) tensors)."""
+    C, D = u.shape
+    dev = u.device
+    p0 = torch.randn(u.shape, generator=gen, device=dev, dtype=u.dtype) / torch.sqrt(inv_mass)
+    H0 = -logp + _kinetic(p0, inv_mass)
+
+    edge_l = edge_r = torch.cat([u, p0, g, logp[:, None]], dim=1)
+    rho = p0
+    prop = torch.cat([u, g, logp[:, None]], dim=1)
+    log_w = torch.zeros((C,), device=dev)
+    turning = torch.zeros((C,), dtype=torch.bool, device=dev)
+    diverging = torch.zeros_like(turning)
+    sum_accept = torch.zeros((C,), device=dev)
+    num_steps = torch.zeros((C,), dtype=torch.int64, device=dev)
+    depth = torch.zeros((C,), dtype=torch.int64, device=dev)
+
+    for d in range(max_depth):
+        active = ~(turning | diverging)
+        if not bool(active.any()):
+            break
+        go_right = torch.rand((C,), generator=gen, device=dev) < 0.5
+        direction = torch.where(go_right, 1.0, -1.0)
+        right_col = go_right[:, None]
+        sub = _build_subtree(gen, torch.where(right_col, edge_r, edge_l), d, direction, eps, inv_mass, H0,
+                             max_depth, vg_fn, active)
+        ok = active & ~(sub["turning"] | sub["diverging"])
+
+        # Merge valid subtrees: biased progressive sampling across subtrees.
+        uni = torch.rand((C,), generator=gen, device=dev)
+        take = ok & (torch.log(uni) < sub["log_w"] - log_w)
+        prop = torch.where(take[:, None], sub["prop"], prop)
+        log_w = torch.where(ok, torch.logaddexp(log_w, sub["log_w"]), log_w)
+        ok_col = ok[:, None]
+        edge_l = torch.where(ok_col & ~right_col, sub["edge"], edge_l)
+        edge_r = torch.where(ok_col & right_col, sub["edge"], edge_r)
+        rho = torch.where(ok_col, rho + sub["rho"], rho)
+        full_turn = _is_turning(edge_l[:, D : 2 * D] * inv_mass, edge_r[:, D : 2 * D] * inv_mass, rho)
+        turning = torch.where(active, ~ok | full_turn, turning)
+        diverging = diverging | (active & sub["diverging"])
+        sum_accept = sum_accept + torch.where(active, sub["sum_accept"], 0.0)
+        num_steps = num_steps + torch.where(active, sub["n_leaves"], 0)
+        depth = depth + active
+
+    info = {
+        "accept_prob": sum_accept / torch.clamp(num_steps.to(torch.float32), min=1.0),
+        "num_steps": num_steps,
+        "diverging": diverging,
+        "depth": depth,
+    }
+    return prop[:, :D], prop[:, 2 * D], prop[:, D : 2 * D], info
+
+
+# ---------------------------------------------------------------------------
+# Step-size initialization and dual averaging
+# ---------------------------------------------------------------------------
+def find_reasonable_step_size(gen, vg_fn, u, inv_mass, eps0: float = 1.0, *, logp=None, g=None):
+    """Per chain, double or halve eps until the one-step accept probability
+    crosses 0.5 (Hoffman & Gelman 2014, Algorithm 4). Returns eps (C,)."""
+    C = u.shape[0]
+    dev = u.device
+    if logp is None or g is None:
+        logp, g = vg_fn(u)
+    p0 = torch.randn(u.shape, generator=gen, device=dev, dtype=u.dtype) / torch.sqrt(inv_mass)
+    H0 = -logp + _kinetic(p0, inv_mass)
+    log_half = math.log(0.5)
+
+    def delta_h(eps):
+        _, p1, logp1, _ = _leapfrog(vg_fn, u, p0, g, eps, inv_mass)
+        d = H0 - (-logp1 + _kinetic(p1, inv_mass))
+        return torch.where(torch.isnan(d), -math.inf, d)
+
+    eps = torch.full((C,), float(eps0), device=dev)
+    d = delta_h(eps)
+    up = d > log_half
+    running = torch.ones((C,), dtype=torch.bool, device=dev)
+    it = 0
+    while True:
+        keep = torch.where(up, d > log_half, d < log_half)
+        running = running & keep & (eps > 1e-10) & (eps < 1e7) & (it < 64)
+        if not bool(running.any()):
+            return eps
+        eps = torch.where(running, eps * torch.where(up, 2.0, 0.5), eps)
+        it += 1
+        d = delta_h(eps)
+
+
+@dataclass
+class _DAState:
+    log_eps: torch.Tensor
+    log_eps_avg: torch.Tensor
+    h_avg: torch.Tensor
+    mu: torch.Tensor
+    count: torch.Tensor
+
+
+def _da_init(eps: torch.Tensor) -> _DAState:
+    return _DAState(
+        log_eps=torch.log(eps),
+        log_eps_avg=torch.log(eps),
+        h_avg=torch.zeros_like(eps),
+        mu=torch.log(10.0 * eps),
+        count=torch.zeros_like(eps),
+    )
+
+
+def _da_update(state: _DAState, accept_prob, target: float) -> _DAState:
+    t0, gamma, kappa = 10.0, 0.05, 0.75
+    m = state.count + 1.0
+    eta_h = _const(1.0, m) / (m + t0)
+    h_avg = (1.0 - eta_h) * state.h_avg + eta_h * (target - accept_prob)
+    log_eps = state.mu - torch.sqrt(m) / _const(gamma, m) * h_avg
+    eta = m ** -kappa
+    log_eps_avg = eta * log_eps + (1.0 - eta) * state.log_eps_avg
+    return _DAState(log_eps, log_eps_avg, h_avg, state.mu, m)
+
+
+# ---------------------------------------------------------------------------
+# Welford variance accumulation (mass adaptation)
+# ---------------------------------------------------------------------------
+@dataclass
+class _Welford:
+    mean: torch.Tensor
+    m2: torch.Tensor
+    count: torch.Tensor
+
+
+def _welford_init(shape, device=None) -> _Welford:
+    z = torch.zeros(shape, dtype=torch.float32, device=device)
+    return _Welford(z, z.clone(), torch.zeros(shape[:-1], dtype=torch.float32, device=device))
+
+
+def _welford_update(w: _Welford, x) -> _Welford:
+    n = w.count + 1.0
+    delta = x - w.mean
+    mean = w.mean + delta / n[..., None]
+    m2 = w.m2 + delta * (x - mean)
+    return _Welford(mean, m2, n)
+
+
+def _welford_var(w: _Welford):
+    """Regularized variance estimate (Stan's shrinkage toward 1e-3)."""
+    n = torch.clamp(w.count - 1.0, min=1.0)[..., None]
+    var = w.m2 / n
+    c = w.count[..., None]
+    return (c / (c + 5.0)) * var + 1e-3 * (_const(5.0, c) / (c + 5.0))
+
+
+# ---------------------------------------------------------------------------
+# Warmup schedule (Stan-style fast / window / fast phases)
+# ---------------------------------------------------------------------------
+def _warmup_schedule(num_warmup: int):
+    """Returns list of (length, is_window, update_mass_at_end)."""
+    if num_warmup <= 20:
+        return [(num_warmup, False, False)] if num_warmup > 0 else []
+    init = max(int(0.15 * num_warmup), 10)
+    term = max(int(0.10 * num_warmup), 10)
+    middle = num_warmup - init - term
+    if middle < 20:
+        return [(num_warmup, False, False)]
+    phases = [(init, False, False)]
+    size = max(middle // 4, 10) if middle >= 40 else middle
+    pos = 0
+    while pos < middle:
+        w = min(size, middle - pos)
+        if middle - (pos + w) < 10:  # absorb tail into the last window
+            w = middle - pos
+        phases.append((w, True, True))
+        pos += w
+        size *= 2
+    phases.append((term, False, False))
+    return phases
+
+
+# ---------------------------------------------------------------------------
+# Replica exchange (parallel tempering)
+# ---------------------------------------------------------------------------
+def geometric_ladder(n_replicas: int, beta_min: float) -> np.ndarray:
+    """Geometric inverse-temperature ladder 1 = b_0 > ... > b_{R-1} =
+    ``beta_min``; the cold rung (the target posterior) is index 0."""
+    R = int(n_replicas)
+    if R < 2:
+        return np.ones((max(R, 1),), np.float32)
+    return np.asarray(beta_min ** (np.arange(R) / (R - 1)), np.float32)
+
+
+@dataclass(frozen=True)
+class ReplicaExchange:
+    """Replica-exchange (parallel tempering) spec for ``run_nuts``, with the
+    JAX package's contract: the chain axis is grouped as ``C = M *
+    n_replicas`` with replicas contiguous and the cold rung (beta = 1) first
+    in each group; ``betas`` (C,) is aligned with the chain rows;
+    ``ll_fn(u[, data])`` returns the untempered likelihood term (C,) that
+    beta multiplies in ``logp_fn``. Swaps between rungs i, j are accepted
+    with ``min(1, exp((beta_i - beta_j) * (ll_j - ll_i)))`` in the
+    deterministic even-odd (DEO) scheme: sweep s pairs rungs (0,1),(2,3),...
+    when s is even and (1,2),(3,4),... when odd."""
+
+    n_replicas: int
+    betas: torch.Tensor
+    ll_fn: Callable
+    swap_every: int = 1
+
+
+def _exchange_sweep(ex: ReplicaExchange, uniforms, sweep_idx: int, u, data):
+    """One DEO swap sweep over positions u (C, D). ``uniforms`` (M, R) are
+    the sweep's uniform draws, one used per pair (indexed by the pair's
+    lower rung). Returns ``(perm, mean acceptance)`` with ``u_new =
+    u[perm]``: only positions move between rungs; each rung keeps its step
+    size and mass matrix."""
+    C = u.shape[0]
+    R = int(ex.n_replicas)
+    M = C // R
+    dev = u.device
+    with torch.no_grad():
+        ll = ex.ll_fn(u) if data is None else ex.ll_fn(u, data)
+    llg = ll.reshape(M, R)
+    bg = ex.betas.reshape(M, R)
+
+    r = torch.arange(R, device=dev)
+    parity = int(sweep_idx) % 2
+    partner = torch.where((r - parity) % 2 == 0, r + 1, r - 1)
+    in_range = (partner >= 0) & (partner < R)
+    partner_safe = torch.clamp(partner, 0, R - 1)
+
+    ll_p = llg[:, partner_safe]
+    b_p = bg[:, partner_safe]
+    # Symmetric in (r, partner): both members compute the same ratio.
+    log_accept = (bg - b_p) * (ll_p - llg)
+    pair_id = torch.minimum(r, partner_safe)
+    uni_pair = uniforms[:, pair_id]
+    accept = in_range[None, :] & (torch.log(uni_pair) < log_accept)
+    perm_within = torch.where(accept, partner_safe[None, :], r[None, :])
+    perm = (torch.arange(M, device=dev)[:, None] * R + perm_within).reshape(-1)
+    return perm, accept.to(torch.float32).mean()
+
+
+# ---------------------------------------------------------------------------
+# Full driver: warmup + sampling for the whole batch of chains
+# ---------------------------------------------------------------------------
+def run_nuts(
+    seed: int,
+    logp_fn: Callable[..., torch.Tensor],
+    init_u: torch.Tensor,
+    *,
+    num_warmup: int,
+    num_samples: int,
+    max_depth: int = 10,
+    target_accept: float = 0.8,
+    thin: int = 1,
+    data=None,
+    segment_length: int = 50,
+    checkpoint_dir: Optional[str] = None,
+    device_retries: int = 2,
+    mirror_every: Optional[int] = None,
+    mode_hop=None,
+    exchange: Optional[ReplicaExchange] = None,
+    value_and_grad_fn: Optional[Callable] = None,
+) -> Tuple[torch.Tensor, dict]:
+    """Run NUTS on every chain of ``init_u`` (C, D): warmup with step-size
+    and diagonal-mass adaptation, then sampling. Returns (samples (C,
+    num_samples, D), info dict), on ``init_u``'s device.
+
+    ``data``: optional per-chain tensor (leading axis C); ``logp_fn(u,
+    data)`` is then called with it. ``mode_hop``: optional move
+    ``hop(gen, u, logp, g, vg_fn) -> (u, logp, g)`` run after every
+    transition; it must preserve the target. ``exchange``: optional
+    :class:`ReplicaExchange`, a DEO swap sweep after every
+    ``exchange.swap_every`` transitions; ``samples`` then holds every rung.
+    A sample is the state after the move and before the sweep, as in the
+    JAX package. ``value_and_grad_fn``: optional ``(u[, data], need_grad)
+    -> (logp, grad or None)`` of the same density, used in place of
+    autograd through ``logp_fn`` (a closed-form gradient).
+    """
+    if segment_length != 50 or checkpoint_dir is not None or device_retries != 2 or mirror_every is not None:
+        raise NotImplementedError(
+            f"segment launches, host mirrors, checkpoint/resume and device-loss replay {_LATER}"
+        )
+    num_chains, D = init_u.shape
+    dev = init_u.device
+    if exchange is not None:
+        if num_chains % int(exchange.n_replicas) != 0:
+            raise ValueError(f"num_chains={num_chains} not divisible by n_replicas={exchange.n_replicas}")
+        if tuple(exchange.betas.shape) != (num_chains,):
+            raise ValueError(f"exchange.betas must be ({num_chains},), got {tuple(exchange.betas.shape)}")
+    gen = make_generator(child_seed(seed, 0), dev)
+    gen_ex = make_generator(child_seed(seed, 0x45584348), dev)  # exchange-sweep stream
+
+    # Per-step warmup flags from the Stan-style schedule.
+    W = int(num_warmup)
+    collect_flags = np.zeros((max(W, 1),), np.bool_)
+    update_flags = np.zeros((max(W, 1),), np.bool_)
+    pos = 0
+    for length, is_window, update_mass in _warmup_schedule(W):
+        collect_flags[pos : pos + length] = is_window
+        pos += length
+        if update_mass:
+            update_flags[pos - 1] = True
+
+    if value_and_grad_fn is None:
+        vg_once = value_and_grad(logp_fn, data)
+    elif data is None:
+        vg_once = value_and_grad_fn
+    else:
+        vg_once = lambda u, need_grad=True: value_and_grad_fn(u, data, need_grad)  # noqa: E731
+    calls = [0]  # batched potential evaluations (each one K2 launch, plus one K3 with the gradient)
+
+    def vg_fn(u, need_grad: bool = True):
+        calls[0] += 1
+        return vg_once(u, need_grad)
+
+    u = init_u.to(torch.float32)
+    inv_mass = torch.ones((num_chains, D), device=dev)
+    logp, g = vg_fn(u)
+    eps0 = find_reasonable_step_size(gen, vg_fn, u, inv_mass, logp=logp, g=g)
+    da = _da_init(eps0)
+    w = _welford_init((num_chains, D), dev)
+    eps_final = eps0
+
+    samples = torch.empty((num_chains, num_samples, D), device=dev)
+    accept_prob = torch.empty((num_chains, num_samples), device=dev)
+    num_steps = torch.empty((num_chains, num_samples), dtype=torch.int64, device=dev)
+    diverging = torch.empty((num_chains, num_samples), dtype=torch.bool, device=dev)
+    swap_accept = []
+    for t in range(W + num_samples):
+        warm = t < W
+        eps = torch.exp(da.log_eps) if warm else eps_final
+        for _ in range(thin):
+            u, logp, g, info = nuts_step(
+                gen, u, logp, g, vg_fn=vg_fn, eps=eps, inv_mass=inv_mass, max_depth=max_depth
+            )
+        if mode_hop is not None:
+            u, logp, g = mode_hop(gen, u, logp, g, vg_fn)
+        if warm:
+            da = _da_update(da, info["accept_prob"], target_accept)
+            if collect_flags[t]:
+                w = _welford_update(w, u)
+            if update_flags[t]:
+                # New mass matrix from the window variance; reset Welford and
+                # re-center dual averaging (Stan behavior at window ends).
+                inv_mass = _welford_var(w)
+                da = _da_init(torch.exp(da.log_eps_avg))
+                w = _welford_init((num_chains, D), dev)
+            eps_final = torch.exp(da.log_eps_avg)
+        else:
+            s = t - W
+            samples[:, s] = u
+            accept_prob[:, s] = info["accept_prob"]
+            num_steps[:, s] = info["num_steps"]
+            diverging[:, s] = info["diverging"]
+        if exchange is not None:
+            swap_every = max(int(exchange.swap_every), 1)
+            if t % swap_every == 0:
+                R = int(exchange.n_replicas)
+                uni = torch.rand((num_chains // R, R), generator=gen_ex, device=dev)
+                perm, acc = _exchange_sweep(exchange, uni, t // swap_every, u, data)
+                u = u[perm]
+                logp, g = vg_fn(u)
+                swap_accept.append(acc)
+
+    info = {
+        "accept_prob": accept_prob,
+        "num_steps": num_steps,
+        "diverging": diverging,
+        "step_size": eps_final,
+        "inv_mass": inv_mass,
+        "potential_calls": calls[0],
+    }
+    if swap_accept:
+        # Mean DEO sweep acceptance over the whole run (warmup included).
+        info["swap_accept"] = float(torch.stack(swap_accept).mean())
+    return samples, info

@@ -1,0 +1,227 @@
+"""Posterior potentials (PyTorch port): the conditioned summed
+log-likelihood and the theta-only posterior potential.
+
+Counterpart of ``sbi_for_diffusion_models_tpu/potentials.py``. Where the JAX
+package ``vmap``s the per-theta sum over trials, the port builds the (N*T)
+rows of all thetas and trials at once, so one batched call of the log-prob
+(one K2 launch forward, one K3 launch backward) serves every chain.
+
+``log_lik_fn`` differentiates by autograd (through the fused
+``autograd.Function`` or the plain network). ``log_lik_and_grad`` computes
+the same value and its theta-gradient in closed form around K2/K3; the
+sampler uses it at every leapfrog step, where autograd's per-operation host
+cost was most of the step's time on the card.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .distributions import Distribution
+from .nets.mnle_net import MNLE
+from .ops import mnle_cuda
+
+__all__ = ["ConditionedMNLELogLikelihood", "ThetaOnlyPosteriorPotential"]
+
+
+class ConditionedMNLELogLikelihood:
+    """``ll(theta) = sum_i log p(x_i | theta, s_i)`` for batches of theta,
+    given the session's stimulus ``local_theta`` (T, P)."""
+
+    def __init__(self, estimator: MNLE, local_theta, *, logprob_kernel: str = "xla"):
+        self.estimator = estimator
+        self.local_theta = torch.as_tensor(local_theta, dtype=torch.float32).to(estimator.device)
+        if self.local_theta.dim() != 2:
+            raise ValueError(f"local_theta must be (num_trials, P), got {tuple(self.local_theta.shape)}")
+        # "pallas" runs the rows through the fused kernels, which hold the
+        # weights packed at construction; "xla" through log_prob_fn(params).
+        self.logprob_kernel = logprob_kernel
+        self._lp_fused = estimator.dispatch_log_prob(logprob_kernel) if logprob_kernel != "xla" else None
+        self._session_cache = None
+
+    def __call__(self, x, theta):
+        return self.forward(x, theta)
+
+    def log_lik_fn(self, params, x, theta):
+        """x (T, 2), theta (N, D) -> (N,) summed log-likelihood."""
+        est = self.estimator
+        if self._lp_fused is not None and params is not est.params:
+            # The fused path holds the weights packed at construction; a
+            # different network here would silently evaluate stale weights.
+            raise ValueError(
+                "fused log-prob path was built for the estimator's current "
+                "params; pass estimator.params or use logprob_kernel='xla'"
+            )
+        s = self.local_theta
+        T, N = s.shape[0], theta.shape[0]
+        cond = torch.cat(
+            [theta[:, None, :].expand(N, T, theta.shape[-1]), s[None].expand(N, T, s.shape[-1])], dim=-1
+        ).reshape(N * T, -1)
+        xr = x[None].expand(N, T, x.shape[-1]).reshape(N * T, -1)
+        lp = self._lp_fused(xr, cond) if self._lp_fused is not None else est.log_prob_fn(params, xr, cond)
+        return lp.reshape(N, T).sum(-1)
+
+    @property
+    def closed_form_grad(self) -> bool:
+        """Whether ``log_lik_and_grad`` is available (the fused path)."""
+        return self._lp_fused is not None
+
+    def _session(self, x):
+        """The theta-free parts of the rows for session ``x`` (T, 2), made
+        once per session: one-hot choices, censored mask, the standardized
+        stimulus columns of the condition, and the RT terms when they do not
+        depend on theta."""
+        if self._session_cache is not None and self._session_cache[0] is x:
+            return self._session_cache[1]
+        est, cfg = self.estimator, self.estimator.cfg
+        theta_dim = cfg.condition_dim - self.local_theta.shape[1]
+        probe = torch.cat([torch.ones((x.shape[0], theta_dim), device=x.device), self.local_theta], dim=-1)
+        t, onehot, c, log_det, barrier, choice = est.standardize(x, probe)
+        sess = {
+            "rt": x[:, 0],
+            "onehot": onehot,
+            "c_stim": c[:, theta_dim:],
+            "censored": (choice == cfg.censored_category) if cfg.censor_rt else None,
+            "t": t,
+            "extra": log_det + barrier,
+            "log_mask": None,
+        }
+        log_dims = [d for d in cfg.log_condition_dims if d < theta_dim]
+        if log_dims:
+            sess["log_mask"] = torch.zeros((theta_dim,), dtype=torch.bool, device=x.device)
+            sess["log_mask"][log_dims] = True
+        self._session_cache = (x, sess)
+        return sess
+
+    def log_lik_and_grad(self, x, theta, need_grad: bool = True):
+        """``(ll (N,), d ll / d theta (N, D) or None)`` for x (T, 2) and theta
+        (N, D) on the fused path: one K2 launch for the values and one K3
+        launch for the gradient over all N*T rows, with the outer transforms
+        (condition log/z-score, shifted-log RT, its log-det and barrier, the
+        censored mask) differentiated in closed form instead of by autograd.
+        The same function as ``log_lik_fn``; the sampler calls this at every
+        leapfrog step, where autograd's per-operation cost dominated."""
+        if self._lp_fused is None:
+            raise ValueError("log_lik_and_grad needs the fused path (logprob_kernel != 'xla')")
+        est, cfg = self.estimator, self.estimator.cfg
+        sess = self._session(x)
+        N, D = theta.shape
+        T = sess["rt"].shape[0]
+
+        # Condition columns of theta: log dims, then z-scoring.
+        c_th = theta
+        dc_th = torch.ones_like(theta)
+        mask = sess["log_mask"]
+        if mask is not None:
+            clamped = torch.clamp(theta, min=1e-37)
+            c_th = torch.where(mask, torch.log(clamped), theta)
+            dc_th = torch.where(mask, torch.where(theta >= 1e-37, 1.0 / clamped, 0.0), 1.0)
+        if cfg.z_score_theta:
+            c_th = (c_th - est.cond_mean[:D]) / est.cond_std[:D]
+            dc_th = dc_th / est.cond_std[:D]
+        ctx = torch.cat(
+            [c_th[:, None, :].expand(N, T, D), sess["c_stim"][None].expand(N, T, sess["c_stim"].shape[1])], dim=-1
+        ).reshape(N * T, -1)
+
+        # RT coordinate: depends on theta only through t_nd in shifted-log.
+        if cfg.rt_rep == "shifted_log":
+            gap = sess["rt"][None, :] - theta[:, cfg.tnd_index, None]
+            gap_c = torch.clamp(gap, min=1e-6)
+            t_raw = torch.log(gap_c)
+            t = (t_raw - est.x_mean) / est.x_std if cfg.z_score_x else t_raw
+            extra = -t_raw - 50.0 * torch.relu(1e-6 - gap)
+            if cfg.z_score_x:
+                extra = extra - torch.log(est.x_std)
+        else:
+            t = sess["t"][None].expand(N, T)
+            extra = sess["extra"][None].expand(N, T)
+        if sess["censored"] is not None:
+            extra = torch.where(sess["censored"], 0.0, extra)
+
+        weights = self._lp_fused.weights
+        t_rows = t.reshape(N * T)
+        oh_rows = sess["onehot"].repeat(N, 1)
+        ll = (mnle_cuda.rows_logp(t_rows, oh_rows, ctx, weights).reshape(N, T) + extra).sum(-1)
+        if not need_grad:
+            return ll, None
+
+        ones = torch.ones_like(t_rows)
+        d_t, d_ctx = mnle_cuda.rows_logp_vjp(t_rows, oh_rows, ctx, weights, ones)
+        grad = d_ctx.reshape(N, T, -1)[:, :, :D].sum(1) * dc_th
+        if cfg.rt_rep == "shifted_log":
+            # d t_raw / d t_nd = -1/gap above the floor; barrier slope -50 below it.
+            dt_raw = torch.where(gap >= 1e-6, -1.0 / gap_c, 0.0)
+            d_t_th = dt_raw / est.x_std if cfg.z_score_x else dt_raw
+            d_extra = -dt_raw - 50.0 * (gap < 1e-6).to(theta.dtype)
+            if sess["censored"] is not None:
+                d_extra = torch.where(sess["censored"], 0.0, d_extra)
+            g_tnd = (d_t.reshape(N, T) * d_t_th + d_extra).sum(-1)
+            grad[:, cfg.tnd_index] += g_tnd
+        return ll, grad
+
+    def forward(self, x, theta):
+        """x: (T, 2) or (1, T, 2); theta: (N, D). Returns (1, N)."""
+        x = torch.as_tensor(x, dtype=torch.float32)
+        if x.dim() == 3:
+            if x.shape[0] != 1:
+                raise ValueError(f"only num_xs == 1 is supported, got {x.shape[0]}")
+            x = x[0]
+        theta = torch.as_tensor(theta, dtype=torch.float32)
+        if theta.dim() == 1:
+            theta = theta.reshape(1, -1)
+        if x.shape[0] != self.local_theta.shape[0]:
+            raise ValueError(
+                f"x has {x.shape[0]} trials but local_theta has {self.local_theta.shape[0]}"
+            )
+        return self.log_lik_fn(self.estimator.params, x, theta)[None, :]
+
+
+class ThetaOnlyPosteriorPotential:
+    """log p(theta) + sum_i log p(x_i | theta, s_i) / temperature."""
+
+    def __init__(self, prior: Distribution, likelihood: ConditionedMNLELogLikelihood, x_o=None,
+                 temperature: float = 1.0):
+        self.prior = prior
+        self.likelihood = likelihood
+        self.temperature = float(temperature)
+        self.x_o = None
+        if x_o is not None:
+            self.set_x_o(x_o)
+
+    def set_x_o(self, x_o):
+        self.x_o = torch.as_tensor(x_o, dtype=torch.float32).to(self.likelihood.local_theta.device)
+
+    set_x = set_x_o
+
+    def log_likelihood(self, theta):
+        """Untempered summed log-likelihood of theta (N, D) -> (N,)."""
+        return self.likelihood.log_lik_fn(self.likelihood.estimator.params, self.x_o, theta)
+
+    def potential_fn(self, theta, x=None):
+        """theta (D,) -> scalar, or (N, D) -> (N,): prior + likelihood / T,
+        differentiable in theta (no masking)."""
+        if x is not None:
+            self.set_x_o(x)
+        squeeze = theta.dim() == 1
+        th = theta.reshape(1, -1) if squeeze else theta
+        out = self.prior.log_prob(th) + self.log_likelihood(th) / self.temperature
+        return out[0] if squeeze else out
+
+    def __call__(self, theta, x_o=None, track_gradients: bool = True):
+        """Batched potential theta (N, D) -> (N,); rows outside the prior's
+        support get -inf without their likelihood reaching the output."""
+        if x_o is not None:
+            self.set_x_o(x_o)
+        theta = torch.as_tensor(theta, dtype=torch.float32)
+        squeeze = theta.dim() == 1
+        if squeeze:
+            theta = theta.reshape(1, -1)
+        with torch.set_grad_enabled(track_gradients and torch.is_grad_enabled()):
+            lp_prior = self.prior.log_prob(theta)
+            finite = torch.isfinite(lp_prior)
+            safe_theta = torch.where(finite[:, None], theta, torch.ones_like(theta))
+            ll = self.log_likelihood(safe_theta)
+            out = torch.where(finite, lp_prior + ll / self.temperature, torch.full_like(ll, -math.inf))
+        return out[0] if squeeze else out

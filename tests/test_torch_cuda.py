@@ -1,0 +1,115 @@
+"""PyTorch port: the CUDA kernels K1, K2 and K3 against their plain versions
+on the card. Without a CUDA device (or without nvcc to build the kernels)
+every test here is skipped; ``chip_smoke.py`` runs the same checks at the
+main path's full sizes.
+"""
+
+import shutil
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from sbi_for_diffusion_models_tpu_torch.nets.mnle_net import MNLEConfig, mnle_from_flax_params
+from sbi_for_diffusion_models_tpu_torch.ops import mnle_cuda as mc
+from sbi_for_diffusion_models_tpu_torch.ops.ddm_cuda import K1, ddm_rt_choice_cuda
+from sbi_for_diffusion_models_tpu_torch.ops.ddm_scan import ddm_rt_choice_scan
+from sbi_for_diffusion_models_tpu_torch.pipeline import build_prior_theta
+from sbi_for_diffusion_models_tpu_torch.utils.rng import make_generator
+
+pytestmark = pytest.mark.requires_cuda
+
+DEV = torch.device("cuda", 0)
+
+
+@pytest.fixture(autouse=True)
+def _needs_card():
+    """Skip unless there is a CUDA device and nvcc (decided per test, never
+    while the module is imported)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels are CUDA C++ with no CPU mode")
+    if not (Path("/usr/local/cuda/bin/nvcc").exists() or shutil.which("nvcc")):
+        pytest.skip("needs nvcc: the kernels are built from source at first use")
+
+
+KW = dict(dt=5e-4, t_max=0.8, steps_per_pulse=200, n_max=1600)
+
+
+def _theta_and_pulses(n, seed=0):
+    gen = make_generator(seed, DEV)
+    theta = build_prior_theta().sample(gen, (n,))
+    theta[:, 4] = theta[:, 4] * 0.3  # onsets inside the 0.8 s window
+    s = torch.where(torch.rand((n, 8), generator=gen, device=DEV) < 0.5, 1.0, -1.0)
+    return theta.contiguous(), s.contiguous()
+
+
+def test_k1_equals_its_plain_version_without_noise_and_counts_launches():
+    theta, s = _theta_and_pulses(8192)
+    before = K1.launches
+    got = ddm_rt_choice_cuda(theta, s, 1, mu_sensory=0.0, **KW)
+    ref = ddm_rt_choice_scan(theta, s, 2, mu_sensory=0.0, chunk_steps=200, **KW)
+    assert K1.launches == before + 1
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+def test_k1_is_deterministic_per_seed_and_differs_across_seeds():
+    theta, s = _theta_and_pulses(4096, seed=1)
+    a = ddm_rt_choice_cuda(theta, s, 5, **KW)
+    b = ddm_rt_choice_cuda(theta, s, 5, **KW)
+    c = ddm_rt_choice_cuda(theta, s, 6, **KW)
+    assert torch.equal(a, b)
+    assert not torch.equal(a, c)
+    assert set(a[:, 1].unique().tolist()) <= {0.0, 1.0, 2.0}
+
+
+def _small_estimator(**kw):
+    cfg = MNLEConfig(condition_dim=9, hidden_features=32, num_transforms=4, num_bins=8, **kw)
+    rng = np.random.default_rng(0)
+    H, C, D, S = cfg.hidden_features, cfg.num_categories, cfg.condition_dim, 3 * cfg.num_bins - 1
+
+    def dense(i, o):
+        return {"kernel": (rng.normal(size=(i, o)) / np.sqrt(i)).astype(np.float32),
+                "bias": (0.1 * rng.normal(size=o)).astype(np.float32)}
+
+    L = cfg.trunk_depth
+    tree = {
+        "cat_net": {f"Dense_{i}": dense(*io) for i, io in enumerate([(D, H)] + [(H, H)] * (L - 1) + [(H, C)])},
+        "flow_trunk": {f"Dense_{i}": dense(*io) for i, io in enumerate([(D + C, H)] + [(H, H)] * (L - 1) + [(H, H)])},
+    }
+    for i in range(cfg.num_transforms):
+        tree[f"spline_head_{i}"] = dense(H, S)
+    if cfg.cond_affine:
+        tree["affine_head"] = dense(H, 2)
+    return mnle_from_flax_params(cfg, tree, np.zeros(D), np.ones(D), 0.0, 1.0, device=DEV)
+
+
+@pytest.mark.parametrize("variant", [{}, dict(censor_rt=True, cond_affine=True)], ids=["log", "censor_affine"])
+def test_k2_k3_match_their_plain_versions(variant):
+    est = _small_estimator(**variant)
+    w = mc.pack_mnle_weights(est)
+    gen = torch.Generator(DEV).manual_seed(0)
+    n = 1000  # not a multiple of the 16-row tile
+    t = 2.0 * torch.randn((n,), generator=gen, device=DEV)
+    ctx = torch.randn((n, 9), generator=gen, device=DEV)
+    oh = torch.nn.functional.one_hot(torch.randint(0, 3, (n,), generator=gen, device=DEV), 3).float()
+    g = torch.randn((n,), generator=gen, device=DEV)
+    # Reference: the plain version in float64 on the same float32 inputs and
+    # weights (two float32 evaluations differ by their own rounding).
+    w64 = w.astype(torch.float64)
+    args64 = (t.double(), oh.double(), ctx.double(), w64)
+    val = mc.rows_logp(t, oh, ctx, w).double()
+    ref = mc.rows_logp_plain(*args64)
+    assert float(((val - ref).abs() / ref.abs().clamp(min=1.0)).max()) <= 1e-4
+    dt, dctx = mc.rows_logp_vjp(t, oh, ctx, w, g)
+    dt_ref, dctx_ref = mc.rows_logp_vjp_plain(*args64, g.double())
+    for got, want in ((dt, dt_ref), (dctx, dctx_ref)):
+        assert float((got.double() - want).abs().max() / want.abs().max()) <= 1e-3
+
+
+def test_wrappers_reject_wrong_dtypes():
+    est = _small_estimator()
+    w = mc.pack_mnle_weights(est)
+    t = torch.zeros((4,), device=DEV, dtype=torch.float64)
+    with pytest.raises(ValueError):
+        mc.rows_logp(t, torch.zeros((4, 3), device=DEV), torch.zeros((4, 9), device=DEV), w)

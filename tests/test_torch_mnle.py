@@ -1,0 +1,255 @@
+"""PyTorch port: the MNLE network, its weight converter, ``load_model`` and
+the plain versions of kernels K2/K3, against the JAX package.
+
+The CUDA kernels themselves cannot run here; ``chip_smoke.py`` holds them to
+these plain versions on the card. On CPU tensors the fused path
+(``dispatch_log_prob("pallas")``) runs its ``autograd.Function`` with the
+plain row function, so its plumbing is tested here too.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sbi_for_diffusion_models_tpu import mnle as jmnle
+from sbi_for_diffusion_models_tpu.nets.mnle_net import MNLEConfig as JConfig
+from sbi_for_diffusion_models_tpu.nets.mnle_net import build_mnle
+from sbi_for_diffusion_models_tpu.ops import mnle_pallas as jpallas
+from sbi_for_diffusion_models_tpu_torch import mnle as tmnle
+from sbi_for_diffusion_models_tpu_torch.nets.mnle_net import MNLEConfig, mnle_from_flax_params
+from sbi_for_diffusion_models_tpu_torch.ops import _cuda
+from sbi_for_diffusion_models_tpu_torch.ops import mnle_cuda as tk
+
+SMALL = dict(hidden_features=32, num_transforms=4, num_bins=8)
+VARIANTS = {
+    "log": {},
+    "shifted_log_censor": dict(rt_rep="shifted_log", censor_rt=True),
+    "cond_affine": dict(censor_rt=True, cond_affine=True),
+    "log_theta_dims": dict(rt_rep="shifted_log", censor_rt=True, log_condition_dims=(1, 2, 3), cond_affine=True,
+                           trunk_depth=3),
+}
+FLAGSHIP = "mnle_10m_shifted_logt_affine.npz"
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_est_cached(variant):
+    return _jax_est(**VARIANTS[variant])
+
+
+def _jax_est(cd=9, **kw):
+    cfg = JConfig(condition_dim=cd, num_categories=3, **SMALL, **kw)
+    est = build_mnle(jax.random.key(0), cfg)
+    return est.__class__(
+        cfg=cfg, params=est.params,
+        cond_mean=0.1 * jnp.arange(cd, dtype=jnp.float32), cond_std=jnp.linspace(0.5, 2.0, cd),
+        x_mean=jnp.float32(0.3), x_std=jnp.float32(1.7), train_meta=None,
+    )
+
+
+def _port(jest):
+    tree = jax.tree.map(np.asarray, jest.params)
+    cfg = MNLEConfig(**jest.cfg.__dict__)
+    return mnle_from_flax_params(cfg, tree, jest.cond_mean, jest.cond_std, jest.x_mean, jest.x_std)
+
+
+def _data(seed, n, cd):
+    rng = np.random.default_rng(seed)
+    rt = np.exp(0.5 * rng.normal(size=n)) + 0.3
+    choice = rng.integers(0, 3, n)
+    x = np.stack([rt, choice], -1).astype(np.float32)
+    cond = (0.7 * rng.normal(size=(n, cd)) + 0.2).astype(np.float32)
+    cond[:, 1:4] = np.abs(cond[:, 1:4]) + 0.05  # positive where log-transformed
+    cond[:, 4] = rng.uniform(0.0, 0.3, n)  # t_nd below most rts
+    return x, cond
+
+
+def _assert_rel_linf(a, b, tol, what=""):
+    """Relative L-infinity error max|a - b| / max|b| <= tol."""
+    err = float(np.max(np.abs(np.asarray(a, np.float64) - b)) / max(float(np.max(np.abs(b))), 1e-30))
+    assert err <= tol, f"{what}: relative L-inf error {err:.3e} > {tol:g}"
+
+
+def _value_and_cond_grad_torch(fn, x, cond):
+    c = torch.from_numpy(cond).requires_grad_(True)
+    lp = fn(torch.from_numpy(x), c)
+    (g,) = torch.autograd.grad(lp.sum(), c)
+    return lp.detach().numpy(), g.numpy()
+
+
+def _value_and_cond_grad_jax(fn, x, cond):
+    xs = jnp.asarray(x)
+    val, g = jax.jit(jax.vmap(jax.value_and_grad(lambda c, a: fn(a[None], c[None])[0]), (0, 0)))(jnp.asarray(cond), xs)
+    return np.asarray(val), np.asarray(g)
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_small_model_log_prob_and_condition_grad_match_jax(variant):
+    jest = _jax_est_cached(variant)
+    est = _port(jest)
+    x, cond = _data(1, 37, 9)
+    ref_v, ref_g = _value_and_cond_grad_jax(lambda a, c: jest.log_prob_fn(jest.params, a, c), x, cond)
+    for kernel in ("xla", "pallas"):  # plain path; fused autograd.Function on CPU rows
+        fn = est.dispatch_log_prob(kernel)
+        v, g = _value_and_cond_grad_torch(fn, x, cond)
+        np.testing.assert_allclose(v, ref_v, rtol=2e-5, atol=2e-5, err_msg=kernel)
+        _assert_rel_linf(g, ref_g, 1e-4, kernel)
+
+
+def test_weight_converter_keeps_torch_layout_and_checks_shapes():
+    jest = _jax_est_cached("cond_affine")
+    est = _port(jest)
+    k = np.asarray(jest.params["flow_trunk"]["Dense_0"]["kernel"])
+    w = est.net.flow_trunk.layers[0].weight.detach().numpy()
+    assert w.shape == (k.shape[1], k.shape[0]) and np.array_equal(w, k.T)
+    # pack_mnle_weights agrees with the JAX pack, matrix for matrix.
+    jw = jpallas.pack_mnle_weights(jest)
+    tw = tk.pack_mnle_weights(est).as_list()
+    assert len(jw) == len(tw)
+    for a, b in zip(jw, tw):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a).reshape(b.shape))
+    tree = jax.tree.map(np.asarray, jest.params)
+    tree["spline_head_0"]["kernel"] = tree["spline_head_0"]["kernel"][:, :-1]
+    with pytest.raises(ValueError, match="kernel shape"):
+        mnle_from_flax_params(est.cfg, tree, jest.cond_mean, jest.cond_std, 0.0, 1.0)
+
+
+@pytest.mark.parametrize("variant", ["log", "cond_affine"])
+def test_row_function_and_vjp_match_jax(variant):
+    """Plain versions of K2 and K3 against the JAX row function ``_rows_logp``
+    and ``jax.vjp`` of it, on the same packed weights (no pallas_call)."""
+    jest = _jax_est_cached(variant)
+    est = _port(jest)
+    cfg = jest.cfg
+    rng = np.random.default_rng(2)
+    n = 53
+    t = rng.normal(0, 1.5, n).astype(np.float32)
+    oh = np.eye(3, dtype=np.float32)[rng.integers(0, 3, n)]
+    ctx = rng.normal(size=(n, 9)).astype(np.float32)
+    g = rng.normal(size=n).astype(np.float32)
+    kw = dict(n_layers=cfg.trunk_depth + 1, num_transforms=cfg.num_transforms, num_bins=cfg.num_bins,
+              tail_bound=cfg.tail_bound, censored_col=cfg.censored_category if cfg.censor_rt else None,
+              cond_affine=cfg.cond_affine)
+    jw = jpallas.pack_mnle_weights(jest)
+
+    @jax.jit
+    def jrows_vjp(tt, cc, gg):
+        out, vjp = jax.vjp(lambda a, b: jpallas._rows_logp(a, jnp.asarray(oh), b, jw, **kw), tt, cc)
+        return (out,) + vjp(gg)
+
+    ref, ref_dt, ref_dc = jrows_vjp(jnp.asarray(t), jnp.asarray(ctx), jnp.asarray(g))
+    w = tk.pack_mnle_weights(est)
+    tt, to, tc = torch.from_numpy(t), torch.from_numpy(oh), torch.from_numpy(ctx)
+    np.testing.assert_allclose(tk.rows_logp_plain(tt, to, tc, w).numpy(), np.asarray(ref), rtol=2e-5, atol=2e-5)
+    dt, dc = tk.rows_logp_vjp_plain(tt, to, tc, w, torch.from_numpy(g))
+    _assert_rel_linf(dt.numpy(), np.asarray(ref_dt), 1e-4, "dt")
+    _assert_rel_linf(dc.numpy(), np.asarray(ref_dc), 1e-4, "dctx")
+    # The wrappers take the plain versions for CPU tensors, without a launch.
+    before = {k: v.launches for k, v in _cuda.KERNELS.items()}
+    assert torch.equal(tk.rows_logp(tt, to, tc, w), tk.rows_logp_plain(tt, to, tc, w))
+    assert {k: v.launches for k, v in _cuda.KERNELS.items()} == before
+
+
+def test_censored_rows_keep_only_the_choice_term():
+    jest = _jax_est_cached("cond_affine")
+    est = _port(jest)
+    x, cond = _data(3, 12, 9)
+    x[:, 1] = 2.0
+    x[:6, 0] = 0.0  # rt below t_nd: a flow term that would be non-finite
+    lp = est.log_prob(torch.from_numpy(x), torch.from_numpy(cond))
+    fused = est.dispatch_log_prob("pallas")(torch.from_numpy(x), torch.from_numpy(cond)).detach()
+    ref = np.asarray(jax.jit(jest.log_prob_fn)(jest.params, jnp.asarray(x), jnp.asarray(cond)))
+    assert torch.isfinite(lp).all() and torch.isfinite(fused).all()
+    np.testing.assert_allclose(lp.numpy(), ref, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(fused.numpy(), ref, rtol=2e-5, atol=2e-5)
+
+
+def test_unported_options_raise():
+    for kw in (dict(rt_rep="pulse", censor_rt=True), dict(tail_sharp_k=2.0), dict(pulse_dim=80, embed_dim=8)):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            mnle_from_flax_params(MNLEConfig(**kw), {}, 0.0, 1.0, 0.0, 1.0)
+    est = _port(_jax_est_cached("log"))
+    with pytest.raises(NotImplementedError):
+        est.sample(None, None)
+    with pytest.raises(ValueError, match="unknown log-prob kernel"):
+        est.dispatch_log_prob("triton")
+
+
+@pytest.fixture(scope="module")
+def flagship(request):
+    mp = pytest.MonkeyPatch()
+    from pathlib import Path
+
+    mp.setenv("MODEL_DIR", str(Path(__file__).resolve().parents[1] / "artifacts" / "models"))
+    jest, est = jmnle.load_model(FLAGSHIP), tmnle.load_model(FLAGSHIP)
+    request.addfinalizer(mp.undo)
+    return jest, est
+
+
+def _session_rows(seed=0, n_theta=4):
+    """One simulated 50-trial session against a few prior thetas."""
+    from sbi_for_diffusion_models_tpu_torch.data_simulator import simulate_observed_session
+    from sbi_for_diffusion_models_tpu_torch.pipeline import build_prior_theta
+    from sbi_for_diffusion_models_tpu_torch.utils.rng import make_generator
+
+    theta = build_prior_theta().sample(make_generator(seed), (n_theta,))
+    theta[:, 4] = 0.5 * theta[:, 4]  # most trials after the onset
+    x, s = simulate_observed_session(theta[0], 50, seed=seed)
+    cond = torch.cat([theta[:, None, :].expand(n_theta, 50, 5), s[None].expand(n_theta, 50, 80)], -1)
+    return x[None].expand(n_theta, 50, 2).reshape(-1, 2).numpy(), cond.reshape(-1, 85).numpy()
+
+
+def _as_float64(jest, est):
+    """Both estimators in float64, the reference the float32 runs are held to."""
+    import copy
+
+    j64 = jest.__class__(
+        cfg=jest.cfg, params=jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), jest.params),
+        cond_mean=jnp.asarray(jest.cond_mean, jnp.float64), cond_std=jnp.asarray(jest.cond_std, jnp.float64),
+        x_mean=jnp.asarray(jest.x_mean, jnp.float64), x_std=jnp.asarray(jest.x_std, jnp.float64), train_meta=None,
+    )
+    t64 = copy.deepcopy(est)
+    t64.net.double()
+    for name in ("cond_mean", "cond_std", "x_mean", "x_std"):
+        setattr(t64, name, getattr(t64, name).double())
+    return j64, t64
+
+
+def test_flagship_load_model_matches_jax(flagship):
+    """The committed flagship model through the port's load_model.
+
+    In float64 the port and JAX compute the same function to 1e-9. In float32
+    both round away from it: ten 128-wide layers and ten splines, behind a
+    cond-affine scale exp(-log sigma) of up to e^7, amplify rounding on some
+    rows (measured: about 1% of realistic rows move by more than 1e-4 in
+    value). So in float32 the port is held to the issue's tolerances (values
+    1e-4 relative to max(1, |ref|), gradients 1e-3 relative L-inf) against
+    the float64 reference, or, where float32 itself cannot reach them, to
+    twice the error of the JAX float32 run on the same rows."""
+    jest, est = flagship
+    assert est.cfg.cond_affine and est.cfg.rt_rep == "shifted_log" and est.cfg.num_transforms == 10
+    assert est.cfg == MNLEConfig(**jest.cfg.__dict__)
+    np.testing.assert_array_equal(est.cond_std.numpy(), np.asarray(jest.cond_std))
+    x, cond = _session_rows()
+    j32_v, j32_g = _value_and_cond_grad_jax(lambda a, c: jest.log_prob_fn(jest.params, a, c), x, cond)
+    t32_v, t32_g = _value_and_cond_grad_torch(est.dispatch_log_prob("xla"), x, cond)
+    with jax.enable_x64(True):
+        j64, t64 = _as_float64(jest, est)
+        r_v, r_g = _value_and_cond_grad_jax(lambda a, c: j64.log_prob_fn(j64.params, a, c),
+                                           x.astype(np.float64), cond.astype(np.float64))
+    t64_v, t64_g = _value_and_cond_grad_torch(t64.log_prob, x.astype(np.float64), cond.astype(np.float64))
+    assert r_v.dtype == np.float64 and t64_v.dtype == np.float64
+    np.testing.assert_allclose(t64_v, r_v, rtol=1e-9, atol=1e-9)
+    _assert_rel_linf(t64_g, r_g, 1e-9, "float64 gradient")
+
+    def val_err(v):
+        return float(np.max(np.abs(v - r_v) / np.maximum(1.0, np.abs(r_v))))
+
+    def grad_err(g):
+        return float(np.max(np.abs(g - r_g)) / np.max(np.abs(r_g)))
+
+    assert val_err(t32_v) <= max(1e-4, 2 * val_err(j32_v)), (val_err(t32_v), val_err(j32_v))
+    assert grad_err(t32_g) <= max(1e-3, 2 * grad_err(j32_g)), (grad_err(t32_g), grad_err(j32_g))

@@ -1,0 +1,147 @@
+"""PyTorch port: the slice as a whole. On the committed flagship model and
+one simulated session, the u-space posterior potential
+(``ThetaOnlyPosteriorPotential`` through ``mcmc_transform``) and its gradient
+for a batch of theta, against the JAX package."""
+
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sbi_for_diffusion_models_tpu import distributions as jd
+from sbi_for_diffusion_models_tpu import mnle as jmnle
+from sbi_for_diffusion_models_tpu import potentials as jp
+from sbi_for_diffusion_models_tpu.pipeline import build_prior_theta as j_prior
+from sbi_for_diffusion_models_tpu_torch import distributions as td
+from sbi_for_diffusion_models_tpu_torch import mnle as tmnle
+from sbi_for_diffusion_models_tpu_torch import potentials as tp
+from sbi_for_diffusion_models_tpu_torch.pipeline import build_prior_theta as t_prior
+
+MODEL = "mnle_10m_shifted_logt_affine.npz"
+
+
+@pytest.fixture(scope="module")
+def models():
+    mp = pytest.MonkeyPatch()
+    mp.setenv("MODEL_DIR", str(Path(__file__).resolve().parents[1] / "artifacts" / "models"))
+    try:
+        yield jmnle.load_model(MODEL), tmnle.load_model(MODEL)
+    finally:
+        mp.undo()
+
+
+def _session():
+    """A 50-trial session from a fixed theta, made with numpy: RTs after a
+    0.15 s onset, a quarter of the trials censored at the 8 s window end."""
+    rng = np.random.default_rng(7)
+    choice = rng.choice([0.0, 1.0, 2.0], 50, p=[0.4, 0.35, 0.25])
+    rt = np.where(choice == 2.0, 8.0, 0.15 + rng.gamma(2.0, 0.4, 50))
+    pulses = np.where(rng.random((50, 80)) < 0.5, 1.0, -1.0)
+    return np.stack([rt, choice], -1).astype(np.float32), pulses.astype(np.float32)
+
+
+def _u_batch():
+    rng = np.random.default_rng(8)
+    theta = np.stack(
+        [rng.uniform(0.2, 0.8, 8), rng.lognormal(-1, 0.5, 8), rng.lognormal(0, 0.5, 8),
+         rng.lognormal(2.75, 0.3, 8), rng.uniform(0.01, 0.14, 8)], -1,
+    ).astype(np.float32)
+    return np.asarray(jd.mcmc_transform(j_prior()).inverse(jnp.asarray(theta)))
+
+
+@pytest.fixture(scope="module")
+def jax_reference(models):
+    """JAX value and gradient of the u-space posterior potential at
+    ``_u_batch()`` for the ``_session()`` data."""
+    jest, _ = models
+    x_o, pulses = _session()
+    jprior, jbij = j_prior(), jd.mcmc_transform(j_prior())
+    jpot = jp.ThetaOnlyPosteriorPotential(
+        jprior, jp.ConditionedMNLELogLikelihood(jest, pulses, logprob_kernel="xla"), x_o=x_o
+    )
+
+    def j_logp_u(uu):
+        return jpot.potential_fn(jbij.forward(uu)) + jbij.forward_log_det(uu)
+
+    ref_v, ref_g = jax.jit(jax.vmap(jax.value_and_grad(j_logp_u)))(jnp.asarray(_u_batch()))
+    return np.asarray(ref_v), np.asarray(ref_g)
+
+
+def test_u_space_posterior_potential_and_gradient_match_jax(models, jax_reference):
+    _, est = models
+    x_o, pulses = _session()
+    u = _u_batch()
+    ref_v, ref_g = jax_reference
+
+    tprior, tbij = t_prior(), td.mcmc_transform(t_prior())
+    for kernel in ("xla", "pallas"):  # plain path; the fused autograd.Function on CPU rows
+        tpot = tp.ThetaOnlyPosteriorPotential(
+            tprior, tp.ConditionedMNLELogLikelihood(est, pulses, logprob_kernel=kernel), x_o=x_o
+        )
+        uu = torch.from_numpy(u).requires_grad_(True)
+        val = tpot.potential_fn(tbij.forward(uu)) + tbij.forward_log_det(uu)
+        (g,) = torch.autograd.grad(val.sum(), uu)
+        assert np.all(np.isfinite(ref_v)) and np.all(np.abs(ref_v) > 10)
+        np.testing.assert_allclose(val.detach().numpy(), ref_v, rtol=1e-4, err_msg=kernel)
+        # Gradient entries near zero get the batch's scale as absolute slack.
+        np.testing.assert_allclose(g.numpy(), ref_g, rtol=1e-3, atol=1e-3 * np.abs(ref_g).max(), err_msg=kernel)
+        # The batched __call__ agrees, and masks out-of-support theta to -inf.
+        theta = tbij.forward(torch.from_numpy(u))
+        np.testing.assert_allclose(tpot(theta).numpy(), tpot.potential_fn(theta).numpy(), rtol=1e-6)
+        bad = theta.clone()
+        bad[0, 0] = 1.5
+        assert tpot(bad)[0] == -np.inf and torch.isfinite(tpot(bad)[1:]).all()
+
+
+def test_likelihood_shapes_and_stale_params_guard(models):
+    _, est = models
+    x_o, pulses = _session()
+    lik = tp.ConditionedMNLELogLikelihood(est, pulses, logprob_kernel="pallas")
+    theta = t_prior().sample(torch.Generator().manual_seed(0), (3,))
+    assert lik(x_o, theta).shape == (1, 3)
+    assert lik(x_o[None], theta[0]).shape == (1, 1)
+    with pytest.raises(ValueError, match="trials"):
+        lik(x_o[:10], theta)
+    with pytest.raises(ValueError, match="fused log-prob path"):
+        lik.log_lik_fn(torch.nn.Linear(1, 1), torch.from_numpy(x_o), theta)
+    with pytest.raises(ValueError, match="num_trials"):
+        tp.ConditionedMNLELogLikelihood(est, pulses[0])
+
+
+def test_closed_form_gradient_matches_jax_and_autograd(models, jax_reference):
+    """The sampler's closed-form value and gradient (prior, bijector and the
+    likelihood's outer transforms around K2/K3) against JAX at beta = 1,
+    and against autograd through the tempered density at every PT rung,
+    including onsets past some RTs (the shifted-log floor and barrier)."""
+    from sbi_for_diffusion_models_tpu_torch.inference import nuts as tn
+    from sbi_for_diffusion_models_tpu_torch.inference.mcmc import MCMCPosterior
+
+    _, est = models
+    x_o, pulses = _session()
+    u = _u_batch()
+    ref_v, ref_g = jax_reference
+
+    tprior, tbij = t_prior(), td.mcmc_transform(t_prior())
+    tpot = tp.ThetaOnlyPosteriorPotential(
+        tprior, tp.ConditionedMNLELogLikelihood(est, pulses, logprob_kernel="pallas"), x_o=x_o, temperature=1.0
+    )
+    post = MCMCPosterior(tpot, tprior, tbij, pt_replicas=4)
+    vg = post._closed_form_vg()
+    val, g = vg(torch.from_numpy(u), torch.ones(8))
+    np.testing.assert_allclose(val.numpy(), ref_v, rtol=1e-4)
+    np.testing.assert_allclose(g.numpy(), ref_g, rtol=1e-3, atol=1e-3 * np.abs(ref_g).max())
+
+    # Tempered rungs and onsets past the first RTs, against autograd.
+    uu = torch.from_numpy(u).clone()
+    uu[:3, 4] = torch.tensor([0.0, 1.0, 3.0])  # t_nd = 0.5, 0.73, 0.95 s
+    betas = torch.as_tensor(tn.geometric_ladder(4, 0.04)).repeat(2)
+    base_fn, ll_fn = post._split_logp()
+    auto = tn.value_and_grad(lambda x, b: base_fn(x) + b * ll_fn(x), betas)
+    v_ref, g_ref = auto(uu)
+    v_cf, g_cf = vg(uu, betas)
+    np.testing.assert_allclose(v_cf.numpy(), v_ref.numpy(), rtol=1e-6)
+    np.testing.assert_allclose(g_cf.numpy(), g_ref.numpy(), rtol=1e-5, atol=1e-5 * g_ref.abs().max().item())
+    assert vg(uu, betas, False)[1] is None
