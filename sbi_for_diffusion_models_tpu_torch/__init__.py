@@ -8,10 +8,14 @@ each beside its plain PyTorch version:
 * K1, the pulse-DDM simulator: ``ops/ddm_cuda.py`` (plain: ``ops/ddm_scan.py``),
   counterpart of ``ops/ddm_pallas.py``;
 * K2/K3, the fused MNLE log-prob forward and backward: ``ops/mnle_cuda.py``,
-  counterpart of ``ops/mnle_pallas.py``.
+  counterpart of ``ops/mnle_pallas.py``;
+* K2p/K3p, the same pair for the pulse-grid RT representation (absolute
+  anchor), in ``ops/mnle_cuda.py`` as well.
 
-The package imports ``torch`` and never ``jax``. Submodules are imported
-where they are used; importing the package itself loads nothing else.
+Entry points run on the CUDA card unless given another ``device``
+(``utils/device.py``); without a card they raise. The package imports
+``torch`` and never ``jax``. Submodules are imported where they are used;
+importing the package itself loads nothing else.
 """
 
 __version__ = "0.1.0"

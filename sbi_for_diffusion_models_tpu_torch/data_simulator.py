@@ -22,6 +22,7 @@ from .models.rt_choice_model import (
     rt_choice_model_simulator_torch,
 )
 from .run_config import RUN_CONFIG_PARAMS, RunConfig
+from .utils.device import resolve_device
 from .utils.rng import as_seed, child_seed, make_generator
 
 __all__ = [
@@ -68,13 +69,13 @@ def simulate_training_set_with_conditions(
     seed: int = 0,
     verbose: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Simulate (z, x) training pairs on ``device`` (default CPU).
+    """Simulate (z, x) training pairs on ``device`` (default: the CUDA card).
 
     Returns z: (N, 5+P) float32 and x: (N, 2) float32 [rt, choice].
     Batch b draws z from ``child_seed(seed, 2b)`` and the noise from
     ``child_seed(seed, 2b+1)``.
     """
-    device = torch.device(device) if device is not None else torch.device("cpu")
+    device = resolve_device(device)
     num_simulations = int(num_simulations or cfg.NUM_SIMULATIONS)
     batch_size = int(batch_size or cfg.TRAIN_BATCH_SIZE)
     seed = as_seed(seed)
@@ -108,13 +109,13 @@ def simulate_observed_session(
     device=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Seeded observed session: (x_o (T, 2), pulses_o (T, P)) on ``device``
-    (default: theta_true's device, CPU for numpy input)."""
+    (default: theta_true's device, the CUDA card for numpy input)."""
     seed = as_seed(seed)
     if isinstance(theta_true, torch.Tensor):
         device = theta_true.device if device is None else torch.device(device)
         theta_true = theta_true.to(device=device, dtype=torch.float32)
     else:
-        device = torch.device(device) if device is not None else torch.device("cpu")
+        device = resolve_device(device)
         theta_true = torch.as_tensor(np.asarray(theta_true, np.float32), device=device)
     theta_true = theta_true.reshape(1, -1)
     n_max, spp = pulse_schedule()

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..distributions import Bijector, Distribution
+from ..utils.device import resolve_device
 from ..utils.rng import child_seed, make_generator
 from .nuts import ReplicaExchange, geometric_ladder, run_nuts
 
@@ -79,7 +80,7 @@ class MCMCPosterior:
         self.auto_fallback = bool(auto_fallback)
         self.fallback_divergence_rate = float(fallback_divergence_rate)
         self.fallback_r_hat = float(fallback_r_hat)
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = resolve_device(device)
         self.used_fallback = False
         self._last_info: Optional[dict] = None
         self._last_diagnostics: Optional[dict] = None

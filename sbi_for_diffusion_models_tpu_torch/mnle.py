@@ -3,8 +3,9 @@
 Counterpart of ``sbi_for_diffusion_models_tpu/mnle.py``. Ported so far:
 ``load_model`` (the JAX ``save_model`` ``.npz`` layout: ``param:<keystr>``
 leaves, ``stat:*`` arrays and the ``__meta__`` JSON, read with numpy alone)
-and ``run_inference_mcmc``. Training, ``save_model``, ensembles and SBC
-follow in later slices.
+and ``run_inference_mcmc``, for the log, shifted-log and pulse-grid RT
+representations (the pulse rep's absolute anchor through kernels K2p/K3p).
+Training, ``save_model``, ensembles and SBC follow in later slices.
 """
 
 from __future__ import annotations
@@ -51,7 +52,8 @@ def _unflatten(data) -> dict:
 
 def load_model(filename: str = _DEFAULT_MODEL_FILENAME, *, device=None) -> MNLE:
     """Load an estimator saved by the JAX ``save_model`` from
-    ``$MODEL_DIR/filename`` (default ``~/models``) onto ``device``."""
+    ``$MODEL_DIR/filename`` (default ``~/models``) onto ``device`` (default:
+    the CUDA card; pass ``device="cpu"`` for the CPU)."""
     path = _model_dir() / filename
     with np.load(path, allow_pickle=False) as data:
         meta = json.loads(str(data["__meta__"]))

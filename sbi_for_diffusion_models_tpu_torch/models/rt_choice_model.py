@@ -18,6 +18,7 @@ from ..constants import DT_CHOICE, PULSE_INTERVAL, T_MAX
 from ..ops.ddm_cuda import ddm_rt_choice_cuda
 from ..ops.ddm_scan import ddm_rt_choice_scan
 from ..run_config import RUN_CONFIG_PARAMS
+from ..utils.device import resolve_device
 from ..utils.rng import as_seed, child_seed, make_generator
 
 cfg = RUN_CONFIG_PARAMS
@@ -103,9 +104,11 @@ def generate_pulse_matrix(
 
 
 def _as_f32(x: ArrayLike, device=None) -> torch.Tensor:
+    """A float32 tensor on ``device``: by default a tensor's own device, and
+    the CUDA card for other input."""
     if isinstance(x, torch.Tensor):
         return x.to(device=device if device is not None else x.device, dtype=torch.float32)
-    return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
+    return torch.as_tensor(np.asarray(x, dtype=np.float32), device=resolve_device(device))
 
 
 def as_pulse_tensor(pulse_sides: ArrayLike, *, device=None) -> torch.Tensor:
@@ -170,7 +173,7 @@ def rt_choice_model_simulator_torch(
     device=None,
 ) -> torch.Tensor:
     """Batched simulator: theta (N,5) or (5,) -> (N,2) float32 [rt, choice]
-    on ``device`` (default: theta's device, CPU for numpy input)."""
+    on ``device`` (default: theta's device, the CUDA card for numpy input)."""
     theta = _as_f32(theta, device)
     if theta.dim() == 1:
         theta = theta.reshape(1, -1)
@@ -194,7 +197,9 @@ def simulate_session_data_rt_choice(
     device=None,
 ):
     """IID session: (num_trials, 2) [rt, choice]; with
-    ``return_pulse_sides=True`` also the realized (num_trials, P) stimulus."""
+    ``return_pulse_sides=True`` also the realized (num_trials, P) stimulus.
+    On ``device`` (default: theta_true's device, the CUDA card for numpy
+    input)."""
     seed = as_seed(rng)
     theta_true = _as_f32(theta_true, device).reshape(1, -1)
     dev = theta_true.device
@@ -214,10 +219,10 @@ def simulate_session_data_rt_choice(
     return x
 
 
-def pack_x_rt_choice(rt_choice: ArrayLike, *, log_rt: bool) -> torch.Tensor:
+def pack_x_rt_choice(rt_choice: ArrayLike, *, log_rt: bool, device=None) -> torch.Tensor:
     """Pack to the MNLE x-convention: continuous column first, discrete last;
     RT clamped then optionally logged, choice never logged."""
-    rt_choice = _as_f32(rt_choice)
+    rt_choice = _as_f32(rt_choice, device)
     rt = torch.clamp(rt_choice[:, 0:1], min=1e-6)
     if log_rt:
         rt = torch.log(rt)

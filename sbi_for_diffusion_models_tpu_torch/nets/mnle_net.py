@@ -29,7 +29,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .spline import num_spline_params, rq_spline_forward
+from ..utils.device import resolve_device
+from .spline import (
+    clip,
+    num_circular_spline_params,
+    num_spline_params,
+    rq_spline_circular,
+    rq_spline_forward,
+)
 
 __all__ = [
     "MNLEConfig",
@@ -38,6 +45,8 @@ __all__ = [
     "mnle_from_flax_params",
     "transform_condition",
     "shifted_rt_transform",
+    "pulse_grid_split",
+    "slot_features",
 ]
 
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
@@ -80,14 +89,29 @@ class MNLEConfig:
     def __post_init__(self):
         object.__setattr__(self, "log_condition_dims", tuple(self.log_condition_dims))
 
+    @property
+    def circular(self) -> bool:
+        """Whether the flow is the circular phase flow (pulse rep, absolute
+        anchor)."""
+        return self.rt_rep == "pulse" and self.grid_anchor == "absolute"
+
+    @property
+    def num_slot_features(self) -> int:
+        """Width of the pulse rep's flow-head features (0 otherwise)."""
+        if self.rt_rep != "pulse":
+            return 0
+        return 3 if self.grid_anchor == "absolute" else 1
+
     def check_ported(self) -> None:
-        """Raise ``NotImplementedError`` for the parts not ported yet."""
-        if self.rt_rep == "pulse":
-            raise NotImplementedError(f"rt_rep='pulse' {_LATER}")
-        if self.rt_rep not in ("log", "shifted_log"):
+        """Raise ``ValueError`` for invalid configurations and
+        ``NotImplementedError`` for the parts not ported yet."""
+        if self.rt_rep not in ("log", "shifted_log", "pulse"):
             raise ValueError(f"unknown rt_rep {self.rt_rep!r}")
-        if self.rt_rep == "shifted_log" and not self.censor_rt:
-            raise ValueError("rt_rep='shifted_log' requires censor_rt=True")
+        if self.rt_rep in ("pulse", "shifted_log") and not self.censor_rt:
+            raise ValueError(
+                f"rt_rep={self.rt_rep!r} requires censor_rt=True: the censored "
+                "atom is handled by the choice head, not the RT flow"
+            )
         if self.pulse_dim > 0 and (self.embed_dim > 0 or self.embed_mode == "append"):
             raise NotImplementedError(f"the pulse embedding (pulse_dim > 0) {_LATER}")
         if self.tail_sharp_k > 0:
@@ -126,6 +150,41 @@ def shifted_rt_transform(cfg: MNLEConfig, rt: torch.Tensor, condition: torch.Ten
     return t, -t, barrier
 
 
+def pulse_grid_split(cfg: MNLEConfig, rt: torch.Tensor, t_nd: torch.Tensor):
+    """(pulse rep) rt -> ``(k, phi, s, ds, barrier)``: the slot k (int64),
+    the within-slot phase phi in (0, 1), the flow coordinate s, log|ds/drt|
+    and a barrier.
+
+    Absolute anchor: k = floor(rt / Delta), s = phi (the circular flow takes
+    the phase itself), ds = -log Delta, no barrier; all theta-free. tnd
+    anchor: k = floor((rt - t_nd) / Delta), s = logit(phi), ds = log|ds/drt|
+    and a quadratic barrier where rt <= t_nd + euler_dt."""
+    delta = cfg.pulse_interval
+    absolute = cfg.grid_anchor == "absolute"
+    dtt = rt if absolute else rt - t_nd
+    u = torch.maximum(dtt, dtt.new_tensor(cfg.euler_dt)) / delta
+    k = torch.clamp(torch.floor(u).to(torch.int64), 0, cfg.num_pulse_slots - 1)
+    phi = clip(u - k.to(u.dtype), 1e-6, 1.0 - 1e-6)
+    if absolute:
+        return k, phi, phi, torch.full_like(phi, -math.log(delta)), torch.zeros_like(rt)
+    barrier = -((F.relu(cfg.euler_dt - dtt) / delta) ** 2) * 1e4
+    s = torch.log(phi) - torch.log1p(-phi)
+    ds = -torch.log(phi) - torch.log1p(-phi) - math.log(delta)
+    return k, phi, s, ds, barrier
+
+
+def slot_features(cfg: MNLEConfig, k: torch.Tensor, t_nd: torch.Tensor, dtype) -> torch.Tensor:
+    """(pulse rep) flow-head features (..., F): the normalized slot index
+    (k, an integer or its float value) and, for the absolute anchor, sin and
+    cos of t_nd's grid phase 2 pi ((t_nd / Delta) mod 1), computed in
+    ``dtype`` as the JAX package computes them."""
+    k_norm = ((k.to(dtype) + 0.5) / cfg.num_pulse_slots)[..., None]
+    if cfg.grid_anchor != "absolute":
+        return k_norm
+    ang = 2.0 * math.pi * torch.remainder(t_nd.to(dtype) / cfg.pulse_interval, 1.0)
+    return torch.cat([k_norm, torch.sin(ang)[..., None], torch.cos(ang)[..., None]], -1)
+
+
 class _MLP(nn.Module):
     """``depth`` ReLU layers of width ``hidden`` then a linear output layer
     (flax ``Dense_0 .. Dense_depth``)."""
@@ -145,7 +204,8 @@ class _MLP(nn.Module):
 
 class MNLENet(nn.Module):
     """The raw network on standardized inputs: ``u`` the z-scored (log-)rt
-    scalar, ``c`` the z-scored condition."""
+    scalar (pulse rep: the flow coordinate s), ``c`` the z-scored
+    condition."""
 
     def __init__(self, cfg: MNLEConfig):
         super().__init__()
@@ -154,16 +214,29 @@ class MNLENet(nn.Module):
         H, C = cfg.hidden_features, cfg.num_categories
         self.cat_net = _MLP(cfg.condition_dim, H, C, cfg.trunk_depth)
         self.flow_trunk = _MLP(cfg.condition_dim + C, H, H, cfg.trunk_depth)
-        S = num_spline_params(cfg.num_bins)
-        self.spline_heads = nn.ModuleList([nn.Linear(H, S) for _ in range(cfg.num_transforms)])
-        self.affine_head = nn.Linear(H, 2) if cfg.cond_affine else None
+        S = num_circular_spline_params(cfg.num_bins) if cfg.circular else num_spline_params(cfg.num_bins)
+        head_in = H + cfg.num_slot_features
+        self.spline_heads = nn.ModuleList([nn.Linear(head_in, S) for _ in range(cfg.num_transforms)])
+        pulse = cfg.rt_rep == "pulse"
+        self.affine_head = nn.Linear(H, 2) if cfg.cond_affine and not pulse else None
+        self.pulse_slot_head = nn.Linear(H, cfg.num_pulse_slots) if pulse else None
 
     def choice_logits(self, c):
         """(..., condition_dim) -> (..., num_categories) log-probabilities."""
         return F.log_softmax(self.cat_net(c), dim=-1)
 
-    def flow_params(self, c, choice_onehot):
-        emb = F.relu(self.flow_trunk(torch.cat([c, choice_onehot], dim=-1)))
+    def _trunk_emb(self, c, choice_onehot):
+        return F.relu(self.flow_trunk(torch.cat([c, choice_onehot], dim=-1)))
+
+    def slot_logits(self, c, choice_onehot):
+        """(pulse rep) (..., condition_dim), (..., C) -> (..., num_pulse_slots)
+        log P(k | c, choice)."""
+        return F.log_softmax(self.pulse_slot_head(self._trunk_emb(c, choice_onehot)), dim=-1)
+
+    def flow_params(self, c, choice_onehot, k_feat=None):
+        emb = self._trunk_emb(c, choice_onehot)
+        if k_feat is not None:
+            emb = torch.cat([emb, k_feat], dim=-1)
         params = [head(emb) for head in self.spline_heads]
         affine = None
         if self.affine_head is not None:
@@ -171,11 +244,18 @@ class MNLENet(nn.Module):
             affine = (a[..., 0], torch.clamp(a[..., 1], -7.0, 7.0))
         return params, affine
 
-    def flow_log_prob(self, u, c, choice_onehot):
-        """log p(u | c, choice) for scalar u (shape (...,))."""
-        params, affine = self.flow_params(c, choice_onehot)
+    def flow_log_prob(self, u, c, choice_onehot, k_feat=None):
+        """log p(u | c, choice) for scalar u (shape (...,)); the pulse rep
+        conditions the heads on the slot features ``k_feat``."""
+        params, affine = self.flow_params(c, choice_onehot, k_feat)
         z = u
         log_det = torch.zeros_like(u)
+        if self.cfg.circular:
+            # Circular phase flow, uniform base on [0, 1): log p(z) = 0.
+            for p in params:
+                z, ld = rq_spline_circular(z, p, num_bins=self.cfg.num_bins)
+                log_det = log_det + ld
+            return log_det
         if affine is not None:
             mu, ls = affine
             z = (z - mu) * torch.exp(-ls)
@@ -223,13 +303,10 @@ class MNLE:
             setattr(self, name, getattr(self, name).to(device))
         return self
 
-    def standardize(self, x, condition):
-        """The outer transforms around the network, shared with the fused
-        path: returns ``(t, onehot, c, log_det, barrier, choice)`` with t the
-        standardized flow coordinate, c the standardized condition and
-        log_det + barrier the change-of-variables terms of t."""
+    def _standardize_condition(self, x, condition):
+        """``(choice, onehot, c)``: the choice, its one-hot and the
+        standardized condition."""
         cfg = self.cfg
-        rt = x[..., 0]
         choice = x[..., 1].to(torch.int64)
         c = transform_condition(cfg, condition)
         if cfg.z_score_theta:
@@ -237,6 +314,16 @@ class MNLE:
         # A comparison, not F.one_hot: one_hot reads the largest index back
         # to the host, a device sync on every call of the potential.
         onehot = (choice[..., None] == torch.arange(cfg.num_categories, device=choice.device)).to(torch.float32)
+        return choice, onehot, c
+
+    def standardize(self, x, condition):
+        """The outer transforms around the network, shared with the fused
+        path: returns ``(t, onehot, c, log_det, barrier, choice)`` with t the
+        standardized flow coordinate, c the standardized condition and
+        log_det + barrier the change-of-variables terms of t."""
+        cfg = self.cfg
+        rt = x[..., 0]
+        choice, onehot, c = self._standardize_condition(x, condition)
         log_det = torch.zeros_like(rt)
         barrier = torch.zeros_like(rt)
         t = rt
@@ -252,10 +339,44 @@ class MNLE:
             log_det = log_det - torch.log(self.x_std)
         return t, onehot, c, log_det, barrier, choice
 
+    def standardize_pulse(self, x, condition):
+        """(pulse rep, absolute anchor) The rows of the fused path and of
+        the potential: returns ``(phi, onehot, c, kf, kv, ds, choice)`` with
+        phi the within-slot phase, kf the flow-head features [k_norm, sin,
+        cos], kv the slot index as a float and ds = -log Delta on the rows
+        that are not censored (0 on censored rows)."""
+        cfg = self.cfg
+        rt = x[..., 0]
+        choice, onehot, c = self._standardize_condition(x, condition)
+        t_nd = condition[..., cfg.tnd_index]
+        k, phi, _, ds, _ = pulse_grid_split(cfg, rt, t_nd)
+        kf = slot_features(cfg, k, t_nd, phi.dtype)
+        ds = torch.where(choice == cfg.censored_category, 0.0, ds)
+        return phi, onehot, c, kf, k.to(phi.dtype), ds, choice
+
+    def _pulse_log_prob(self, params: MNLENet, x, condition):
+        """The pulse branch of ``log_prob_fn``: P(choice) P(k | choice) and
+        the phase flow, on the rows that are not censored."""
+        cfg = self.cfg
+        rt = x[..., 0]
+        choice, onehot, c = self._standardize_condition(x, condition)
+        cat_lp = torch.gather(params.choice_logits(c), -1, choice[..., None])[..., 0]
+        t_nd = condition[..., cfg.tnd_index]
+        k, _, t, log_det, barrier = pulse_grid_split(cfg, rt, t_nd)
+        if cfg.z_score_x and not cfg.circular:
+            t = (t - self.x_mean) / self.x_std
+            log_det = log_det - torch.log(self.x_std)
+        slot_lp = torch.gather(params.slot_logits(c, onehot), -1, k[..., None])[..., 0]
+        flow_lp = params.flow_log_prob(t, c, onehot, slot_features(cfg, k, t_nd, t.dtype))
+        rt_term = slot_lp + flow_lp + log_det + barrier
+        return cat_lp + torch.where(choice == cfg.censored_category, 0.0, rt_term)
+
     def log_prob_fn(self, params: MNLENet, x, condition):
         """log p(x | condition) in plain PyTorch, broadcasting over leading
         axes. x: (..., 2); condition: (..., condition_dim). Returns (...,)."""
         cfg = self.cfg
+        if cfg.rt_rep == "pulse":
+            return self._pulse_log_prob(params, x, condition)
         t, onehot, c, log_det, barrier, choice = self.standardize(x, condition)
         logits = params.choice_logits(c)
         cat_lp = torch.gather(logits, -1, choice[..., None])[..., 0]
@@ -276,15 +397,17 @@ class MNLE:
     def dispatch_log_prob(self, kernel: str = "auto"):
         """The log-prob implementation for the MCMC hot path (kernel: "auto"
         | "xla" | "pallas"). "pallas" is the fused CUDA forward/backward
-        pair K2/K3 (``ops/mnle_cuda.py``), whose CPU route is the plain row
-        function; "xla" is ``log_prob_fn``; "auto" takes the kernels for
-        CUDA tensors and ``log_prob_fn`` for CPU tensors. The returned
+        pair (K2/K3, or K2p/K3p for the pulse rep; ``ops/mnle_cuda.py``),
+        whose CPU route is the plain row function; "xla" is ``log_prob_fn``;
+        "auto" takes the kernels for CUDA tensors and ``log_prob_fn`` for CPU
+        tensors. The pulse rep's tnd anchor has no fused path: "auto" gives
+        ``log_prob_fn`` for it and "pallas" raises. The returned
         ``fn(x, condition)`` differentiates w.r.t. its inputs."""
         choice = kernel or "auto"
         if choice not in ("auto", "xla", "pallas"):
             raise ValueError(f"unknown log-prob kernel {choice!r}")
         plain = lambda x, condition: self.log_prob_fn(self.net, x, condition)  # noqa: E731
-        if choice == "xla":
+        if choice == "xla" or (choice == "auto" and self.cfg.rt_rep == "pulse" and not self.cfg.circular):
             return plain
         from ..ops.mnle_cuda import make_fused_logprob
 
@@ -319,13 +442,15 @@ def mnle_from_flax_params(
     """Build the port's ``MNLE`` from a JAX parameter tree.
 
     ``params`` is the flax tree as nested dicts of numpy arrays:
-    ``cat_net/Dense_i``, ``flow_trunk/Dense_i``, ``spline_head_i`` and
-    (cond-affine) ``affine_head``, each with ``kernel`` (in, out) and
-    ``bias`` (out,). The port's ``nn.Linear`` layers keep PyTorch's (out, in)
-    layout, so each kernel is transposed here; biases are copied as they are.
-    The weights come back with ``requires_grad=False``.
+    ``cat_net/Dense_i``, ``flow_trunk/Dense_i``, ``spline_head_i``,
+    (cond-affine) ``affine_head`` and (pulse rep) ``pulse_slot_head``, each
+    with ``kernel`` (in, out) and ``bias`` (out,). The port's ``nn.Linear``
+    layers keep PyTorch's (out, in) layout, so each kernel is transposed
+    here; biases are copied as they are. The weights come back with
+    ``requires_grad=False``, on ``device`` (default: the CUDA card).
     """
     net = MNLENet(cfg)
+    device = resolve_device(device)
 
     def put(linear: nn.Linear, leaf) -> None:
         kernel = np.asarray(leaf["kernel"], np.float32)
@@ -346,9 +471,10 @@ def mnle_from_flax_params(
         put(head, params[f"spline_head_{i}"])
     if net.affine_head is not None:
         put(net.affine_head, params["affine_head"])
+    if net.pulse_slot_head is not None:
+        put(net.pulse_slot_head, params["pulse_slot_head"])
     # Inference differentiates w.r.t. the inputs only: the weights are
     # constants, as the JAX package's closed-over parameter tree is.
     net.requires_grad_(False)
-    if device is not None:
-        net.to(device)
+    net.to(device)
     return MNLE(cfg, net, cond_mean, cond_std, x_mean, x_std, train_meta=train_meta)

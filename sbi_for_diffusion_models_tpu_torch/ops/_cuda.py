@@ -5,8 +5,10 @@ launches it on the stream it is given and returns the ``cudaError_t`` of the
 launch. The file is compiled with ``nvcc -gencode arch=compute_90a,
 code=sm_90a -O3 -shared`` at first use into ``build/kernels/`` at the root of
 the checkout (listed in ``.gitignore``), named by a hash of the source, the
-flags and the compiler, so an unchanged source is built once. The library is
-loaded with ``ctypes``. A failed build or a failed launch raises.
+shared headers (``csrc/*.cuh``), the flags and the compiler, so an unchanged
+source is built once. ``build_all`` starts one nvcc per source, all at once.
+The library is loaded with ``ctypes``. A failed build or a failed launch
+raises.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine without ``nvcc``.
@@ -21,6 +23,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Sequence
 
@@ -59,6 +62,8 @@ class _Library:
     def path(self, nvcc: str) -> Path:
         h = hashlib.sha256()
         h.update(self.source.read_bytes())
+        for header in sorted(CSRC_DIR.glob("*.cuh")):
+            h.update(header.read_bytes())
         h.update(" ".join(ARCH_FLAGS + BASE_FLAGS + self.flags).encode())
         h.update(nvcc.encode())
         return BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:16]}.so"
@@ -137,9 +142,13 @@ class CudaKernel:
 
 
 def build_all() -> dict[str, float]:
-    """Build (or find built) every kernel library; returns seconds per file."""
+    """Build (or find built) every kernel library, one nvcc per source run
+    side by side, and load each; returns seconds per file."""
+    libs = list(_LIBRARIES.values())
+    with ThreadPoolExecutor(max_workers=max(1, len(libs))) as pool:
+        list(pool.map(_Library.build, libs))
     out = {}
-    for lib in _LIBRARIES.values():
+    for lib in libs:
         lib.load()
         out[lib.source.name] = lib.build_seconds
     return out

@@ -8,9 +8,9 @@ rows of all thetas and trials at once, so one batched call of the log-prob
 
 ``log_lik_fn`` differentiates by autograd (through the fused
 ``autograd.Function`` or the plain network). ``log_lik_and_grad`` computes
-the same value and its theta-gradient in closed form around K2/K3; the
-sampler uses it at every leapfrog step, where autograd's per-operation host
-cost was most of the step's time on the card.
+the same value and its theta-gradient in closed form around K2/K3 (K2p/K3p
+for the pulse rep); the sampler uses it at every leapfrog step, where
+autograd's per-operation host cost was most of the step's time on the card.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import math
 import torch
 
 from .distributions import Distribution
-from .nets.mnle_net import MNLE
+from .nets.mnle_net import MNLE, slot_features
 from .ops import mnle_cuda
 
 __all__ = ["ConditionedMNLELogLikelihood", "ThetaOnlyPosteriorPotential"]
@@ -37,8 +37,13 @@ class ConditionedMNLELogLikelihood:
             raise ValueError(f"local_theta must be (num_trials, P), got {tuple(self.local_theta.shape)}")
         # "pallas" runs the rows through the fused kernels, which hold the
         # weights packed at construction; "xla" through log_prob_fn(params).
+        # The pulse rep's tnd anchor has no fused path: "auto" evaluates it
+        # with log_prob_fn, with no closed-form gradient ("pallas" raises).
         self.logprob_kernel = logprob_kernel
-        self._lp_fused = estimator.dispatch_log_prob(logprob_kernel) if logprob_kernel != "xla" else None
+        cfg = estimator.cfg
+        tnd_anchor = cfg.rt_rep == "pulse" and not cfg.circular
+        fused = logprob_kernel != "xla" and (logprob_kernel == "pallas" or not tnd_anchor)
+        self._lp_fused = estimator.dispatch_log_prob(logprob_kernel) if fused else None
         self._session_cache = None
 
     def __call__(self, x, theta):
@@ -78,16 +83,21 @@ class ConditionedMNLELogLikelihood:
         est, cfg = self.estimator, self.estimator.cfg
         theta_dim = cfg.condition_dim - self.local_theta.shape[1]
         probe = torch.cat([torch.ones((x.shape[0], theta_dim), device=x.device), self.local_theta], dim=-1)
-        t, onehot, c, log_det, barrier, choice = est.standardize(x, probe)
-        sess = {
+        if cfg.rt_rep == "pulse":
+            # Absolute anchor: k, phi and ds are theta-free; t_nd enters
+            # only through the sin/cos features, made per call.
+            phi, onehot, c, kf, kv, ds, choice = est.standardize_pulse(x, probe)
+            sess = {"phi": phi, "kv": kv, "extra": ds}
+        else:
+            t, onehot, c, log_det, barrier, choice = est.standardize(x, probe)
+            sess = {"t": t, "extra": log_det + barrier}
+        sess.update({
             "rt": x[:, 0],
             "onehot": onehot,
             "c_stim": c[:, theta_dim:],
             "censored": (choice == cfg.censored_category) if cfg.censor_rt else None,
-            "t": t,
-            "extra": log_det + barrier,
             "log_mask": None,
-        }
+        })
         log_dims = [d for d in cfg.log_condition_dims if d < theta_dim]
         if log_dims:
             sess["log_mask"] = torch.zeros((theta_dim,), dtype=torch.bool, device=x.device)
@@ -97,12 +107,13 @@ class ConditionedMNLELogLikelihood:
 
     def log_lik_and_grad(self, x, theta, need_grad: bool = True):
         """``(ll (N,), d ll / d theta (N, D) or None)`` for x (T, 2) and theta
-        (N, D) on the fused path: one K2 launch for the values and one K3
-        launch for the gradient over all N*T rows, with the outer transforms
-        (condition log/z-score, shifted-log RT, its log-det and barrier, the
-        censored mask) differentiated in closed form instead of by autograd.
-        The same function as ``log_lik_fn``; the sampler calls this at every
-        leapfrog step, where autograd's per-operation cost dominated."""
+        (N, D) on the fused path: one K2 (K2p) launch for the values and one
+        K3 (K3p) launch for the gradient over all N*T rows, with the outer
+        transforms (condition log/z-score, shifted-log RT, its log-det and
+        barrier, the pulse rep's t_nd phase features, the censored mask)
+        differentiated in closed form instead of by autograd. The same
+        function as ``log_lik_fn``; the sampler calls this at every leapfrog
+        step, where autograd's per-operation cost dominated."""
         if self._lp_fused is None:
             raise ValueError("log_lik_and_grad needs the fused path (logprob_kernel != 'xla')")
         est, cfg = self.estimator, self.estimator.cfg
@@ -124,6 +135,8 @@ class ConditionedMNLELogLikelihood:
         ctx = torch.cat(
             [c_th[:, None, :].expand(N, T, D), sess["c_stim"][None].expand(N, T, sess["c_stim"].shape[1])], dim=-1
         ).reshape(N * T, -1)
+        if cfg.rt_rep == "pulse":
+            return self._pulse_lik_and_grad(sess, theta, ctx, dc_th, need_grad)
 
         # RT coordinate: depends on theta only through t_nd in shifted-log.
         if cfg.rt_rep == "shifted_log":
@@ -159,6 +172,31 @@ class ConditionedMNLELogLikelihood:
                 d_extra = torch.where(sess["censored"], 0.0, d_extra)
             g_tnd = (d_t.reshape(N, T) * d_t_th + d_extra).sum(-1)
             grad[:, cfg.tnd_index] += g_tnd
+        return ll, grad
+
+    def _pulse_lik_and_grad(self, sess, theta, ctx, dc_th, need_grad: bool):
+        """The pulse rep's part of ``log_lik_and_grad`` (absolute anchor):
+        K2p/K3p on the rows, and t_nd's gradient through the features
+        kf = [k_norm, sin ang, cos ang], ang = 2 pi ((t_nd / Delta) mod 1):
+        d kf / d t_nd = (0, cos ang, -sin ang) 2 pi / Delta. There is no
+        barrier to differentiate."""
+        cfg = self.estimator.cfg
+        N, D = theta.shape
+        T = sess["rt"].shape[0]
+        kf = slot_features(cfg, sess["kv"][None].expand(N, T), theta[:, cfg.tnd_index, None].expand(N, T),
+                           theta.dtype)
+        rows = (sess["phi"].repeat(N), sess["onehot"].repeat(N, 1), ctx, kf.reshape(N * T, -1), sess["kv"].repeat(N))
+        weights = self._lp_fused.weights
+        # extra = -log Delta on the rows that are not censored (made per session).
+        ll = (mnle_cuda.rows_logp_pulse(*rows, weights).reshape(N, T) + sess["extra"]).sum(-1)
+        if not need_grad:
+            return ll, None
+        _, d_ctx, d_kf = mnle_cuda.rows_logp_pulse_vjp(*rows, weights, torch.ones_like(rows[0]))
+        grad = d_ctx.reshape(N, T, -1)[:, :, :D].sum(1) * dc_th
+        d_kf = d_kf.reshape(N, T, -1).sum(1)
+        scale = 2.0 * math.pi / cfg.pulse_interval
+        sin, cos = kf[:, 0, 1], kf[:, 0, 2]
+        grad[:, cfg.tnd_index] += (d_kf[:, 1] * cos - d_kf[:, 2] * sin) * scale
         return ll, grad
 
     def forward(self, x, theta):

@@ -7,7 +7,7 @@ training and the constant cancels in the posterior. ``ExtendedProposal``
 is the product over the 5+P-dim z. Sampling draws from the
 ``torch.Generator`` it is given, on that generator's device; without one
 it consumes the proposal's own seeded stream (as the JAX proposals do
-without a key), on the proposal's ``device``.
+without a key), on the proposal's ``device`` (default: the CUDA card).
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import torch
 
 from .distributions import Distribution, Support, real_support
 from .run_config import RUN_CONFIG_PARAMS
+from .utils.device import resolve_device
 from .utils.rng import child_seed, make_generator
 
 __all__ = ["PulseSequenceProposal", "ExtendedProposal"]
@@ -31,7 +32,7 @@ class PulseSequenceProposal(Distribution):
         self.p_success = float(p_success)
         self.event_shape = (self.n_pulses,)
         self.seed = seed
-        self.device = device
+        self.device = resolve_device(device)
         self._counter = 0
 
     def _owned_generator(self, tag: int) -> torch.Generator:

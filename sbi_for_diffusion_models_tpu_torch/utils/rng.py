@@ -53,7 +53,11 @@ def child_seed(seed: SeedLike, *tags: int) -> int:
 
 
 def make_generator(seed: SeedLike, device=None) -> torch.Generator:
-    """A ``torch.Generator`` on ``device`` seeded from ``seed``."""
+    """A ``torch.Generator`` on ``device`` seeded from ``seed``.
+
+    A utility: its default stays the CPU, and every entry point of the port
+    passes the device it runs on (by default the CUDA card,
+    ``utils.device.default_device``)."""
     g = torch.Generator(device=torch.device(device) if device is not None else "cpu")
     g.manual_seed(as_seed(seed))
     return g

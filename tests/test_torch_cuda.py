@@ -1,5 +1,5 @@
-"""PyTorch port: the CUDA kernels K1, K2 and K3 against their plain versions
-on the card. Without a CUDA device (or without nvcc to build the kernels)
+"""PyTorch port: the CUDA kernels K1, K2, K3, K2p and K3p against their
+plain versions on the card. Without a CUDA device (or without nvcc to build the kernels)
 every test here is skipped; ``chip_smoke.py`` runs the same checks at the
 main path's full sizes.
 """
@@ -15,6 +15,7 @@ from sbi_for_diffusion_models_tpu_torch.nets.mnle_net import MNLEConfig, mnle_fr
 from sbi_for_diffusion_models_tpu_torch.ops import mnle_cuda as mc
 from sbi_for_diffusion_models_tpu_torch.ops.ddm_cuda import K1, ddm_rt_choice_cuda
 from sbi_for_diffusion_models_tpu_torch.ops.ddm_scan import ddm_rt_choice_scan
+from sbi_for_diffusion_models_tpu_torch.ops.rowcheck import reference, row_check
 from sbi_for_diffusion_models_tpu_torch.pipeline import build_prior_theta
 from sbi_for_diffusion_models_tpu_torch.utils.rng import make_generator
 
@@ -66,7 +67,8 @@ def test_k1_is_deterministic_per_seed_and_differs_across_seeds():
 def _small_estimator(**kw):
     cfg = MNLEConfig(condition_dim=9, hidden_features=32, num_transforms=4, num_bins=8, **kw)
     rng = np.random.default_rng(0)
-    H, C, D, S = cfg.hidden_features, cfg.num_categories, cfg.condition_dim, 3 * cfg.num_bins - 1
+    H, C, D = cfg.hidden_features, cfg.num_categories, cfg.condition_dim
+    S = 3 * cfg.num_bins + 1 if cfg.circular else 3 * cfg.num_bins - 1
 
     def dense(i, o):
         return {"kernel": (rng.normal(size=(i, o)) / np.sqrt(i)).astype(np.float32),
@@ -78,10 +80,12 @@ def _small_estimator(**kw):
         "flow_trunk": {f"Dense_{i}": dense(*io) for i, io in enumerate([(D + C, H)] + [(H, H)] * (L - 1) + [(H, H)])},
     }
     for i in range(cfg.num_transforms):
-        tree[f"spline_head_{i}"] = dense(H, S)
+        tree[f"spline_head_{i}"] = dense(H + cfg.num_slot_features, S)
     if cfg.cond_affine:
         tree["affine_head"] = dense(H, 2)
-    return mnle_from_flax_params(cfg, tree, np.zeros(D), np.ones(D), 0.0, 1.0, device=DEV)
+    if cfg.rt_rep == "pulse":
+        tree["pulse_slot_head"] = dense(H, cfg.num_pulse_slots)
+    return mnle_from_flax_params(cfg, tree, np.zeros(D), np.ones(D), 0.0, 1.0)  # default: the card
 
 
 @pytest.mark.parametrize("variant", [{}, dict(censor_rt=True, cond_affine=True)], ids=["log", "censor_affine"])
@@ -113,3 +117,48 @@ def test_wrappers_reject_wrong_dtypes():
     t = torch.zeros((4,), device=DEV, dtype=torch.float64)
     with pytest.raises(ValueError):
         mc.rows_logp(t, torch.zeros((4, 3), device=DEV), torch.zeros((4, 9), device=DEV), w)
+
+
+def test_k2p_k3p_match_their_plain_versions():
+    """K2p/K3p on a small pulse-grid model (1,000 rows, not a multiple of the
+    16-row tile; censored rows, phases at the clip edges and one slot index
+    past the last slot) against the plain version in float64 on the same
+    float32 inputs and weights."""
+    est = _small_estimator(rt_rep="pulse", censor_rt=True)
+    assert est.device.type == "cuda"
+    w = mc.pack_mnle_weights(est)
+    gen = torch.Generator(DEV).manual_seed(1)
+    n = 1000
+    phi = torch.rand((n,), generator=gen, device=DEV)
+    phi[:2] = torch.tensor([1e-6, 1.0 - 1e-6], device=DEV)
+    ctx = torch.randn((n, 9), generator=gen, device=DEV)
+    oh = torch.nn.functional.one_hot(torch.randint(0, 3, (n,), generator=gen, device=DEV), 3).float()
+    k = torch.randint(0, 80, (n,), generator=gen, device=DEV)
+    k[2] = 80
+    ang = 2 * np.pi * torch.rand((n,), generator=gen, device=DEV)
+    kf = torch.stack([(k + 0.5) / 80, torch.sin(ang), torch.cos(ang)], -1).contiguous()
+    kv = k.float()
+    g = torch.randn((n,), generator=gen, device=DEV)
+    rows64 = [a.double() for a in (phi, oh, ctx, kf, kv)]
+    w64 = w.astype(torch.float64)
+    before = (mc.K2P.launches, mc.K3P.launches)
+    val = mc.rows_logp_pulse(phi, oh, ctx, kf, kv, w).double()
+    ref = mc.rows_logp_pulse_plain(*rows64, w64)
+    assert float(((val - ref).abs() / ref.abs().clamp(min=1.0)).max()) <= 1e-4
+    grads = mc.rows_logp_pulse_vjp(phi, oh, ctx, kf, kv, w, g)
+    # Gradients row by row: each to 1e-3 x max(1, the row's largest |ref|),
+    # with the row's float32 spread added where it exceeds that, on all but
+    # 0.1 % of the rows (ops/rowcheck.py, as chip_smoke.py holds K3p), and
+    # on each of the rows at the clip edges and past the last slot.
+    rows = (phi, oh, ctx, kf, kv)
+    refs, spreads = reference(lambda *a: mc.rows_logp_pulse_vjp_plain(*a[:-1], w64, a[-1]), rows, g, (2, 3))
+    plains = mc.rows_logp_pulse_vjp_plain(*rows, w, g)
+    for got, plain, want, spread in zip(grads, plains, refs, spreads):
+        c = row_check(got, plain, want, spread, value=False)
+        assert c.ok and not bool(c.over[:3].any()), c
+    assert (mc.K2P.launches, mc.K3P.launches) == (before[0] + 1, before[1] + 1)
+    # Autograd through the fused Function launches the same pair.
+    phi_ = phi.clone().requires_grad_(True)
+    out = mc.FusedPulseRowsLogProb.apply(phi_, oh, ctx, kf, kv, w)
+    (dphi,) = torch.autograd.grad(out, phi_, grad_outputs=g)
+    torch.testing.assert_close(dphi, grads[0], rtol=0, atol=0)

@@ -88,7 +88,7 @@ def test_prior_samples_in_support_with_prior_moments():
 
 
 def test_proposals_shapes_and_values():
-    pp = PulseSequenceProposal(80, 0.75)
+    pp = PulseSequenceProposal(80, 0.75, device="cpu")
     s = pp.sample(make_generator(1), (4, 3))
     assert s.shape == (4, 3, 80)
     assert set(torch.unique(s).tolist()) <= {-1.0, 1.0}

@@ -1,5 +1,5 @@
 """PyTorch port: the MNLE network, its weight converter, ``load_model`` and
-the plain versions of kernels K2/K3, against the JAX package.
+the plain versions of kernels K2/K3 and K2p/K3p, against the JAX package.
 
 The CUDA kernels themselves cannot run here; ``chip_smoke.py`` holds them to
 these plain versions on the card. On CPU tensors the fused path
@@ -31,8 +31,11 @@ VARIANTS = {
     "cond_affine": dict(censor_rt=True, cond_affine=True),
     "log_theta_dims": dict(rt_rep="shifted_log", censor_rt=True, log_condition_dims=(1, 2, 3), cond_affine=True,
                            trunk_depth=3),
+    "pulse_abs": dict(rt_rep="pulse", censor_rt=True),
+    "pulse_tnd": dict(rt_rep="pulse", censor_rt=True, grid_anchor="tnd"),
 }
 FLAGSHIP = "mnle_10m_shifted_logt_affine.npz"
+PULSE_MODEL = "mnle_1m_pulseabs.npz"
 
 
 @functools.lru_cache(maxsize=None)
@@ -53,7 +56,7 @@ def _jax_est(cd=9, **kw):
 def _port(jest):
     tree = jax.tree.map(np.asarray, jest.params)
     cfg = MNLEConfig(**jest.cfg.__dict__)
-    return mnle_from_flax_params(cfg, tree, jest.cond_mean, jest.cond_std, jest.x_mean, jest.x_std)
+    return mnle_from_flax_params(cfg, tree, jest.cond_mean, jest.cond_std, jest.x_mean, jest.x_std, device="cpu")
 
 
 def _data(seed, n, cd):
@@ -92,11 +95,17 @@ def test_small_model_log_prob_and_condition_grad_match_jax(variant):
     est = _port(jest)
     x, cond = _data(1, 37, 9)
     ref_v, ref_g = _value_and_cond_grad_jax(lambda a, c: jest.log_prob_fn(jest.params, a, c), x, cond)
-    for kernel in ("xla", "pallas"):  # plain path; fused autograd.Function on CPU rows
+    # The pulse rep's tnd anchor has no fused path (as in the JAX package):
+    # "auto" gives the plain function and "pallas" raises.
+    kernels = ("xla", "auto") if variant == "pulse_tnd" else ("xla", "pallas")
+    for kernel in kernels:  # plain path; fused autograd.Function on CPU rows
         fn = est.dispatch_log_prob(kernel)
         v, g = _value_and_cond_grad_torch(fn, x, cond)
         np.testing.assert_allclose(v, ref_v, rtol=2e-5, atol=2e-5, err_msg=kernel)
         _assert_rel_linf(g, ref_g, 1e-4, kernel)
+    if variant == "pulse_tnd":
+        with pytest.raises(ValueError, match="grid_anchor='absolute'"):
+            est.dispatch_log_prob("pallas")
 
 
 def test_weight_converter_keeps_torch_layout_and_checks_shapes():
@@ -114,7 +123,7 @@ def test_weight_converter_keeps_torch_layout_and_checks_shapes():
     tree = jax.tree.map(np.asarray, jest.params)
     tree["spline_head_0"]["kernel"] = tree["spline_head_0"]["kernel"][:, :-1]
     with pytest.raises(ValueError, match="kernel shape"):
-        mnle_from_flax_params(est.cfg, tree, jest.cond_mean, jest.cond_std, 0.0, 1.0)
+        mnle_from_flax_params(est.cfg, tree, jest.cond_mean, jest.cond_std, 0.0, 1.0, device="cpu")
 
 
 @pytest.mark.parametrize("variant", ["log", "cond_affine"])
@@ -153,6 +162,57 @@ def test_row_function_and_vjp_match_jax(variant):
     assert {k: v.launches for k, v in _cuda.KERNELS.items()} == before
 
 
+def test_pulse_row_function_and_vjp_match_jax():
+    """Plain versions of K2p and K3p against the JAX row function
+    ``_rows_logp_pulse`` and ``jax.vjp`` of it (w.r.t. phi, ctx and kf), on
+    the same packed weights (no pallas_call). Rows include censored ones,
+    phases at the clip edges and a slot index past the last slot."""
+    jest = _jax_est_cached("pulse_abs")
+    est = _port(jest)
+    cfg = jest.cfg
+    jw = jpallas.pack_mnle_weights(jest)
+    w = tk.pack_mnle_weights(est)
+    assert w.pulse and w.num_features == 3
+    tw = w.as_list()  # cat, trunk, slot head, heads: the JAX order
+    assert len(jw) == len(tw)
+    for a, b in zip(jw, tw):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a).reshape(b.shape))
+    rng = np.random.default_rng(4)
+    n = 61
+    phi = rng.uniform(0, 1, n).astype(np.float32)
+    phi[:2] = [1e-6, 1.0 - 1e-6]
+    oh = np.eye(3, dtype=np.float32)[rng.integers(0, 3, n)]
+    ctx = rng.normal(size=(n, 9)).astype(np.float32)
+    k = rng.integers(0, cfg.num_pulse_slots, n)
+    k[2] = cfg.num_pulse_slots  # outside the slots: no slot term
+    ang = 2 * np.pi * rng.uniform(0, 1, n)
+    kf = np.stack([(k + 0.5) / cfg.num_pulse_slots, np.sin(ang), np.cos(ang)], -1).astype(np.float32)
+    kv = k.astype(np.float32)
+    g = rng.normal(size=n).astype(np.float32)
+    kw = dict(n_layers=cfg.trunk_depth + 1, num_transforms=cfg.num_transforms, num_bins=cfg.num_bins,
+              num_slots=cfg.num_pulse_slots, censored_col=cfg.censored_category)
+
+    @jax.jit
+    def jrows_vjp(pp, cc, ff, gg):
+        f = lambda a, b, c: jpallas._rows_logp_pulse(a, jnp.asarray(oh), b, c, jnp.asarray(kv), jw, **kw)  # noqa: E731
+        out, vjp = jax.vjp(f, pp, cc, ff)
+        return (out,) + vjp(gg)
+
+    ref = [np.asarray(a) for a in jrows_vjp(*map(jnp.asarray, (phi, ctx, kf, g)))]
+    rows = [torch.from_numpy(a) for a in (phi, oh, ctx, kf, kv)]
+    np.testing.assert_allclose(tk.rows_logp_pulse_plain(*rows, w).numpy(), ref[0], rtol=2e-5, atol=2e-5)
+    grads = tk.rows_logp_pulse_vjp_plain(*rows, w, torch.from_numpy(g))
+    for got, want, what in zip(grads, ref[1:], ("dphi", "dctx", "dkf")):
+        _assert_rel_linf(got.numpy(), want, 1e-4, what)
+    # The wrappers take the plain versions for CPU tensors, without a launch.
+    before = {k: v.launches for k, v in _cuda.KERNELS.items()}
+    assert torch.equal(tk.rows_logp_pulse(*rows, w), tk.rows_logp_pulse_plain(*rows, w))
+    for a, b in zip(tk.rows_logp_pulse_vjp(*rows, w, torch.from_numpy(g)), grads):
+        assert torch.equal(a, b)
+    assert {k: v.launches for k, v in _cuda.KERNELS.items()} == before
+    assert {"mnle_pulse_fwd", "mnle_pulse_bwd"} <= set(_cuda.KERNELS)
+
+
 def test_censored_rows_keep_only_the_choice_term():
     jest = _jax_est_cached("cond_affine")
     est = _port(jest)
@@ -168,9 +228,11 @@ def test_censored_rows_keep_only_the_choice_term():
 
 
 def test_unported_options_raise():
-    for kw in (dict(rt_rep="pulse", censor_rt=True), dict(tail_sharp_k=2.0), dict(pulse_dim=80, embed_dim=8)):
+    with pytest.raises(ValueError, match="requires censor_rt=True"):
+        mnle_from_flax_params(MNLEConfig(rt_rep="pulse"), {}, 0.0, 1.0, 0.0, 1.0, device="cpu")
+    for kw in (dict(tail_sharp_k=2.0), dict(pulse_dim=80, embed_dim=8)):
         with pytest.raises(NotImplementedError, match="not ported"):
-            mnle_from_flax_params(MNLEConfig(**kw), {}, 0.0, 1.0, 0.0, 1.0)
+            mnle_from_flax_params(MNLEConfig(**kw), {}, 0.0, 1.0, 0.0, 1.0, device="cpu")
     est = _port(_jax_est_cached("log"))
     with pytest.raises(NotImplementedError):
         est.sample(None, None)
@@ -184,7 +246,18 @@ def flagship(request):
     from pathlib import Path
 
     mp.setenv("MODEL_DIR", str(Path(__file__).resolve().parents[1] / "artifacts" / "models"))
-    jest, est = jmnle.load_model(FLAGSHIP), tmnle.load_model(FLAGSHIP)
+    jest, est = jmnle.load_model(FLAGSHIP), tmnle.load_model(FLAGSHIP, device="cpu")
+    request.addfinalizer(mp.undo)
+    return jest, est
+
+
+@pytest.fixture(scope="module")
+def pulse_model(request):
+    mp = pytest.MonkeyPatch()
+    from pathlib import Path
+
+    mp.setenv("MODEL_DIR", str(Path(__file__).resolve().parents[1] / "artifacts" / "models"))
+    jest, est = jmnle.load_model(PULSE_MODEL), tmnle.load_model(PULSE_MODEL, device="cpu")
     request.addfinalizer(mp.undo)
     return jest, est
 
@@ -195,7 +268,7 @@ def _session_rows(seed=0, n_theta=4):
     from sbi_for_diffusion_models_tpu_torch.pipeline import build_prior_theta
     from sbi_for_diffusion_models_tpu_torch.utils.rng import make_generator
 
-    theta = build_prior_theta().sample(make_generator(seed), (n_theta,))
+    theta = build_prior_theta().sample(make_generator(seed, "cpu"), (n_theta,))
     theta[:, 4] = 0.5 * theta[:, 4]  # most trials after the onset
     x, s = simulate_observed_session(theta[0], 50, seed=seed)
     cond = torch.cat([theta[:, None, :].expand(n_theta, 50, 5), s[None].expand(n_theta, 50, 80)], -1)
@@ -231,11 +304,28 @@ def test_flagship_load_model_matches_jax(flagship):
     twice the error of the JAX float32 run on the same rows."""
     jest, est = flagship
     assert est.cfg.cond_affine and est.cfg.rt_rep == "shifted_log" and est.cfg.num_transforms == 10
+    _hold_committed_model_to_jax(jest, est, "xla")
+
+
+def test_pulse_model_load_model_matches_jax(pulse_model):
+    """The committed pulse-grid model (absolute anchor, full width) through
+    the port's load_model, on the plain path and on the fused path (K2p/K3p's
+    plain versions on CPU rows), held as the flagship is."""
+    jest, est = pulse_model
+    cfg = est.cfg
+    assert (cfg.rt_rep, cfg.grid_anchor, cfg.censor_rt) == ("pulse", "absolute", True)
+    assert (cfg.hidden_features, cfg.num_transforms, cfg.num_bins, cfg.num_pulse_slots) == (128, 10, 24, 80)
+    assert est.net.spline_heads[0].weight.shape == (73, 131) and est.net.pulse_slot_head.weight.shape == (80, 128)
+    for kernel in ("xla", "pallas"):
+        _hold_committed_model_to_jax(jest, est, kernel)
+
+
+def _hold_committed_model_to_jax(jest, est, kernel):
     assert est.cfg == MNLEConfig(**jest.cfg.__dict__)
     np.testing.assert_array_equal(est.cond_std.numpy(), np.asarray(jest.cond_std))
     x, cond = _session_rows()
     j32_v, j32_g = _value_and_cond_grad_jax(lambda a, c: jest.log_prob_fn(jest.params, a, c), x, cond)
-    t32_v, t32_g = _value_and_cond_grad_torch(est.dispatch_log_prob("xla"), x, cond)
+    t32_v, t32_g = _value_and_cond_grad_torch(est.dispatch_log_prob(kernel), x, cond)
     with jax.enable_x64(True):
         j64, t64 = _as_float64(jest, est)
         r_v, r_g = _value_and_cond_grad_jax(lambda a, c: j64.log_prob_fn(j64.params, a, c),

@@ -1,6 +1,7 @@
 """PyTorch port: the sampler. Adaptation pieces exactly against the JAX
 package, NUTS with parallel tempering on a Gaussian, the extra moves, and a
-tiny end-to-end ``run_inference_mcmc`` on the CPU.
+tiny end-to-end ``run_inference_mcmc`` on the CPU for the shifted-log and
+the pulse-grid representations.
 
 The JAX functions are run op by op (``vmap`` without ``jit``): compiled, XLA's
 CPU backend fuses ``a + b * c`` into one multiply-add, which rounds once
@@ -208,41 +209,67 @@ def test_mcmc_posterior_plain_nuts_on_gaussian_and_slice_raises():
             return _gauss_logp(theta)
 
     post = tm.MCMCPosterior(Pot(), Flat(), Bijector(Flat().supports()), num_chains=4, warmup_steps=100,
-                            max_tree_depth=5, verbose=False)
+                            max_tree_depth=5, verbose=False, device="cpu")
     s = post.sample((400,), seed=2)
     assert s.shape == (400, 2)
     assert torch.allclose(s.mean(0), MEAN, atol=0.25)
     assert set(post.last_info) >= {"accept_prob", "diverging", "step_size", "inv_mass"}
     with pytest.raises(NotImplementedError, match="slice"):
-        tm.MCMCPosterior(Pot(), Flat(), Bijector(Flat().supports()), method="slice")
+        tm.MCMCPosterior(Pot(), Flat(), Bijector(Flat().supports()), method="slice", device="cpu")
 
 
-def test_tiny_run_inference_mcmc_end_to_end_on_cpu():
-    """The calibrated sampler stack (PT, grid hop, t_nd slice) on a tiny
-    random MNLE; on CPU tensors no kernel launches."""
-    from sbi_for_diffusion_models_tpu_torch.data_simulator import simulate_observed_session
-    from sbi_for_diffusion_models_tpu_torch.mnle import run_inference_mcmc
+def _tiny_estimator(pulse: bool):
+    """A tiny random MNLE with the full 85-dim condition: the calibrated
+    shifted-log cond-affine model, or the pulse-grid model (absolute
+    anchor, slot head over 80 slots, circular spline heads on [emb, kf])."""
     from sbi_for_diffusion_models_tpu_torch.nets.mnle_net import MNLEConfig, mnle_from_flax_params
-    from sbi_for_diffusion_models_tpu_torch.ops._cuda import KERNELS
-    from sbi_for_diffusion_models_tpu_torch.pipeline import build_prior_theta
-    from sbi_for_diffusion_models_tpu_torch.run_config import CALIBRATED_CONFIG
 
     rng = np.random.default_rng(0)
-    cfg = MNLEConfig(hidden_features=16, num_transforms=2, num_bins=4, censor_rt=True, rt_rep="shifted_log",
-                     log_condition_dims=(1, 2, 3), cond_affine=True)
+    if pulse:
+        cfg = MNLEConfig(hidden_features=16, num_transforms=2, num_bins=4, censor_rt=True, rt_rep="pulse")
+    else:
+        cfg = MNLEConfig(hidden_features=16, num_transforms=2, num_bins=4, censor_rt=True, rt_rep="shifted_log",
+                         log_condition_dims=(1, 2, 3), cond_affine=True)
 
     def dense(i, o):
         return {"kernel": (rng.normal(size=(i, o)) / np.sqrt(i)).astype(np.float32),
                 "bias": (0.1 * rng.normal(size=o)).astype(np.float32)}
 
-    H, S = 16, 3 * 4 - 1
+    H = 16
     tree = {
         "cat_net": {"Dense_0": dense(85, H), "Dense_1": dense(H, H), "Dense_2": dense(H, 3)},
         "flow_trunk": {"Dense_0": dense(88, H), "Dense_1": dense(H, H), "Dense_2": dense(H, H)},
-        "spline_head_0": dense(H, S), "spline_head_1": dense(H, S), "affine_head": dense(H, 2),
     }
-    est = mnle_from_flax_params(cfg, tree, np.zeros(85), np.ones(85), 0.0, 1.0)
-    x_o, p_o = simulate_observed_session(np.array([0.5, 0.3, 1.2, 10.0, 0.2], np.float32), 10, seed=1)
+    if pulse:
+        tree.update({f"spline_head_{i}": dense(H + 3, 3 * 4 + 1) for i in range(2)})
+        tree["pulse_slot_head"] = dense(H, 80)
+    else:
+        tree.update({f"spline_head_{i}": dense(H, 3 * 4 - 1) for i in range(2)})
+        tree["affine_head"] = dense(H, 2)
+    return mnle_from_flax_params(cfg, tree, np.zeros(85), np.ones(85), 0.0, 1.0, device="cpu")
+
+
+def test_tiny_run_inference_mcmc_end_to_end_on_cpu():
+    """The calibrated sampler stack (PT, grid hop, t_nd slice) on a tiny
+    random MNLE; on CPU tensors no kernel launches."""
+    _tiny_run_inference_mcmc(pulse=False)
+
+
+def test_tiny_pulse_run_inference_mcmc_end_to_end_on_cpu():
+    """The same on a tiny random pulse-grid MNLE (the K2p/K3p path, whose
+    wrappers take their plain versions on CPU rows)."""
+    _tiny_run_inference_mcmc(pulse=True)
+
+
+def _tiny_run_inference_mcmc(pulse: bool):
+    from sbi_for_diffusion_models_tpu_torch.data_simulator import simulate_observed_session
+    from sbi_for_diffusion_models_tpu_torch.mnle import run_inference_mcmc
+    from sbi_for_diffusion_models_tpu_torch.ops._cuda import KERNELS
+    from sbi_for_diffusion_models_tpu_torch.pipeline import build_prior_theta
+    from sbi_for_diffusion_models_tpu_torch.run_config import CALIBRATED_CONFIG
+
+    est = _tiny_estimator(pulse)
+    x_o, p_o = simulate_observed_session(np.array([0.5, 0.3, 1.2, 10.0, 0.2], np.float32), 10, seed=1, device="cpu")
     for k in KERNELS.values():
         k.launches = 0
     rc = CALIBRATED_CONFIG.replace(WARMUP_STEPS=10, POSTERIOR_SAMPLES=16, NUM_CHAINS=2, MCMC_PT_REPLICAS=2,
@@ -252,4 +279,5 @@ def test_tiny_run_inference_mcmc_end_to_end_on_cpu():
     assert samples.shape == (16, 5) and torch.isfinite(samples).all()
     assert torch.isfinite(build_prior_theta().log_prob(samples)).all()
     assert info["diverging"].shape == (4, 8)  # every rung of every chain
+    assert info["potential_calls"] > 0
     assert {k: v.launches for k, v in KERNELS.items()} == {k: 0 for k in KERNELS}

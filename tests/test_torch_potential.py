@@ -1,7 +1,8 @@
 """PyTorch port: the slice as a whole. On the committed flagship model and
 one simulated session, the u-space posterior potential
 (``ThetaOnlyPosteriorPotential`` through ``mcmc_transform``) and its gradient
-for a batch of theta, against the JAX package."""
+for a batch of theta, against the JAX package; on the committed pulse-grid
+model, the closed-form likelihood gradient the sampler uses."""
 
 from pathlib import Path
 
@@ -28,7 +29,7 @@ def models():
     mp = pytest.MonkeyPatch()
     mp.setenv("MODEL_DIR", str(Path(__file__).resolve().parents[1] / "artifacts" / "models"))
     try:
-        yield jmnle.load_model(MODEL), tmnle.load_model(MODEL)
+        yield jmnle.load_model(MODEL), tmnle.load_model(MODEL, device="cpu")
     finally:
         mp.undo()
 
@@ -128,7 +129,7 @@ def test_closed_form_gradient_matches_jax_and_autograd(models, jax_reference):
     tpot = tp.ThetaOnlyPosteriorPotential(
         tprior, tp.ConditionedMNLELogLikelihood(est, pulses, logprob_kernel="pallas"), x_o=x_o, temperature=1.0
     )
-    post = MCMCPosterior(tpot, tprior, tbij, pt_replicas=4)
+    post = MCMCPosterior(tpot, tprior, tbij, pt_replicas=4, device="cpu")
     vg = post._closed_form_vg()
     val, g = vg(torch.from_numpy(u), torch.ones(8))
     np.testing.assert_allclose(val.numpy(), ref_v, rtol=1e-4)
@@ -145,3 +146,73 @@ def test_closed_form_gradient_matches_jax_and_autograd(models, jax_reference):
     np.testing.assert_allclose(v_cf.numpy(), v_ref.numpy(), rtol=1e-6)
     np.testing.assert_allclose(g_cf.numpy(), g_ref.numpy(), rtol=1e-5, atol=1e-5 * g_ref.abs().max().item())
     assert vg(uu, betas, False)[1] is None
+
+
+PULSE_MODEL = "mnle_1m_pulseabs.npz"
+
+
+@pytest.fixture(scope="module")
+def pulse_models():
+    mp = pytest.MonkeyPatch()
+    mp.setenv("MODEL_DIR", str(Path(__file__).resolve().parents[1] / "artifacts" / "models"))
+    try:
+        yield jmnle.load_model(PULSE_MODEL), tmnle.load_model(PULSE_MODEL, device="cpu")
+    finally:
+        mp.undo()
+
+
+def _theta_across_grid_wraps():
+    """Eight thetas whose onsets t_nd sit on either side of a pulse-grid
+    phase wrap ((t_nd / 0.1) mod 1 jumps from ~1 to ~0 at 0.1), and a few
+    away from it."""
+    rng = np.random.default_rng(9)
+    tnd = np.asarray([0.0998, 0.1002, 0.09995, 0.10005, 0.03, 0.07, 0.12, 0.135])
+    return np.stack(
+        [rng.uniform(0.2, 0.8, 8), rng.lognormal(-1, 0.5, 8), rng.lognormal(0, 0.5, 8),
+         rng.lognormal(2.75, 0.3, 8), tnd], -1,
+    ).astype(np.float32)
+
+
+def test_pulse_closed_form_gradient_matches_autograd_and_jax(pulse_models):
+    """The pulse model's ``log_lik_and_grad`` (K2p/K3p's plain versions on
+    CPU rows, t_nd's gradient through the sin/cos phase features in closed
+    form) against autograd of ``log_lik_fn`` and against JAX's gradient of
+    its likelihood, with onsets on both sides of a grid phase wrap; then the
+    sampler's u-space closed form against JAX's u-space potential."""
+    from sbi_for_diffusion_models_tpu_torch.inference.mcmc import MCMCPosterior
+
+    jest, est = pulse_models
+    x_o, pulses = _session()
+    theta = _theta_across_grid_wraps()
+    jlik = jp.ConditionedMNLELogLikelihood(jest, pulses, logprob_kernel="xla")
+    ref_v = np.asarray(jax.jit(lambda th: jlik.log_lik_fn(jest.params, jnp.asarray(x_o), th))(jnp.asarray(theta)))
+    ref_g = np.asarray(jax.jit(jax.grad(lambda th: jnp.sum(jlik.log_lik_fn(jest.params, jnp.asarray(x_o), th))))(
+        jnp.asarray(theta)))
+
+    lik = tp.ConditionedMNLELogLikelihood(est, pulses, logprob_kernel="auto")
+    assert lik.closed_form_grad
+    x = torch.from_numpy(x_o)
+    th = torch.from_numpy(theta)
+    ll, g = lik.log_lik_and_grad(x, th)
+    th_ = th.clone().requires_grad_(True)
+    ll_auto = lik.log_lik_fn(est.params, x, th_)
+    (g_auto,) = torch.autograd.grad(ll_auto.sum(), th_)
+    np.testing.assert_allclose(ll.numpy(), ll_auto.detach().numpy(), rtol=1e-6)
+    np.testing.assert_allclose(g.numpy(), g_auto.numpy(), rtol=1e-5, atol=1e-5 * float(g_auto.abs().max()))
+    np.testing.assert_allclose(ll.numpy(), ref_v, rtol=1e-4)
+    np.testing.assert_allclose(g.numpy(), ref_g, rtol=1e-3, atol=1e-3 * np.abs(ref_g).max())
+    assert np.isfinite(g.numpy()).all()
+    assert lik.log_lik_and_grad(x, th, need_grad=False)[1] is None
+
+    # The sampler's u-space closed form against JAX's u-space potential.
+    jprior, jbij = j_prior(), jd.mcmc_transform(j_prior())
+    jpot = jp.ThetaOnlyPosteriorPotential(jprior, jlik, x_o=x_o)
+    u = np.asarray(jbij.inverse(jnp.asarray(theta)))
+    uv, ug = jax.jit(jax.vmap(jax.value_and_grad(lambda uu: jpot.potential_fn(jbij.forward(uu))
+                                                 + jbij.forward_log_det(uu))))(jnp.asarray(u))
+    tprior, tbij = t_prior(), td.mcmc_transform(t_prior())
+    tpot = tp.ThetaOnlyPosteriorPotential(tprior, lik, x_o=x_o)
+    vg = MCMCPosterior(tpot, tprior, tbij, pt_replicas=2, device="cpu")._closed_form_vg()
+    val, gu = vg(torch.from_numpy(u), torch.ones(8))
+    np.testing.assert_allclose(val.numpy(), np.asarray(uv), rtol=1e-4)
+    np.testing.assert_allclose(gu.numpy(), np.asarray(ug), rtol=1e-3, atol=1e-3 * np.abs(np.asarray(ug)).max())

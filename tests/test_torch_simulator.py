@@ -167,7 +167,7 @@ def test_schedule_and_host_pulses_match_jax():
     x = np.asarray([[0.5, 1.0], [1e-9, 2.0]], np.float32)
     for log_rt in (False, True):
         np.testing.assert_allclose(
-            tmodel.pack_x_rt_choice(x, log_rt=log_rt).numpy(),
+            tmodel.pack_x_rt_choice(x, log_rt=log_rt, device="cpu").numpy(),
             np.asarray(jmodel.pack_x_rt_choice(x, log_rt=log_rt)), rtol=1e-6,
         )
 
@@ -175,16 +175,16 @@ def test_schedule_and_host_pulses_match_jax():
 def test_simulator_api_shapes_seeds_and_errors():
     theta = np.tile([0.5, 0.3, 1.2, 10.0, 0.2], (6, 1)).astype(np.float32)
     s = tmodel.generate_pulse_matrix_numpy(np.random.default_rng(0), 6, 80)
-    a = tmodel.rt_choice_model_simulator_torch(theta, rng=1, pulse_sides=s)
-    b = tmodel.rt_choice_model_simulator_torch(theta, rng=1, pulse_sides=s)
+    a = tmodel.rt_choice_model_simulator_torch(theta, rng=1, pulse_sides=s, device="cpu")
+    b = tmodel.rt_choice_model_simulator_torch(theta, rng=1, pulse_sides=s, device="cpu")
     assert a.shape == (6, 2) and torch.equal(a, b)
     assert set(a[:, 1].tolist()) <= {0.0, 1.0, 2.0}
-    one = tmodel.rt_choice_model_simulator_torch(theta[0], rng=1, pulse_sides=s[:1])
+    one = tmodel.rt_choice_model_simulator_torch(theta[0], rng=1, pulse_sides=s[:1], device="cpu")
     assert one.shape == (1, 2)
     with pytest.raises(ValueError, match="shape"):
-        tmodel.rt_choice_model_simulator_torch(np.zeros((3, 4), np.float32))
+        tmodel.rt_choice_model_simulator_torch(np.zeros((3, 4), np.float32), device="cpu")
     with pytest.raises(ValueError, match="needs at least 80"):
-        tmodel.rt_choice_model_simulator_torch(theta, pulse_sides=s[:, :10])
+        tmodel.rt_choice_model_simulator_torch(theta, pulse_sides=s[:, :10], device="cpu")
     with pytest.raises(ValueError, match="unknown sim kernel"):
         tmodel.dispatch_sim_kernel("xla")
     for kernel in ("auto", "scan", "pallas"):
@@ -192,22 +192,25 @@ def test_simulator_api_shapes_seeds_and_errors():
         out = run(torch.from_numpy(theta), torch.from_numpy(s), 3, mu_sensory=1.0, collapse_rate=0.0,
                   steps_per_pulse=200, n_max=16000)
         assert out.shape == (6, 2)
-    x, pulses = tmodel.simulate_session_data_rt_choice(theta[0], 5, rng=2, return_pulse_sides=True)
+    x, pulses = tmodel.simulate_session_data_rt_choice(theta[0], 5, rng=2, return_pulse_sides=True, device="cpu")
     assert x.shape == (5, 2) and pulses.shape == (5, 80)
 
 
 def test_data_simulator_training_set_and_session():
-    proposal = ExtendedProposal(build_prior_theta(), PulseSequenceProposal(80))
+    proposal = ExtendedProposal(build_prior_theta(), PulseSequenceProposal(80, device="cpu"))
     cfg = RUN_CONFIG_PARAMS.replace(TRAIN_BATCH_SIZE=24)
-    z, x = tdata.simulate_training_set_with_conditions(cfg, proposal, num_simulations=40, seed=1, verbose=False)
+    z, x = tdata.simulate_training_set_with_conditions(cfg, proposal, num_simulations=40, seed=1, verbose=False,
+                                                       device="cpu")
     assert z.shape == (40, 85) and x.shape == (40, 2)
     assert torch.isfinite(x).all() and set(x[:, 1].tolist()) <= {0.0, 1.0, 2.0}
-    z2, x2 = tdata.simulate_training_set_with_conditions(cfg, proposal, num_simulations=40, seed=1, verbose=False)
+    z2, x2 = tdata.simulate_training_set_with_conditions(cfg, proposal, num_simulations=40, seed=1, verbose=False,
+                                                         device="cpu")
     assert torch.equal(z, z2) and torch.equal(x, x2)
     # The simulator conditions on each z row's own pulses.
     again = tdata.sim_wrapper(z[:3], rng=5)
     assert again.shape == (3, 2)
-    x_o, p_o = tdata.simulate_observed_session(np.array([0.5, 0.3, 1.2, 10.0, 0.2], np.float32), 12, seed=4)
+    x_o, p_o = tdata.simulate_observed_session(np.array([0.5, 0.3, 1.2, 10.0, 0.2], np.float32), 12, seed=4,
+                                               device="cpu")
     assert x_o.shape == (12, 2) and p_o.shape == (12, 80)
     assert (x_o[:, 0] > 0.2).all()  # rt > t_nd
     tdata.summarize_trials("test", x_o)
