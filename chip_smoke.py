@@ -3,11 +3,12 @@
 
 Builds the port's CUDA kernels from ``sbi_for_diffusion_models_tpu_torch/csrc``,
 holds each against its plain PyTorch version on the card, then drives the
-port's two serving paths once each through their public entry points:
+port's paths once each through their public entry points:
 
 1. build K1 (pulse-DDM simulator), K2/K3 (fused MNLE log-prob forward and
-   backward) and K2p/K3p (the same for the pulse-grid RT representation)
-   with nvcc for sm_90a, one nvcc per source, side by side;
+   backward), K2p/K3p (the same for the pulse-grid RT representation) and
+   K4 (the issue-ceiling microkernel) with nvcc for sm_90a, one nvcc per
+   source, side by side;
 2. K1 against its plain version at N = 131,072 prior draws: equal outputs
    without noise; with noise a two-sample KS test on RT per choice and a
    chi-square test on the choice counts (p > 1e-3); the same seed twice
@@ -22,19 +23,39 @@ port's two serving paths once each through their public entry points:
 4. K2p/K3p against their plain version on the committed pulse-grid model
    (``artifacts/models/mnle_1m_pulseabs.npz``, absolute anchor) at the same
    two sizes, held the same way (values, dphi, dctx and dkf);
-5. the flagship path: simulate 131,072 training pairs, an observed 50-trial
+5. K4, both kinds, at chains of 64 and 1,024 steps against its plain version
+   in float64 (``phase_k4``), then the roofline path: the entry point
+   ``roofline.main`` times K4 at its full shape (2,097,152 elements, chains
+   of 2^14 and 2^17) and gives the card's two achievable issue ceilings,
+   which must not exceed 105 % of the datasheet's FMA rate, then K1's and
+   K2's demand against them. K4, K1 and K2 must have launched. Then each
+   is held at the shape that path gave it: K4 at 2,097,152 elements and both
+   chain lengths against float64 and its plain version, K1 at 524,288 trials
+   and K2/K3 at 65,536 rows on that path's model against theirs;
+6. the flagship path: simulate 131,072 training pairs, an observed 50-trial
    session, load the flagship model and sample its posterior with the
    calibrated sampler (PT6 NUTS, grid hop, t_nd slice; warmup and draws cut
-   to 50 and 200). K1, K2 and K3 must have launched during this phase;
-6. the pulse path: the same observed session, the pulse-grid model loaded
+   to 50 and 100). K1, K2 and K3 must have launched during this phase;
+7. the pulse path: the same observed session, the pulse-grid model loaded
    and sampled by the same sampler at the same cut. K2p and K3p must have
-   launched during this phase.
+   launched during this phase;
+8. the training path, at the flagship's full width on the pairs of phase 6:
+   ``train_mnle`` under ``CALIBRATED_CONFIG`` with the cond-affine head
+   (only the epochs are cut, to TRAIN_EPOCHS), ``save_model`` into a
+   temporary directory, ``load_model`` back (weights bit-equal, the same
+   fingerprint), and ``run_inference_mcmc`` with the loaded model on the
+   observed session (warmup 20 / draws 20). The validation loss must be
+   finite at every epoch and end at least TRAIN_MIN_DROP below the first
+   epoch's; K2 and K3 must have launched. Then K2/K3 on the trained model
+   against their plain version at 1,200 and 115,200 rows, held as in
+   phase 3, and one more epoch under ``torch.profiler`` for the card's busy
+   share of an optimizer step.
 
 Each kernel's bound is the larger of its FP32 operations over 67 TFLOP/s
 and its bytes (inputs read once, outputs written once) over 3.35 TB/s, the
 H100 SXM's published rates, counted from this run's shapes (K1: from the
-steps its trials executed). No single PyTorch call computes any of these
-kernels, so ``library_ms`` is null.
+steps its trials executed; K4: its chained FMAs). No single PyTorch call
+computes any of these kernels, so ``library_ms`` is null.
 
 Run from the root of a checkout: ``python3 chip_smoke.py`` (one CUDA card,
 ``nvcc`` under /usr/local/cuda or on PATH). The last line of its output is
@@ -50,6 +71,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -57,14 +79,18 @@ ROOT = Path(__file__).resolve().parent
 PKG = "sbi_for_diffusion_models_tpu_torch"
 MODEL_FILE = "mnle_10m_shifted_logt_affine.npz"
 PULSE_MODEL_FILE = "mnle_1m_pulseabs.npz"
+MODEL_DIR = ROOT / "artifacts" / "models"  # the committed models
 FP32_OPS_PER_S = 67e12  # H100 SXM, FP32 outside the tensor cores (an FMA counts 2)
+MAX_CEILING_SHARE = 1.05  # a measured ceiling above this share of the datasheet's FMA rate is a fault
 HBM_BYTES_PER_S = 3.35e12
-K1_OPS_PER_STEP = 40  # see k1_bound
 
 N_SIM = 131_072  # K1 check size and the main path's training-set size
 ROWS_MAIN = 1_200  # 4 chains x 6 replicas x 50 trials
 ROWS_SBC = 115_200  # 96 sessions of the above
 P_MIN = 1e-3  # K1 distribution tests
+TRAIN_EPOCHS = 10  # the training path's cut of TRAIN_MAX_EPOCHS (and of the patience)
+TRAIN_MIN_DROP = 0.5  # nats the last validation loss must lie below the first epoch's
+K4_SHAPE = (64, 256, 128)  # the roofline path's K4 input: 2,097,152 float32 elements
 
 
 def _log(*args) -> None:
@@ -101,18 +127,20 @@ def _bound(ops: float, nbytes: float) -> tuple[float, str]:
 def k1_bound(theta, out, n_chunks: int, dt: float = 5e-4, t_max: float = 8.0) -> tuple[float, str, int]:
     """K1's bound from the steps its trials executed: a trial runs to its
     hit step, or to the end of its window if it timed out, and both equal
-    (rt - t_nd) / dt. Per step ``csrc/ddm_rt_choice.cu`` does 5 FP32 ops of
-    Euler-Maruyama update and 2 bound compares, half a Box-Muller pair (about
-    8 ops with its log, sqrt and sincos) and a quarter of a Philox4x32-10
-    call (10 rounds of 2 mulhi, 2 mullo, 4 xor and 2 adds: 25 integer ops):
-    K1_OPS_PER_STEP = 40, all counted at the FP32 rate. Bytes: theta (5) and
-    the stimulus's n_chunks columns in, (rt, choice) out, float32."""
+    (rt - t_nd) / dt. Per step ``csrc/ddm_rt_choice.cu`` does 43.5
+    FMA-class operations (the update, compares and selects 13, a quarter of
+    a Philox4x32-10 call 25, half a Box-Muller pair's plain operations 5.5)
+    and 2 special functions, counted in ``roofline.py``; here all 45.5 go
+    at the FP32 rate. Bytes: theta (5) and the stimulus's n_chunks columns
+    in, (rt, choice) out, float32."""
     import torch
 
     tnd = theta[:, 4].clamp(0.0, t_max - 1e-6)
     steps = int(torch.round((out[:, 0] - tnd) / dt).clamp(min=0).sum())
     n = theta.shape[0]
-    ms, by = _bound(K1_OPS_PER_STEP * steps, 4 * n * (5 + n_chunks + 2))
+    from sbi_for_diffusion_models_tpu_torch.roofline import K1_FMA_CLASS_OPS, K1_TRANSCENDENTAL_CLASS_OPS
+
+    ms, by = _bound((K1_FMA_CLASS_OPS + K1_TRANSCENDENTAL_CLASS_OPS) * steps, 4 * n * (5 + n_chunks + 2))
     return ms, by, steps
 
 
@@ -124,10 +152,12 @@ def mnle_bound(w, n: int, backward: bool) -> tuple[float, str]:
     weight gradients). The per-row softmaxes and splines are not counted.
     Bytes: the packed weights once, the row inputs, the cotangent and the
     outputs."""
+    from sbi_for_diffusion_models_tpu_torch.roofline import mnle_layer_shapes
+
     D = w.cat[0][0].shape[0]
     H = w.trunk[-1][0].shape[1]
-    HF, HO = w.head_w.shape
-    layers = [W.shape for W, _ in w.cat + w.trunk] + ([w.slot[0].shape] if w.pulse else []) + [(HF, HO)]
+    HF = w.head_w.shape[0]
+    layers = mnle_layer_shapes(w)
     macs = sum(a * b for a, b in layers)
     if backward:
         first = {0, len(w.cat)}  # first layers of the two MLPs: gradients to the D context columns only
@@ -140,35 +170,35 @@ def mnle_bound(w, n: int, backward: bool) -> tuple[float, str]:
 
 
 def phase_build() -> dict:
-    from sbi_for_diffusion_models_tpu_torch.ops import _cuda, ddm_cuda, mnle_cuda  # noqa: F401
+    from sbi_for_diffusion_models_tpu_torch.ops import _cuda, ceiling_cuda, ddm_cuda, mnle_cuda  # noqa: F401
 
     t0 = time.perf_counter()
     per_file = _cuda.build_all()
     _log(f"[build] {json.dumps(per_file)} total_s={time.perf_counter() - t0:.3f}")
+    for lib in _cuda._LIBRARIES.values():  # registers, stack and spills of every kernel, as ptxas -v reports them
+        entry = ""
+        for line in lib.build_log.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif "bytes stack frame" in line or line.lstrip().startswith("ptxas info    : Used"):
+                _log(f"[build] {lib.source.name} {entry}: {line.strip()}")
     return per_file
 
 
-def phase_k1(device, n: int, seed: int = 7) -> dict:
-    """K1 against its plain version at ``n`` prior draws."""
+def _k1_against_plain(label: str, theta, s, n_max: int, spp: int) -> tuple:
+    """K1 against its plain version on the trials (theta, s): equal outputs
+    without noise, the same output for the same seed, and with noise the
+    same distribution (chi-square on the choice counts, two-sample KS on RT
+    per choice that both sides produced). Returns (kernel, plain,
+    max_abs_err), the two as functions of (mu_sensory, seed, theta, s)."""
     import numpy as np
     import torch
     from scipy import stats
 
-    from sbi_for_diffusion_models_tpu_torch.models.rt_choice_model import (
-        generate_pulse_matrix,
-        n_pulses_max_from_schedule,
-        pulse_schedule,
-    )
     from sbi_for_diffusion_models_tpu_torch.ops.ddm_cuda import ddm_rt_choice_cuda
     from sbi_for_diffusion_models_tpu_torch.ops.ddm_scan import ddm_rt_choice_scan
-    from sbi_for_diffusion_models_tpu_torch.pipeline import build_prior_theta
-    from sbi_for_diffusion_models_tpu_torch.utils.rng import make_generator
 
-    n_max, spp = pulse_schedule()
-    P = n_pulses_max_from_schedule(n_max, spp)
-    gen = make_generator(seed, device)
-    theta = build_prior_theta().sample(gen, (n,))
-    s = generate_pulse_matrix(gen, n, P)
+    n = theta.shape[0]
     kw = dict(steps_per_pulse=spp, n_max=n_max)
 
     def kernel(mu, sd, th=theta, st=s):
@@ -180,21 +210,41 @@ def phase_k1(device, n: int, seed: int = 7) -> dict:
     a, b = kernel(0.0, 1), plain(0.0, 2)
     n_diff = int((a != b).any(1).sum())
     max_abs = float((a - b).abs().max())
-    _log(f"[K1] zero noise n={n}: rows differing={n_diff} max_abs_err={max_abs}")
+    _log(f"[{label}] zero noise n={n}: rows differing={n_diff} max_abs_err={max_abs}")
     if n_diff:
-        raise AssertionError(f"K1 differs from its plain version without noise on {n_diff} rows")
+        raise AssertionError(f"{label}: K1 differs from its plain version without noise on {n_diff} rows")
 
     a1, a2, b = kernel(1.0, 11), kernel(1.0, 11), plain(1.0, 12)
     if not torch.equal(a1, a2):
-        raise AssertionError("K1 gives different outputs for the same seed")
+        raise AssertionError(f"{label}: K1 gives different outputs for the same seed")
     an, bn = a1.cpu().numpy(), b.cpu().numpy()
     counts = np.array([[np.sum(x[:, 1] == c) for c in range(3)] for x in (an, bn)])
-    chi2_p = float(stats.chi2_contingency(counts)[1])
-    ks_p = [float(stats.ks_2samp(an[an[:, 1] == c, 0], bn[bn[:, 1] == c, 0]).pvalue) for c in (0, 1)]
-    _log(f"[K1] noise n={n}: choice counts kernel={counts[0].tolist()} plain={counts[1].tolist()} "
-         f"chi2_p={chi2_p:.4g} ks_p(rt|choice 0,1)={[round(p, 4) for p in ks_p]} same_seed_equal=True")
+    seen = counts.sum(0) > 0  # a choice neither side produced has no row in the table
+    chi2_p = float(stats.chi2_contingency(counts[:, seen])[1]) if seen.sum() > 1 else 1.0
+    ks_p = [float(stats.ks_2samp(an[an[:, 1] == c, 0], bn[bn[:, 1] == c, 0]).pvalue)
+            for c in (0, 1) if counts[:, c].min() > 0]
+    _log(f"[{label}] noise n={n}: choice counts kernel={counts[0].tolist()} plain={counts[1].tolist()} "
+         f"chi2_p={chi2_p:.4g} ks_p(rt|choice)={[round(p, 4) for p in ks_p]} same_seed_equal=True")
     if min([chi2_p] + ks_p) <= P_MIN:
-        raise AssertionError(f"K1 and its plain version differ in distribution (p <= {P_MIN})")
+        raise AssertionError(f"{label}: K1 and its plain version differ in distribution (p <= {P_MIN})")
+    return kernel, plain, max_abs
+
+
+def phase_k1(device, n: int, seed: int = 7) -> dict:
+    """K1 against its plain version at ``n`` prior draws, then its times."""
+    from sbi_for_diffusion_models_tpu_torch.models.rt_choice_model import (
+        generate_pulse_matrix,
+        n_pulses_max_from_schedule,
+        pulse_schedule,
+    )
+    from sbi_for_diffusion_models_tpu_torch.pipeline import build_prior_theta
+    from sbi_for_diffusion_models_tpu_torch.utils.rng import make_generator
+
+    n_max, spp = pulse_schedule()
+    gen = make_generator(seed, device)
+    theta = build_prior_theta().sample(gen, (n,))
+    s = generate_pulse_matrix(gen, n, n_pulses_max_from_schedule(n_max, spp))
+    kernel, plain, max_abs = _k1_against_plain("K1", theta, s, n_max, spp)
 
     # Times at the main path's batch (TRAIN_BATCH_SIZE = 4,096) and at n,
     # with the bound from the steps the timed call's trials executed.
@@ -203,12 +253,12 @@ def phase_k1(device, n: int, seed: int = 7) -> dict:
         k_ms = _time_ms(lambda: kernel(1.0, 3, theta[:m], s[:m]), 5, device)
         p_ms = _time_ms(lambda: plain(1.0, 4, theta[:m], s[:m]), 1, device)
         b_ms, b_by, steps = k1_bound(theta[:m], kernel(1.0, 3, theta[:m], s[:m]), n_max // spp)
-        times[m] = (k_ms, p_ms, b_ms, b_by)
+        times[m] = (k_ms, p_ms, b_ms, b_by, steps)
         _log(f"[K1] time n={m}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.4g} ({b_by}) "
              f"executed_trial_steps={steps} ({steps / (m * n_max):.4f} of nominal) "
              f"executed_trial_steps_per_s(kernel)={steps / (k_ms * 1e-3):.4g}")
     return {"max_abs_err": max_abs, "ms": times[4096][0], "plain_ms": times[4096][1],
-            "bound_ms": times[4096][2], "bound_by": times[4096][3], "times": times}
+            "bound_ms": times[4096][2], "bound_by": times[4096][3], "steps": times[4096][4], "times": times}
 
 
 def _session_rows(est, prior, device, n_sessions: int, seed: int = 11):
@@ -266,10 +316,11 @@ def _check_against_reference(label, names, kern, plain, ref, spread, n) -> None:
         raise AssertionError(f"{label} at {n} rows fails its float64 check: {'; '.join(failed)}")
 
 
-def _phase_fused(device, model_file, fwd, bwd, sizes) -> dict:
+def _phase_fused(device, model_file, fwd, bwd, sizes, model_dir=MODEL_DIR) -> dict:
     """A fused forward/backward pair against its plain versions on the
-    committed model ``model_file``, at each row count of ``sizes``.
-    ``fwd``/``bwd`` are (label, kernel wrapper, plain version)."""
+    model ``model_dir/model_file`` (default: the committed models), at each
+    row count of ``sizes``. ``fwd``/``bwd`` are (label, kernel wrapper,
+    plain version)."""
     import torch
 
     from sbi_for_diffusion_models_tpu_torch.mnle import load_model
@@ -277,7 +328,7 @@ def _phase_fused(device, model_file, fwd, bwd, sizes) -> dict:
     from sbi_for_diffusion_models_tpu_torch.ops.rowcheck import reference
     from sbi_for_diffusion_models_tpu_torch.pipeline import build_prior_theta
 
-    os.environ["MODEL_DIR"] = str(ROOT / "artifacts" / "models")
+    os.environ["MODEL_DIR"] = str(model_dir)
     est = load_model(model_file, device=device)
     w32 = mc.pack_mnle_weights(est)
     w64 = w32.astype(torch.float64)
@@ -286,7 +337,7 @@ def _phase_fused(device, model_file, fwd, bwd, sizes) -> dict:
     grad_names = ("dphi", "dctx", "dkf") if w32.pulse else ("dt", "dctx")
     out = {}
     for n in sizes:
-        rows = _session_rows(est, prior, device, max(1, n // 1200))
+        rows = tuple(a[:n].contiguous() for a in _session_rows(est, prior, device, -(-n // ROWS_MAIN)))
         g = torch.randn(rows[0].shape, generator=torch.Generator(device).manual_seed(5), device=device)
         kern = (f_kernel(*rows, w32), *b_kernel(*rows, w32, g))
         plain = (f_plain(*rows, w32), *b_plain(*rows, w32, g))
@@ -312,7 +363,7 @@ def _phase_fused(device, model_file, fwd, bwd, sizes) -> dict:
     return out
 
 
-def phase_k2k3(device, sizes=(ROWS_MAIN, ROWS_SBC)) -> dict:
+def phase_k2k3(device, sizes=(ROWS_MAIN, ROWS_SBC), model_file=MODEL_FILE, model_dir=MODEL_DIR) -> dict:
     """K2/K3 against their plain version on the same rows.
 
     The reference is the plain version run in float64 on the kernels'
@@ -330,8 +381,8 @@ def phase_k2k3(device, sizes=(ROWS_MAIN, ROWS_SBC)) -> dict:
     float64 reference never lands on it (``ops/rowcheck.py``)."""
     from sbi_for_diffusion_models_tpu_torch.ops import mnle_cuda as mc
 
-    return _phase_fused(device, MODEL_FILE, ("K2", mc.rows_logp, mc.rows_logp_plain),
-                        ("K3", mc.rows_logp_vjp, mc.rows_logp_vjp_plain), sizes)
+    return _phase_fused(device, model_file, ("K2", mc.rows_logp, mc.rows_logp_plain),
+                        ("K3", mc.rows_logp_vjp, mc.rows_logp_vjp_plain), sizes, model_dir)
 
 
 def phase_k2pk3p(device, sizes=(ROWS_MAIN, ROWS_SBC)) -> dict:
@@ -344,10 +395,12 @@ def phase_k2pk3p(device, sizes=(ROWS_MAIN, ROWS_SBC)) -> dict:
                         ("K3p", mc.rows_logp_pulse_vjp, mc.rows_logp_pulse_vjp_plain), sizes)
 
 
-def _sample_posterior(label, device, model_file, prior, x_o, pulses_o, warmup: int, draws: int) -> dict:
-    """Load ``model_file`` and sample the posterior of the session (x_o,
-    pulses_o) with the calibrated sampler (warmup and draws cut), through the
-    public entry points; checks the draws and prints the sampler's numbers."""
+def _sample_posterior(label, device, model_file, prior, x_o, pulses_o, warmup: int, draws: int,
+                      model_dir=MODEL_DIR) -> dict:
+    """Load ``model_dir/model_file`` and sample the posterior of the session
+    (x_o, pulses_o) with the calibrated sampler (warmup and draws cut),
+    through the public entry points; checks the draws and prints the
+    sampler's numbers."""
     import torch
 
     from sbi_for_diffusion_models_tpu_torch.inference.diagnostics import effective_sample_size, split_r_hat
@@ -356,7 +409,7 @@ def _sample_posterior(label, device, model_file, prior, x_o, pulses_o, warmup: i
 
     walls = {}
     t0 = time.perf_counter()
-    os.environ["MODEL_DIR"] = str(ROOT / "artifacts" / "models")
+    os.environ["MODEL_DIR"] = str(model_dir)
     est = load_model(model_file, device=device)
     walls["load"] = time.perf_counter() - t0
 
@@ -420,10 +473,11 @@ def _launches_on(label, required, run) -> tuple:
     return result, launches
 
 
-def phase_main(device, n_sim: int = N_SIM, warmup: int = 50, draws: int = 200) -> dict:
+def phase_main(device, n_sim: int = N_SIM, warmup: int = 50, draws: int = 100) -> dict:
     """The flagship serving path through its public entry points: simulate
     a training set and the observed session (K1), load the flagship model
-    and sample its posterior (K2/K3 at every gradient)."""
+    and sample its posterior (K2/K3 at every gradient). The simulated pairs
+    are returned for the training path."""
     import torch
 
     from sbi_for_diffusion_models_tpu_torch.data_simulator import (
@@ -454,13 +508,14 @@ def phase_main(device, n_sim: int = N_SIM, warmup: int = 50, draws: int = 200) -
         walls.update(_sample_posterior("main", device, MODEL_FILE, prior, x_o, pulses_o, warmup, draws))
         walls["total"] = time.perf_counter() - t_all
         _log(f"[main] walls_s={json.dumps({k: round(v, 3) for k, v in walls.items()})}")
-        return walls
+        return walls, proposal, z, x
 
-    walls, launches = _launches_on("main", ("ddm_rt_choice", "mnle_logprob_fwd", "mnle_logprob_bwd"), run)
-    return {"walls": walls, "launches": launches}
+    (walls, proposal, z, x), launches = _launches_on(
+        "main", ("ddm_rt_choice", "mnle_logprob_fwd", "mnle_logprob_bwd"), run)
+    return {"walls": walls, "launches": launches, "proposal": proposal, "z": z, "x": x}
 
 
-def phase_pulse(device, warmup: int = 50, draws: int = 200) -> dict:
+def phase_pulse(device, warmup: int = 50, draws: int = 100) -> dict:
     """The pulse-grid serving path: the same observed session, the
     committed pulse-grid model loaded and sampled by the same sampler
     (K2p/K3p at every gradient)."""
@@ -475,6 +530,286 @@ def phase_pulse(device, warmup: int = 50, draws: int = 200) -> dict:
 
     walls, launches = _launches_on("pulse", ("mnle_pulse_fwd", "mnle_pulse_bwd"), run)
     return {"walls": walls, "launches": launches}
+
+
+def phase_k4(device) -> dict:
+    """K4, both kinds, against its plain version in float64 at chains of 64
+    and 1,024 steps on 32,768 values in [0.25, 1).
+
+    fma: the kernel rounds once a step (an FMA), so it is held within
+    ``fma_tolerance`` at one rounding a step, K x 2^-24 x the value, which
+    every value's own movement over the chain exceeds (a chain not run
+    fails); the plain float32 version rounds twice and is printed beside.
+    It is also held within FUSED_ULPS ulps (of 2^-24: the values lie below
+    1) of the plain chain rounded once a step (``fused=True``), from which a
+    chain one turn short or long is about 21 ulps away.
+    transcendental: the chain contracts towards a fixed point, so only the
+    last turn's exp, log, sqrt and sin count: 8 float32 ulps (8 x 2^-23)."""
+    import torch
+
+    from sbi_for_diffusion_models_tpu_torch.ops.ceiling_cuda import (
+        FUSED_ULPS,
+        KINDS,
+        ceiling_chain,
+        ceiling_plain,
+        fma_tolerance,
+    )
+
+    gen = torch.Generator(device).manual_seed(13)
+    x = torch.rand((4, 64, 128), generator=gen, device=device) * 0.75 + 0.25
+    max_abs = 0.0
+    for kind in KINDS:
+        for K in (64, 1024):
+            got = ceiling_chain(x, K, kind)
+            torch.cuda.synchronize()
+            exact = ceiling_plain(x.double(), K, kind)
+            plain = ceiling_plain(x, K, kind)
+            if kind == "fma":
+                tol = fma_tolerance(K, exact.abs())
+                if not bool(((exact - x).abs() > tol).all()):
+                    raise AssertionError(f"K4 fma K={K}: the tolerance exceeds the chain's own movement")
+            else:
+                tol = torch.full_like(exact, 8 * 2.0**-23)
+            err = (got.double() - exact).abs()
+            plain_err = (plain.double() - exact).abs()
+            vs_plain = float((got - plain).abs().max())
+            max_abs = max(max_abs, vs_plain)
+            _log(f"[K4] {kind} K={K} n={x.numel()}: max |kernel - float64|={float(err.max()):.3e} "
+                 f"(tolerance {float(tol.min()):.3e} to {float(tol.max()):.3e}, worst err/tolerance "
+                 f"{float((err / tol).max()):.3f}); plain_f32 vs float64={float(plain_err.max()):.3e}; "
+                 f"kernel vs plain_f32={vs_plain:.3e}")
+            if not bool((err <= tol).all()) or not bool(got.isfinite().all()):
+                raise AssertionError(f"K4 {kind} at K={K} differs from its float64 evaluation by "
+                                     f"{float((err / tol).max()):.3f} x its tolerance")
+            if kind == "fma":
+                ulps = float(((got - ceiling_plain(x, K, kind, fused=True)).abs() / 2.0**-24).max())
+                _log(f"[K4] fma K={K}: kernel vs the plain chain rounded once a step: {ulps:.1f} ulps of 2^-24 "
+                     f"(limit {FUSED_ULPS})")
+                if not ulps <= FUSED_ULPS:
+                    raise AssertionError(f"K4 fma at K={K} is {ulps:.1f} ulps from the chain rounded once a step")
+    return {"max_abs_err": max_abs}
+
+
+def _k4_at_the_roofline_shape(device, report: dict) -> dict:
+    """K4 at the shape and chain lengths the roofline path launches it with:
+    (64, 256, 128) elements of 0.5, both kinds, chains of K_lo and K_hi.
+    Every element runs the same chain, so the float64 evaluation of one
+    element is the reference of all: the fma kind is held within
+    ``fma_tolerance`` at one rounding a step, which the chain's own movement
+    must exceed, and within FUSED_ULPS ulps of the plain chain rounded once a
+    step (a single turn short or long fails); the transcendental kind, whose
+    chain settles on a fixed point, within 8 float32 ulps. The plain float32 version runs once at the full shape for
+    each kind (fma at K_hi, where it is timed; transcendental at K_lo) and
+    the kernel is held to it within both sides' roundings."""
+    import torch
+
+    from sbi_for_diffusion_models_tpu_torch.ops.ceiling_cuda import (
+        FUSED_ULPS,
+        KINDS,
+        ceiling_chain,
+        ceiling_plain,
+        fma_tolerance,
+    )
+
+    x = torch.full(K4_SHAPE, 0.5, dtype=torch.float32, device=device)
+    one = torch.full((1,), 0.5, dtype=torch.float64)
+    max_abs, plain_ms = 0.0, None
+    for kind in KINDS:
+        r = report[f"issue_{kind}"]
+        if r["elements"] != x.numel():
+            raise AssertionError(f"roofline: K4 ran on {r['elements']} elements, the check on {x.numel()}")
+        K_plain = r["K_hi"] if kind == "fma" else r["K_lo"]
+        for K in (r["K_lo"], r["K_hi"]):
+            got = ceiling_chain(x, K, kind)
+            exact = float(ceiling_plain(one, K, kind))
+            ulps = 8 * 2.0**-23
+            tol = fma_tolerance(K, abs(exact)) if kind == "fma" else ulps
+            if kind == "fma" and not abs(exact - 0.5) > tol:
+                raise AssertionError(f"K4 fma K={K}: the tolerance exceeds the chain's own movement")
+            err = float((got.double() - exact).abs().max())
+            line = (f"[K4] {kind} K={K} n={x.numel()}: float64={exact:.9g} max |kernel - float64|={err:.3e} "
+                    f"(tolerance {tol:.3e}, err/tolerance {err / tol:.3f})")
+            ok = bool(got.isfinite().all()) and err <= tol
+            if kind == "fma":
+                fused = float(ceiling_plain(one.float(), K, kind, fused=True))
+                ulps = float((got.double() - fused).abs().max()) / 2.0**-24
+                line += f"; vs the plain chain rounded once a step: {ulps:.1f} ulps of 2^-24 (limit {FUSED_ULPS})"
+                ok = ok and ulps <= FUSED_ULPS
+            if K == K_plain:
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                plain = ceiling_plain(x, K, kind)
+                end.record()
+                torch.cuda.synchronize()
+                vs_plain = float((got - plain).abs().max())
+                # The kernel rounds once a step and the plain version twice: three roundings between them.
+                plain_tol = fma_tolerance(K, abs(exact), roundings=3) if kind == "fma" else 2 * ulps
+                max_abs = max(max_abs, vs_plain)
+                ok = ok and vs_plain <= plain_tol
+                line += (f"; plain_f32 vs float64={float((plain.double() - exact).abs().max()):.3e}; "
+                         f"kernel vs plain_f32={vs_plain:.3e} (tolerance {plain_tol:.3e})")
+                if kind == "fma":
+                    plain_ms = start.elapsed_time(end)
+            _log(line)
+            if not ok:
+                raise AssertionError(f"K4 {kind} at K={K} and {x.numel()} elements differs from its float64 "
+                                     f"evaluation or its plain version: {line}")
+    return {"max_abs_err": max_abs, "plain_ms": plain_ms}
+
+
+def phase_roofline(device) -> dict:
+    """The roofline path through its entry point (``roofline.main``): K4 at
+    its full shape and both chain lengths, the two ceilings, then K1 at
+    524,288 trials and K2 at 65,536 rows against them. A ceiling above
+    MAX_CEILING_SHARE of the datasheet's FMA rate means the chain was folded
+    or the timing is wrong. After the counts are read, each kernel of the
+    path is held against its plain version at the shape the path gave it:
+    K4 (``_k4_at_the_roofline_shape``), K1 on the path's trials, and K2/K3
+    at the path's row count on the path's model."""
+    from sbi_for_diffusion_models_tpu_torch import roofline
+    from sbi_for_diffusion_models_tpu_torch.ops.ceiling_cuda import KINDS
+
+    os.environ["MODEL_DIR"] = str(MODEL_DIR)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "roofline_h100.json"
+        report, launches = _launches_on("roofline", ("issue_ceiling", "ddm_rt_choice", "mnle_logprob_fwd"),
+                                        lambda: roofline.main(["--out", str(out)]))
+        if json.loads(out.read_text()) != report:
+            raise AssertionError("roofline: the written report differs from the returned one")
+    for kind in KINDS:
+        r = report[f"issue_{kind}"]
+        if not (0.0 < r["share_of_datasheet_fma"] <= MAX_CEILING_SHARE):
+            raise AssertionError(f"roofline: the {kind} ceiling is {r['share_of_datasheet_fma']:.3f} of the "
+                                 f"datasheet's FMA rate (limit {MAX_CEILING_SHARE})")
+    k4 = _k4_at_the_roofline_shape(device, report)
+    _k1_against_plain("K1 roofline", *roofline.simulator_inputs(report["sim_batch"], device))
+    phase_k2k3(device, sizes=(report["mnle_rows"],), model_file=report["mnle_model"])
+    fma = report["issue_fma"]
+    bound_ms, bound_by = _bound(2.0 * fma["elements"] * fma["K_hi"], 8 * fma["elements"])
+    _log(f"[K4] time fma K={fma['K_hi']} n={fma['elements']}: kernel_ms={fma['seconds_hi'] * 1e3:.4f} "
+         f"plain_ms={k4['plain_ms']:.4f} bound_ms={bound_ms:.4g} ({bound_by}, "
+         f"{bound_ms / (fma['seconds_hi'] * 1e3):.3f} of it)")
+    return {"report": report, "launches": launches, "ms": fma["seconds_hi"] * 1e3, "plain_ms": k4["plain_ms"],
+            "max_abs_err": k4["max_abs_err"], "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _train_epoch_device_time(cfg, proposal, z, x, step_ms: float) -> None:
+    """One epoch of ``train_mnle`` (its optimizer steps and one validation
+    pass) under ``torch.profiler``: the card's time and launches per
+    optimizer step, and the card's busy share of ``step_ms``, the ms per
+    step of the run that was not profiled. Prints; checks nothing."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import sbi_for_diffusion_models_tpu_torch as port
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        meta = port.train_mnle(cfg.replace(TRAIN_MAX_EPOCHS=1), proposal, z, x, seed=0, verbose=False).train_meta
+        torch.cuda.synchronize()
+    events = [(e.count, getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)))
+              for e in prof.key_averages()]
+    steps = meta["steps_per_epoch"]
+    device_ms = sum(us for _, us in events) / 1e3 / steps
+    _log(f"[train] one epoch under torch.profiler ({steps} steps and a validation pass): "
+         f"device_ms_per_step={device_ms:.3f} device_launches_per_step={sum(c for c, us in events if us > 0) / steps:.0f} "
+         f"ms_per_step(profiled)={meta['step_ms']:.3f}; device busy share of the unprofiled step "
+         f"({step_ms:.3f} ms) = {device_ms / step_ms:.3f}")
+
+
+def phase_train(device, proposal, z, x, warmup: int = 20, draws: int = 20) -> dict:
+    """The training path at the flagship's full width: ``train_mnle`` on the
+    simulated pairs, ``save_model``, ``load_model``, ``run_inference_mcmc``
+    with the loaded model, through the public entry points; then K2/K3 on
+    the trained model against their plain version at 1,200 rows (one
+    leapfrog; 0.1 % of them is a single row) and at 115,200."""
+    import numpy as np
+    import torch
+
+    import sbi_for_diffusion_models_tpu_torch as port
+    from sbi_for_diffusion_models_tpu_torch.run_config import CALIBRATED_CONFIG
+
+    cfg = CALIBRATED_CONFIG.replace(MNLE_COND_AFFINE=True, TRAIN_MAX_EPOCHS=TRAIN_EPOCHS,
+                                    TRAIN_STOP_AFTER_EPOCHS=TRAIN_EPOCHS)
+    model_file = "mnle_chip_smoke.npz"
+
+    with tempfile.TemporaryDirectory() as model_dir:
+        def run():
+            walls = {}
+            t_all = time.perf_counter()
+            t0 = time.perf_counter()
+            est = port.train_mnle(cfg, proposal, z, x, seed=0)
+            torch.cuda.synchronize()
+            walls["train"] = time.perf_counter() - t0
+            meta = est.train_meta
+            mc_ = est.cfg
+            width = (mc_.rt_rep, mc_.censor_rt, mc_.cond_affine, mc_.log_condition_dims, mc_.hidden_features,
+                     mc_.num_transforms, mc_.num_bins, mc_.condition_dim)
+            if width != ("shifted_log", True, True, (1, 2, 3), 128, 10, 24, 85):
+                raise AssertionError(f"train: not the flagship's width: {width}")
+            steps = meta["epochs_run"] * meta["steps_per_epoch"]
+            _log(f"[train] n={meta['num_train']} epochs={meta['epochs_run']} steps_per_epoch={meta['steps_per_epoch']} "
+                 f"ms_per_optimizer_step={meta['step_ms']:.3f} ({steps} steps) train_wall_s={walls['train']:.3f}")
+            _log(f"[train] train_losses={[round(v, 4) for v in meta['train_losses']]}")
+            _log(f"[train] val_losses={[round(v, 4) for v in meta['val_losses']]} best={meta['best_val_loss']:.4f}")
+            vl = meta["val_losses"]
+            if meta["epochs_run"] != TRAIN_EPOCHS or not bool(np.isfinite(vl).all()):
+                raise AssertionError(f"train: {meta['epochs_run']} epochs, validation losses {vl}")
+            if not vl[-1] < vl[0] - TRAIN_MIN_DROP:
+                raise AssertionError(f"train: the validation loss went from {vl[0]:.4f} to {vl[-1]:.4f}, "
+                                     f"less than the {TRAIN_MIN_DROP} it must fall")
+
+            os.environ["MODEL_DIR"] = model_dir
+            t0 = time.perf_counter()
+            path = port.save_model(est, cfg, model_file)
+            loaded = port.load_model(model_file, device=device)
+            walls["save_load"] = time.perf_counter() - t0
+            if not all(torch.equal(a, b) for a, b in zip(est.net.parameters(), loaded.net.parameters())):
+                raise AssertionError("train: the loaded weights differ from the saved ones")
+            if any(p.requires_grad for p in loaded.net.parameters()):
+                raise AssertionError("train: the loaded weights require gradients")
+            with np.load(path) as data:
+                fingerprint = json.loads(str(data["__meta__"]))["param_fingerprint"]
+            port.save_model(loaded, cfg, "again.npz")
+            with np.load(Path(model_dir) / "again.npz") as data:
+                again = json.loads(str(data["__meta__"]))["param_fingerprint"]
+            if fingerprint != again:
+                raise AssertionError(f"train: fingerprint {fingerprint} became {again} after a reload")
+            _log(f"[train] saved {path.name} ({path.stat().st_size} bytes) fingerprint={fingerprint}; reloaded bit-equal")
+
+            prior, x_o, pulses_o = _observed_session(device)
+            walls.update(_sample_posterior("train", device, model_file, prior, x_o, pulses_o, warmup, draws,
+                                           model_dir=model_dir))
+            walls["total"] = time.perf_counter() - t_all
+            _log(f"[train] walls_s={json.dumps({k: round(v, 3) for k, v in walls.items()})}")
+            return walls, meta
+
+        (walls, meta), launches = _launches_on("train", ("mnle_logprob_fwd", "mnle_logprob_bwd"), run)
+        # After the counts are read: comparison launches do not count.
+        check = phase_k2k3(device, model_file=model_file, model_dir=model_dir)
+    _train_epoch_device_time(cfg, proposal, z, x, meta["step_ms"])
+    return {"walls": walls, "launches": launches, "train_meta": meta, "check": check}
+
+
+def measured_bounds(kernels: list, k1_steps: int, report: dict) -> None:
+    """Add ``measured_bound_ms`` to every kernel of the line: its operations
+    over the issue rates K4 measured in this run (``roofline.main``'s
+    report) instead of the datasheet's. The fused kernels' FLOP are FMAs, two
+    each, at the fma ceiling; K1's executed steps take their FMA-class
+    operations at the fma ceiling and their special functions at the
+    transcendental-mix ceiling, as ``roofline.py`` states its demand."""
+    from sbi_for_diffusion_models_tpu_torch.roofline import K1_FMA_CLASS_OPS, K1_TRANSCENDENTAL_CLASS_OPS
+
+    fma, tra = report["issue_fma"]["ops_per_s"], report["issue_transcendental"]["ops_per_s"]
+    for k in kernels:
+        if k["name"] == "ddm_rt_choice":
+            k["measured_bound_ms"] = k1_steps * (K1_FMA_CLASS_OPS / fma + K1_TRANSCENDENTAL_CLASS_OPS / tra) * 1e3
+        elif k["bound_by"] == "operations":
+            k["measured_bound_ms"] = k["bound_ms"] * (FP32_OPS_PER_S / 2.0) / fma
+        else:  # bytes: no issue rate enters
+            k["measured_bound_ms"] = k["bound_ms"]
+        _log(f"[ceilings] {k['name']}: kernel_ms={k['ms']:.4f} datasheet_bound_ms={k['bound_ms']:.4g} "
+             f"({k['bound_ms'] / k['ms']:.4f} of the kernel's time) measured_bound_ms={k['measured_bound_ms']:.4g} "
+             f"({k['measured_bound_ms'] / k['ms']:.4f})")
 
 
 def main() -> int:
@@ -502,8 +837,11 @@ def main() -> int:
     k1 = phase_k1(device, N_SIM)
     k23 = phase_k2k3(device)
     k23p = phase_k2pk3p(device)
+    k4 = phase_k4(device)
+    roof = phase_roofline(device)
     main_path = phase_main(device)
     pulse_path = phase_pulse(device)
+    phase_train(device, main_path["proposal"], main_path["z"], main_path["x"])
     _log(f"[time] whole script after start-up: {time.perf_counter() - t_start:.1f} s")
 
     src = f"{PKG}/csrc"
@@ -527,6 +865,14 @@ def main() -> int:
             "launches": path["launches"][kname], "max_abs_err": fused[label]["max_abs_err"], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
+    kernels.append({
+        "name": "issue_ceiling", "route": "cuda", "source": f"{src}/issue_ceiling.cu",
+        "replaces": "benchmarks/roofline.py:105", "launches": roof["launches"]["issue_ceiling"],
+        "max_abs_err": max(k4["max_abs_err"], roof["max_abs_err"]), "ms": roof["ms"], "plain_ms": roof["plain_ms"],
+        "bound_ms": roof["bound_ms"], "bound_by": roof["bound_by"], "library_ms": None,
+        "kinds": {kind: roof["report"][f"issue_{kind}"] for kind in ("fma", "transcendental")},
+    })
+    measured_bounds(kernels, k1["steps"], roof["report"])
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

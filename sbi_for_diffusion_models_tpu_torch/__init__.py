@@ -10,12 +10,26 @@ each beside its plain PyTorch version:
 * K2/K3, the fused MNLE log-prob forward and backward: ``ops/mnle_cuda.py``,
   counterpart of ``ops/mnle_pallas.py``;
 * K2p/K3p, the same pair for the pulse-grid RT representation (absolute
-  anchor), in ``ops/mnle_cuda.py`` as well.
+  anchor), in ``ops/mnle_cuda.py`` as well;
+* K4, the issue-ceiling microkernel: ``ops/ceiling_cuda.py``, counterpart of
+  the kernel in ``benchmarks/roofline.py``, timed by ``roofline.py``.
 
 Entry points run on the CUDA card unless given another ``device``
 (``utils/device.py``); without a card they raise. The package imports
 ``torch`` and never ``jax``. Submodules are imported where they are used;
-importing the package itself loads nothing else.
+importing the package itself loads nothing else: the names in ``__all__``
+(the training and serving entry points of ``mnle``) are imported from their
+modules when first asked for.
 """
 
 __version__ = "0.1.0"
+
+__all__ = ["train_mnle", "save_model", "load_model", "build_mnle", "run_inference_mcmc"]
+
+
+def __getattr__(name):
+    if name in __all__:
+        from . import mnle
+
+        return getattr(mnle, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

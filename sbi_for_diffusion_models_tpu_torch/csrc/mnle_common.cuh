@@ -86,16 +86,25 @@ struct SoftmaxStats {
   float max_w, sum_w, max_h, sum_h;
 };
 
+// The normalizers are summed in double: a spline's knots are sums of K
+// softmax terms, a float32 running sum rounds at the size of the whole sum
+// at every term, and in a narrow bin that rounding is a visible share of the
+// bin's width. The plain version's softmax and cumsum reduce as trees and
+// round less; with double sums here (and in the knot walks) the kernels are
+// closer to the float64 evaluation than the plain float32 version is.
 __device__ __forceinline__ SoftmaxStats softmax_stats(const float* P, int K) {
   SoftmaxStats s{-INFINITY, 0.0f, -INFINITY, 0.0f};
   for (int i = 0; i < K; ++i) {
     s.max_w = fmaxf(s.max_w, P[i]);
     s.max_h = fmaxf(s.max_h, P[K + i]);
   }
+  double sum_w = 0.0, sum_h = 0.0;
   for (int i = 0; i < K; ++i) {
-    s.sum_w += expf(P[i] - s.max_w);
-    s.sum_h += expf(P[K + i] - s.max_h);
+    sum_w += (double)expf(P[i] - s.max_w);
+    sum_h += (double)expf(P[K + i] - s.max_h);
   }
+  s.sum_w = (float)sum_w;
+  s.sum_h = (float)sum_h;
   return s;
 }
 

@@ -45,7 +45,9 @@
 //   place, and those gradients flow back through the head, trunk and
 //   categorical products. Shared memory: ~114 KB per block at the
 //   flagship's widths, so two blocks fit on an SM.
-// - All arithmetic is FP32 (FMAs allowed); no TF32, no fast math.
+// - All arithmetic is FP32 (FMAs allowed; no TF32, no fast math), except the
+//   softmax normalizers and the cumulative widths and heights behind the
+//   knots, which are summed in double (mnle_common.cuh, softmax_stats).
 
 #include "mnle_common.cuh"
 
@@ -54,12 +56,13 @@ namespace {
 constexpr float kLogSqrt2Pi = 0.91893853320467274178f;
 
 // The bin of z (|z| <= B) and its knots/derivatives, walking the cumulative
-// widths and heights once.
+// widths and heights once. The cumulative sums run in double and each knot
+// is rounded to float32 once (see softmax_stats).
 __device__ __forceinline__ Bin find_bin(const float* P, const MnleParams& p, const SoftmaxStats& s,
                                         float z) {
   const int K = p.K;
   const float B = p.tail_bound, total = 2.0f * p.tail_bound;
-  float cw = 0.0f, ch = 0.0f;
+  double cw = 0.0, ch = 0.0;
   Bin b;
   b.xk = -B;
   b.yk = -B;
@@ -68,8 +71,8 @@ __device__ __forceinline__ Bin find_bin(const float* P, const MnleParams& p, con
     cw += p.min_w + p.scale_w * (expf(P[j] - s.max_w) / s.sum_w);
     ch += p.min_h + p.scale_h * (expf(P[K + j] - s.max_h) / s.sum_h);
     const bool last = j == K - 1;
-    const float xk1 = last ? B : cw * total - B;
-    const float yk1 = last ? B : ch * total - B;
+    const float xk1 = last ? B : (float)(cw * (double)total - (double)B);
+    const float yk1 = last ? B : (float)(ch * (double)total - (double)B);
     if (last || z < xk1) {
       b.k = j;
       b.xk1 = xk1;

@@ -60,7 +60,9 @@
 // - Censored rows skip the flow and the slot head with a branch, not a
 //   product, so a non-finite term there never reaches the value or the
 //   gradient.
-// - All arithmetic is FP32 (FMAs allowed); no TF32, no fast math.
+// - All arithmetic is FP32 (FMAs allowed; no TF32, no fast math), except the
+//   softmax normalizers and the cumulative widths and heights behind the
+//   knots, which are summed in double (mnle_common.cuh, softmax_stats).
 
 #include "mnle_common.cuh"
 
@@ -74,11 +76,13 @@ __device__ __forceinline__ float clip_grad(float x, float lo, float hi) {
 }
 
 // The circular bin of z in [0, 1) and its knots/derivatives: knots are
-// [0, cumsum(widths)[:K-1], 1], derivatives d_0 .. d_{K-1}, d_K = d_0.
+// [0, cumsum(widths)[:K-1], 1], derivatives d_0 .. d_{K-1}, d_K = d_0. The
+// cumulative sums run in double and each knot is rounded to float32 once
+// (see softmax_stats).
 __device__ __forceinline__ Bin find_circular_bin(const float* P, const MnleParams& p,
                                                  const SoftmaxStats& s, float z) {
   const int K = p.K;
-  float cw = 0.0f, ch = 0.0f;
+  double cw = 0.0, ch = 0.0;
   Bin b;
   b.xk = 0.0f;
   b.yk = 0.0f;
@@ -87,8 +91,8 @@ __device__ __forceinline__ Bin find_circular_bin(const float* P, const MnleParam
     cw += p.min_w + p.scale_w * (expf(P[j] - s.max_w) / s.sum_w);
     ch += p.min_h + p.scale_h * (expf(P[K + j] - s.max_h) / s.sum_h);
     const bool last = j == K - 1;
-    const float xk1 = last ? 1.0f : cw;
-    const float yk1 = last ? 1.0f : ch;
+    const float xk1 = last ? 1.0f : (float)cw;
+    const float yk1 = last ? 1.0f : (float)ch;
     if (last || z < xk1) {
       b.k = j;
       b.xk1 = xk1;

@@ -8,13 +8,15 @@ RT, log-scaled condition dims, z-scoring) and their change-of-variables
 terms baked into ``log_prob``.
 
 Ported representations: ``rt_rep`` "log" and "shifted_log", with or without
-``censor_rt`` and ``cond_affine``. The pulse representation, the pulse
-embedding, ``tail_sharp`` and sampling are not ported yet; they raise
+``censor_rt`` and ``cond_affine``, and "pulse" (both grid anchors). The
+pulse embedding, ``tail_sharp`` and sampling are not ported yet; they raise
 ``NotImplementedError``.
 
 Layers are ``nn.Linear`` with PyTorch's (out, in) weight layout. The JAX
 package's flax ``Dense`` kernels are (in, out): ``mnle_from_flax_params``
-transposes each kernel once when it loads a JAX parameter tree.
+transposes each kernel once when it loads a JAX parameter tree, and
+``mnle_to_flax_params`` transposes it back. ``build_mnle`` makes an untrained
+estimator initialised as flax initialises the JAX one.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..utils.device import resolve_device
+from ..utils.rng import make_generator
 from .spline import (
     clip,
     num_circular_spline_params,
@@ -42,7 +45,9 @@ __all__ = [
     "MNLEConfig",
     "MNLENet",
     "MNLE",
+    "build_mnle",
     "mnle_from_flax_params",
+    "mnle_to_flax_params",
     "transform_condition",
     "shifted_rt_transform",
     "pulse_grid_split",
@@ -281,11 +286,14 @@ class MNLE:
         self.cfg = cfg
         self.net = net
         dev = next(net.parameters()).device
-        f32 = dict(dtype=torch.float32, device=dev)
-        self.cond_mean = torch.as_tensor(np.asarray(cond_mean, np.float32)).to(**f32)
-        self.cond_std = torch.as_tensor(np.asarray(cond_std, np.float32)).to(**f32)
-        self.x_mean = torch.as_tensor(np.asarray(x_mean, np.float32)).to(**f32)
-        self.x_std = torch.as_tensor(np.asarray(x_std, np.float32)).to(**f32)
+
+        def stat(v):
+            if not isinstance(v, torch.Tensor):
+                v = torch.as_tensor(np.asarray(v, np.float32))
+            return v.detach().to(dtype=torch.float32, device=dev)
+
+        self.cond_mean, self.cond_std = stat(cond_mean), stat(cond_std)
+        self.x_mean, self.x_std = stat(x_mean), stat(x_std)
         self.train_meta = train_meta
 
     @property
@@ -478,3 +486,91 @@ def mnle_from_flax_params(
     net.requires_grad_(False)
     net.to(device)
     return MNLE(cfg, net, cond_mean, cond_std, x_mean, x_std, train_meta=train_meta)
+
+
+def _named_linears(net: MNLENet):
+    """(path in the flax tree, layer) of every ``nn.Linear`` of the net, in
+    the flax tree's sorted order."""
+    out = []
+    if net.affine_head is not None:
+        out.append((("affine_head",), net.affine_head))
+    for name in ("cat_net", "flow_trunk"):
+        out += [((name, f"Dense_{i}"), layer) for i, layer in enumerate(getattr(net, name).layers)]
+    if net.pulse_slot_head is not None:
+        out.append((("pulse_slot_head",), net.pulse_slot_head))
+    heads = [((f"spline_head_{i}",), head) for i, head in enumerate(net.spline_heads)]
+    return out + sorted(heads, key=lambda kv: kv[0])
+
+
+def mnle_to_flax_params(estimator: MNLE) -> dict:
+    """The estimator's weights as the JAX parameter tree: nested dicts of
+    numpy arrays named as flax names them (``cat_net/Dense_i``,
+    ``flow_trunk/Dense_i``, ``spline_head_i``, ``affine_head``,
+    ``pulse_slot_head``), each with ``kernel`` transposed back to (in, out),
+    C-contiguous, and ``bias``. The inverse of ``mnle_from_flax_params``."""
+    tree: dict = {}
+    for path, linear in _named_linears(estimator.net):
+        node = tree
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = {
+            "bias": linear.bias.detach().cpu().numpy().copy(),
+            "kernel": np.ascontiguousarray(linear.weight.detach().cpu().numpy().T),
+        }
+    return tree
+
+
+_TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated at +-2
+
+
+def _lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
+    """flax's default ``Dense`` kernel init, in place: a normal truncated at
+    +-2 sigma with variance 1 / fan_in after truncation, i.e. sigma =
+    sqrt(1 / fan_in) / 0.87962566. Drawn by inverting the normal CDF on
+    ``generator``'s device."""
+    sigma = math.sqrt(1.0 / weight.shape[1]) / _TRUNC_STD
+    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+    u = torch.rand(weight.shape, generator=generator, device=generator.device, dtype=torch.float64)
+    z = math.sqrt(2.0) * torch.erfinv(2.0 * (lo + u * (1.0 - 2.0 * lo)) - 1.0)
+    with torch.no_grad():
+        weight.copy_((sigma * z.clamp(-2.0, 2.0)).to(torch.float32))
+
+
+def build_mnle(
+    generator_or_seed,
+    cfg: MNLEConfig,
+    *,
+    cond_mean=None,
+    cond_std=None,
+    x_mean=0.0,
+    x_std=1.0,
+    device=None,
+) -> MNLE:
+    """An untrained MNLE with the given standardization stats, on ``device``
+    (default: the CUDA card), its weights drawn from ``generator_or_seed`` (a
+    ``torch.Generator`` or an integer seed).
+
+    Initialised as flax initialises the JAX net, not as ``nn.Linear`` does:
+    every kernel ``lecun_normal``, every bias zero, and the cond-affine
+    head's kernel zero too, so that layer is the identity at the start. The
+    weights require gradients."""
+    cfg.check_ported()
+    device = resolve_device(device)
+    if isinstance(generator_or_seed, torch.Generator):
+        gen = generator_or_seed
+    else:
+        gen = make_generator(generator_or_seed, device)
+    net = MNLENet(cfg)
+    for _, linear in _named_linears(net):
+        nn.init.zeros_(linear.bias)
+        if linear is net.affine_head:
+            nn.init.zeros_(linear.weight)
+        else:
+            _lecun_normal_(linear.weight, gen)
+    net.requires_grad_(True)
+    net.to(device)
+    if cond_mean is None:
+        cond_mean = np.zeros((cfg.condition_dim,), np.float32)
+    if cond_std is None:
+        cond_std = np.ones((cfg.condition_dim,), np.float32)
+    return MNLE(cfg, net, cond_mean, cond_std, x_mean, x_std)

@@ -34,7 +34,7 @@ __all__ = ["CudaKernel", "build_all", "check_cuda_tensor", "KERNELS"]
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-BASE_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+BASE_FLAGS = ("-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
 # Every kernel wrapper of the package, by name (filled as modules import).
 KERNELS: dict[str, "CudaKernel"] = {}
@@ -58,6 +58,7 @@ class _Library:
         self.flags = tuple(flags)
         self._lib: ctypes.CDLL | None = None
         self.build_seconds = 0.0
+        self.build_log = ""  # what nvcc printed (ptxas -v: registers, stack, spills per kernel)
 
     def path(self, nvcc: str) -> Path:
         h = hashlib.sha256()
@@ -80,6 +81,7 @@ class _Library:
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         self.build_seconds = time.perf_counter() - t0
+        self.build_log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             os.unlink(tmp)
             raise RuntimeError(
@@ -143,7 +145,8 @@ class CudaKernel:
 
 def build_all() -> dict[str, float]:
     """Build (or find built) every kernel library, one nvcc per source run
-    side by side, and load each; returns seconds per file."""
+    side by side, and load each; returns seconds per file. Each library's
+    ``build_log`` then holds what ptxas said of its kernels."""
     libs = list(_LIBRARIES.values())
     with ThreadPoolExecutor(max_workers=max(1, len(libs))) as pool:
         list(pool.map(_Library.build, libs))

@@ -1,8 +1,8 @@
 """Pipeline pieces (PyTorch port).
 
 Counterpart of ``sbi_for_diffusion_models_tpu/pipeline.py``. Only
-``build_prior_theta`` is ported so far; ``main`` and the CLI follow with the
-training and SBC slices.
+``build_prior_theta`` is ported so far; ``main`` and the CLI follow once SBC
+and ``analysis`` are ported (training is: ``mnle.train_mnle``).
 """
 
 from __future__ import annotations

@@ -43,7 +43,7 @@ def test_package_imports_no_jax():
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "assert len(mods) >= 20, mods\n"
-        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'jaxlib', 'flax')))\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'jaxlib', 'flax', 'optax')))\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )

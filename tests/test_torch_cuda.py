@@ -1,4 +1,4 @@
-"""PyTorch port: the CUDA kernels K1, K2, K3, K2p and K3p against their
+"""PyTorch port: the CUDA kernels K1, K2, K3, K2p, K3p and K4 against their
 plain versions on the card. Without a CUDA device (or without nvcc to build the kernels)
 every test here is skipped; ``chip_smoke.py`` runs the same checks at the
 main path's full sizes.
@@ -13,6 +13,7 @@ import torch
 
 from sbi_for_diffusion_models_tpu_torch.nets.mnle_net import MNLEConfig, mnle_from_flax_params
 from sbi_for_diffusion_models_tpu_torch.ops import mnle_cuda as mc
+from sbi_for_diffusion_models_tpu_torch.ops.ceiling_cuda import FUSED_ULPS, K4, ceiling_chain, ceiling_plain, fma_tolerance
 from sbi_for_diffusion_models_tpu_torch.ops.ddm_cuda import K1, ddm_rt_choice_cuda
 from sbi_for_diffusion_models_tpu_torch.ops.ddm_scan import ddm_rt_choice_scan
 from sbi_for_diffusion_models_tpu_torch.ops.rowcheck import reference, row_check
@@ -162,3 +163,31 @@ def test_k2p_k3p_match_their_plain_versions():
     out = mc.FusedPulseRowsLogProb.apply(phi_, oh, ctx, kf, kv, w)
     (dphi,) = torch.autograd.grad(out, phi_, grad_outputs=g)
     torch.testing.assert_close(dphi, grads[0], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kind", ["fma", "transcendental"])
+def test_k4_matches_its_plain_version_in_float64(kind):
+    """K4 at K = 1,024 on 12,345 values (not a multiple of the 256-thread
+    block) against the plain version in float64: the fma chain within one
+    rounding a step (``fma_tolerance``), the transcendental chain within 8
+    float32 ulps of the value (it contracts towards a fixed point, so only
+    the last turn's special functions count), and against the plain float32
+    version within the two tolerances added."""
+    K = 1024
+    x = torch.rand((12345,), generator=torch.Generator(DEV).manual_seed(3), device=DEV) * 0.75 + 0.25
+    before = K4.launches
+    got = ceiling_chain(x, K, kind)
+    assert K4.launches == before + 1 and got.shape == x.shape and got.dtype == torch.float32
+    exact = ceiling_plain(x.double(), K, kind)
+    plain = ceiling_plain(x, K, kind)
+    if kind == "fma":
+        tol, plain_tol = fma_tolerance(K, exact.abs()), fma_tolerance(K, exact.abs(), roundings=2)
+        assert bool(((exact - x).abs() > tol).all())  # the chain moved every value by more than that
+        # One rounding a step, as the plain chain's fused route rounds: a turn short or long is ~17 ulps away.
+        fused = ceiling_plain(x, K, kind, fused=True)
+        assert bool(((got - fused).abs() <= FUSED_ULPS * 2.0**-24).all())
+    else:
+        tol = plain_tol = torch.full_like(exact, 8 * 2.0**-23)
+    assert bool(((got.double() - exact).abs() <= tol).all())
+    assert bool(((got.double() - plain.double()).abs() <= tol + plain_tol).all())
+    assert torch.equal(ceiling_chain(x, 7, kind), x)  # no turn: a copy

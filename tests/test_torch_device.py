@@ -16,7 +16,8 @@ from sbi_for_diffusion_models_tpu_torch import mnle as tmnle
 from sbi_for_diffusion_models_tpu_torch.distributions import mcmc_transform
 from sbi_for_diffusion_models_tpu_torch.inference.mcmc import MCMCPosterior
 from sbi_for_diffusion_models_tpu_torch.models import rt_choice_model as tmodel
-from sbi_for_diffusion_models_tpu_torch.nets.mnle_net import MNLEConfig, mnle_from_flax_params
+from sbi_for_diffusion_models_tpu_torch import roofline
+from sbi_for_diffusion_models_tpu_torch.nets.mnle_net import MNLEConfig, build_mnle, mnle_from_flax_params
 from sbi_for_diffusion_models_tpu_torch.pipeline import build_prior_theta
 from sbi_for_diffusion_models_tpu_torch.proposals import ExtendedProposal, PulseSequenceProposal
 from sbi_for_diffusion_models_tpu_torch.run_config import RUN_CONFIG_PARAMS
@@ -55,6 +56,10 @@ ENTRY_POINTS = {
     "PulseSequenceProposal": lambda: PulseSequenceProposal(80),
     "mnle_from_flax_params": lambda: mnle_from_flax_params(_TINY, _tiny_tree(_TINY), 0.0, 1.0, 0.0, 1.0),
     "load_model": lambda: tmnle.load_model("mnle_1m_pulseabs.npz"),
+    "build_mnle": lambda: build_mnle(0, _TINY),
+    "train_mnle": lambda: tmnle.train_mnle(RUN_CONFIG_PARAMS, None, np.ones((20, 9), np.float32),
+                                           np.ones((20, 2), np.float32), verbose=False),
+    "issue_ceiling": lambda: roofline.issue_ceiling("fma", R=1, G=1, K_lo=8, K_hi=16),
 }
 
 
