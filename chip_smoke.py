@@ -60,7 +60,8 @@ computes any of these kernels, so ``library_ms`` is null.
 Run from the root of a checkout: ``python3 chip_smoke.py`` (one CUDA card,
 ``nvcc`` under /usr/local/cuda or on PATH). The last line of its output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels with
-their launches, errors, times and bounds. Any failed check raises, and the
+their launches, errors, times and bounds (K3's also with its tile height and
+ptxas's registers, stack and spills). Any failed check raises, and the
 script exits non-zero without that line. There is no CPU fallback: without
 a CUDA card the script exits with status 2.
 """
@@ -69,6 +70,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -170,19 +172,27 @@ def mnle_bound(w, n: int, backward: bool) -> tuple[float, str]:
 
 
 def phase_build() -> dict:
+    """Build every kernel; returns what ptxas -v said of each entry function
+    (mangled name -> registers, stack, spill stores and loads in bytes)."""
     from sbi_for_diffusion_models_tpu_torch.ops import _cuda, ceiling_cuda, ddm_cuda, mnle_cuda  # noqa: F401
 
     t0 = time.perf_counter()
     per_file = _cuda.build_all()
     _log(f"[build] {json.dumps(per_file)} total_s={time.perf_counter() - t0:.3f}")
-    for lib in _cuda._LIBRARIES.values():  # registers, stack and spills of every kernel, as ptxas -v reports them
+    ptxas: dict = {}
+    for lib in _cuda._LIBRARIES.values():
         entry = ""
         for line in lib.build_log.splitlines():
-            if "Compiling entry function" in line:
-                entry = line.split("'")[1]
-            elif "bytes stack frame" in line or line.lstrip().startswith("ptxas info    : Used"):
-                _log(f"[build] {lib.source.name} {entry}: {line.strip()}")
-    return per_file
+            if "Compiling entry function" in line or "Function properties for" in line:
+                entry = line.split("'")[1] if "'" in line else line.split()[-1]
+            elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line):
+                ptxas.setdefault(entry, {}).update(zip(("stack", "spill_stores", "spill_loads"), map(int, m.groups())))
+            elif m := re.search(r"Used (\d+) registers", line):
+                ptxas.setdefault(entry, {})["registers"] = int(m.group(1))
+            else:
+                continue
+            _log(f"[build] {lib.source.name} {entry}: {line.strip()}")
+    return ptxas
 
 
 def _k1_against_plain(label: str, theta, s, n_max: int, spp: int) -> tuple:
@@ -261,7 +271,7 @@ def phase_k1(device, n: int, seed: int = 7) -> dict:
             "bound_ms": times[4096][2], "bound_by": times[4096][3], "steps": times[4096][4], "times": times}
 
 
-def _session_rows(est, prior, device, n_sessions: int, seed: int = 11):
+def session_rows(est, prior, device, n_sessions: int, seed: int = 11):
     """Standardized rows as the posterior potential builds them: per session
     a prior draw theta_true, its simulated 50-trial session, and 24 thetas
     (theta_true and 23 prior draws) against every trial. Returns the
@@ -337,7 +347,7 @@ def _phase_fused(device, model_file, fwd, bwd, sizes, model_dir=MODEL_DIR) -> di
     grad_names = ("dphi", "dctx", "dkf") if w32.pulse else ("dt", "dctx")
     out = {}
     for n in sizes:
-        rows = tuple(a[:n].contiguous() for a in _session_rows(est, prior, device, -(-n // ROWS_MAIN)))
+        rows = tuple(a[:n].contiguous() for a in session_rows(est, prior, device, -(-n // ROWS_MAIN)))
         g = torch.randn(rows[0].shape, generator=torch.Generator(device).manual_seed(5), device=device)
         kern = (f_kernel(*rows, w32), *b_kernel(*rows, w32, g))
         plain = (f_plain(*rows, w32), *b_plain(*rows, w32, g))
@@ -833,7 +843,7 @@ def main() -> int:
     _log(f"[device] torch={torch.__version__} cuda={torch.version.cuda} device={name} ({smi})")
 
     t_start = time.perf_counter()
-    phase_build()
+    ptxas = phase_build()
     k1 = phase_k1(device, N_SIM)
     k23 = phase_k2k3(device)
     k23p = phase_k2pk3p(device)
@@ -865,6 +875,13 @@ def main() -> int:
             "launches": path["launches"][kname], "max_abs_err": fused[label]["max_abs_err"], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
+    # K3's tile height, as the source it was built from defines it, and ptxas's report of its build.
+    k3 = next(k for k in kernels if k["name"] == "mnle_logprob_bwd")
+    k3["rows_per_block"] = int(re.search(r"#define TILE_ROWS (\d+)", (ROOT / src / "mnle_tile.cuh").read_text())[1])
+    found = [v for e, v in ptxas.items() if "mnle_logprob_bwd_kernel" in e]
+    if len(found) != 1:
+        raise AssertionError(f"ptxas reported {len(found)} builds of K3, expected one: {sorted(ptxas)}")
+    k3["ptxas"] = found[0]
     kernels.append({
         "name": "issue_ceiling", "route": "cuda", "source": f"{src}/issue_ceiling.cu",
         "replaces": "benchmarks/roofline.py:105", "launches": roof["launches"]["issue_ceiling"],

@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""Plant known faults in K3p and show that ``chip_smoke.py``'s K2p/K3p
-check fails on each of them.
+"""Plant known faults in K3 and K3p and show that ``chip_smoke.py``'s
+kernel checks fail on each of them.
 
 For the unchanged source and for each fault in FAULTS, the script copies the
-port's package, ``chip_smoke.py`` and the pulse-grid model into a temporary
-directory, makes the fault's one text replacement in the copy's
-``csrc/mnle_pulse.cu``, and runs ``chip_smoke.phase_k2pk3p`` there (the
-copy builds its own kernels) at 1,200 and at 115,200 rows, each size on its
-own. It prints the check's lines for each run, then one JSON object as the
-last line: per fault and size, "passed" or "failed". It exits with 0 only if
-the unchanged source passes at both sizes and every fault fails at both.
+port's package, ``chip_smoke.py`` and the committed models into a temporary
+directory, makes the fault's one text replacement in the copy of the
+fault's kernel file, and runs the fault's check there (the copy builds its
+own kernels): ``chip_smoke.phase_k2k3`` for K3 (``csrc/mnle_logprob.cu``,
+with the tile product of ``csrc/mnle_tile.cuh``), ``chip_smoke.phase_k2pk3p``
+for K3p (``csrc/mnle_pulse.cu``), at 1,200 and at 115,200 rows, each size on
+its own. The unchanged source runs both checks. It prints the checks' lines
+for each run, then one JSON object as the last line: per fault and size,
+"passed" or "failed". It exits with 0 only if the unchanged source passes
+every check at both sizes and every fault fails at both.
 
 Run from the root of a checkout on a machine with one CUDA card and nvcc:
 ``python3 plant_faults.py``. The checkout itself is never changed.
@@ -26,33 +29,48 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PKG = "sbi_for_diffusion_models_tpu_torch"
-KERNEL = f"{PKG}/csrc/mnle_pulse.cu"
-MODEL = "artifacts/models/mnle_1m_pulseabs.npz"
+MODELS = ("artifacts/models/mnle_10m_shifted_logt_affine.npz", "artifacts/models/mnle_1m_pulseabs.npz")
+K3_FILE, K3P_FILE, TILE_FILE = "mnle_logprob.cu", "mnle_pulse.cu", "mnle_tile.cuh"
 
-# name -> (text in csrc/mnle_pulse.cu, its replacement), each in K3p only.
+# name -> (file in csrc/, the check's phase, text in the file, its replacement), or None for the unchanged
+# source, which runs every phase.
 FAULTS = {
     "none": None,
-    # d emb loses the slot head's term (the product with the transposed slot weights).
+    # K3: the knots are an exclusive scan of the widths, each lane's knot one lane early.
+    "k3_knot_scan_shifted": (K3_FILE, "phase_k2k3", "const double cw = warp_inclusive_scan(wd, lane);",
+                             "const double cw = warp_inclusive_scan(wd, lane) - wd;"),
+    # K3: the ballot picks the last bin whose upper knot exceeds z, not the first.
+    "k3_ballot_last_bin": (K3_FILE, "phase_k2k3", "b.k = below != 0u ? __ffs(below) - 1 : K - 1;",
+                           "b.k = below != 0u ? 31 - __clz(below) : K - 1;"),
+    # K3's tile product leaves out the ragged last chunk of k (in_w not a multiple of 32).
+    "k3_tile_drops_ragged_k": (TILE_FILE, "phase_k2k3", "return k0 + TILE_KC >= in_w;",
+                               "return k0 + 2 * TILE_KC > in_w;"),
+    # K3p: d emb loses the slot head's term (the product with the transposed slot weights).
     "no_slot_head_backward": (
+        K3P_FILE, "phase_k2pk3p",
         "  dense(slot, p.NS, p.NS, p.slot_wt, H, nullptr, gbuf[0], H, H, false, emb, HF, true);\n", ""),
-    # d kf is written as zeros.
-    "zero_dkf": ("dkf[(size_t)(row0 + rr) * p.F + f] = dkf_s[idx];", "dkf[(size_t)(row0 + rr) * p.F + f] = 0.0f;"),
-    # The last bin's right derivative takes its gradient as d_{K-1}, not the shared d_K = d_0.
-    "wrap_derivative_not_shared": ("const int k1 = (k + 1) % K;", "const int k1 = k + 1 < K ? k + 1 : k;"),
+    # K3p: d kf is written as zeros.
+    "zero_dkf": (K3P_FILE, "phase_k2pk3p", "dkf[(size_t)(row0 + rr) * p.F + f] = dkf_s[idx];",
+                 "dkf[(size_t)(row0 + rr) * p.F + f] = 0.0f;"),
+    # K3p: the last bin's right derivative takes its gradient as d_{K-1}, not the shared d_K = d_0.
+    "wrap_derivative_not_shared": (K3P_FILE, "phase_k2pk3p", "const int k1 = (k + 1) % K;",
+                                   "const int k1 = k + 1 < K ? k + 1 : k;"),
 }
+PHASES = ("phase_k2k3", "phase_k2pk3p")
 
 CHILD = """
-import json, torch
+import json, sys, torch
 import chip_smoke as cs
 torch.backends.cuda.matmul.allow_tf32 = False
 out = {}
-for n in (cs.ROWS_MAIN, cs.ROWS_SBC):
-    try:
-        cs.phase_k2pk3p(torch.device("cuda", 0), sizes=(n,))
-        out[n] = "passed"
-    except AssertionError as e:
-        print("[check failed]", e, flush=True)
-        out[n] = "failed"
+for phase in sys.argv[1:]:
+    for n in (cs.ROWS_MAIN, cs.ROWS_SBC):
+        try:
+            getattr(cs, phase)(torch.device("cuda", 0), sizes=(n,))
+            out[f"{phase}@{n}"] = "passed"
+        except AssertionError as e:
+            print("[check failed]", e, flush=True)
+            out[f"{phase}@{n}"] = "failed"
 print(json.dumps(out))
 """
 
@@ -60,22 +78,30 @@ print(json.dumps(out))
 def _copy_with_fault(dst: Path, fault) -> None:
     shutil.copytree(ROOT / PKG, dst / PKG, ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy2(ROOT / "chip_smoke.py", dst / "chip_smoke.py")
-    (dst / MODEL).parent.mkdir(parents=True)
-    shutil.copy2(ROOT / MODEL, dst / MODEL)
+    for model in MODELS:
+        (dst / model).parent.mkdir(parents=True, exist_ok=True)
+        shutil.copy2(ROOT / model, dst / model)
     if fault is not None:
-        old, new = fault
-        src = (dst / KERNEL).read_text()
+        name, _, old, new = fault
+        path = dst / PKG / "csrc" / name
+        src = path.read_text()
         if src.count(old) != 1:
-            raise RuntimeError(f"fault text found {src.count(old)} times in {KERNEL}, expected once: {old!r}")
-        (dst / KERNEL).write_text(src.replace(old, new))
+            raise RuntimeError(f"fault text found {src.count(old)} times in {name}, expected once: {old!r}")
+        path.write_text(src.replace(old, new))
 
 
 def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("plant_faults: no CUDA device; the checks run only on a GPU", file=sys.stderr)
+        return 2
     results = {}
     for name, fault in FAULTS.items():
         with tempfile.TemporaryDirectory() as tmp:
             _copy_with_fault(Path(tmp), fault)
-            proc = subprocess.run([sys.executable, "-c", CHILD], cwd=tmp, capture_output=True, text=True,
+            phases = PHASES if fault is None else (fault[1],)
+            proc = subprocess.run([sys.executable, "-c", CHILD, *phases], cwd=tmp, capture_output=True, text=True,
                                   timeout=900)
         print(f"== {name} (rc {proc.returncode})", flush=True)
         print(proc.stdout.rstrip(), flush=True)

@@ -24,32 +24,51 @@
 // how many SMs have work at all. The spline chain is a serial walk of
 // 10 x 24 bins per row and costs little beside the products.
 //
-// Design, simple first:
+// Design of K2, simple first:
 // - One block of 128 threads per tile of ROWS = 16 rows. The tile's
 //   activations live in shared memory. In a product, thread j computes
 //   output unit j for all 16 rows (16 accumulators in registers), streams
 //   column j of W (in, out) from global memory/L2 (coalesced across j:
 //   neighbouring threads read neighbouring columns) and reads the
-//   activations as shared-memory broadcasts. The backward kernel multiplies
-//   by W^T and reads the (out, in) copies the wrapper packs, so its loads
-//   are coalesced too.
-// - The per-row work (log-softmax, the affine layer, the spline chain and
-//   their derivatives) runs one thread per row on the row's slice of the
-//   head output in shared memory (16 x 712 x 4 B = 45 KB). A spline finds
-//   its bin by walking the cumulative widths once; knots are not stored.
-//   The bin rule is that of the JAX masked lookup: z == knot[j+1] falls in
-//   bin j+1 and the top edge in bin K-1.
-// - K3 keeps every layer's activation of the tile (ReLU masks) and the
-//   per-row z before each transform (at most 16 transforms). The spline
+//   activations as shared-memory broadcasts.
+// - The per-row work (log-softmax, the affine layer, the spline chain) runs
+//   one thread per row on the row's slice of the head output in shared
+//   memory (16 x 712 x 4 B = 45 KB). A spline finds its bin by walking the
+//   cumulative widths once; knots are not stored. The bin rule is that of
+//   the JAX masked lookup: z == knot[j+1] falls in bin j+1 and the top edge
+//   in bin K-1.
+//
+// Design of K3, for the H100 (the 16-row, 128-thread design above left half
+// the SMs without a block at the main path's 1,200 rows, kept one warp per
+// scheduler with nothing to hide the weights' L2 latency, issued a
+// shared-memory load per FMA and ran the spline phase on 16 of 128 threads):
+// - Tiles of TILE_ROWS = 8 rows on 256 threads (150 blocks at 1,200 rows).
+//   Every product runs through tile_dense (mnle_tile.cuh): weights staged
+//   by cp.async, double-buffered, activations k-major, register
+//   micro-tiles, and dense's summation order, so the products give dense's
+//   bits. The backward products multiply by W^T and stage the (out, in)
+//   copies the wrapper packs, so their rows are contiguous too.
+// - The per-row phase runs one warp per row, lane i on bin i (K <= 32): the
+//   softmax max and normalizers by shuffles (the sums in double), the knots
+//   by an inclusive warp scan in double rounded once each, the bin by a
+//   ballot, the softmax VJP by a shuffle reduction. Each transform's bin and
+//   softmax weights are found once, in the forward recompute, and kept for
+//   the backward (the bin in the registers of lane `transform`, the weights
+//   over the transform's width and height parameters). The chain over the
+//   transforms stays serial. (Finding every transform's softmaxes and knots
+//   first, four at a time with their shuffle chains interleaved, was slower
+//   on the H100.)
+// - K3 keeps every layer's activation of the tile (ReLU masks). The spline
 //   backward overwrites each transform's parameters with their gradients in
 //   place, and those gradients flow back through the head, trunk and
-//   categorical products. Shared memory: ~114 KB per block at the
-//   flagship's widths, so two blocks fit on an SM.
+//   categorical products. Shared memory at the flagship's widths: 89,856 B,
+//   so two blocks fit on an SM.
 // - All arithmetic is FP32 (FMAs allowed; no TF32, no fast math), except the
 //   softmax normalizers and the cumulative widths and heights behind the
 //   knots, which are summed in double (mnle_common.cuh, softmax_stats).
 
 #include "mnle_common.cuh"
+#include "mnle_tile.cuh"
 
 namespace {
 
@@ -100,78 +119,6 @@ __device__ float spline_fwd(const float* P, const MnleParams& p, float x, float*
   const float dnum = sl * sl * (b.dk1 * xi * xi + 2.0f * sl * xi * xi1m + b.dk * xi1m * xi1m);
   *ld += logf(dnum) - 2.0f * logf(den);
   return b.yk + num / den;
-}
-
-// Backward RQ spline at input x with upstream gradients gy (of y) and gl
-// (of the log-det). Overwrites P[0, S) with dL/dP and returns dL/dx.
-__device__ float spline_bwd(float* P, const MnleParams& p, float x, float gy, float gl) {
-  const int K = p.K, S = 3 * p.K - 1;
-  const float B = p.tail_bound, total = 2.0f * p.tail_bound;
-  if (!(x >= -B && x <= B)) {
-    for (int i = 0; i < S; ++i) P[i] = 0.0f;
-    return gy;
-  }
-  const SoftmaxStats s = softmax_stats(P, K);
-  const Bin b = find_bin(P, p, s, x);
-  const int k = b.k;
-  const float w = b.xk1 - b.xk, h = b.yk1 - b.yk, sl = h / w;
-  const float xi = (x - b.xk) / w, xi1m = 1.0f - xi, q = xi * xi1m;
-  const float c2 = b.dk1 + b.dk - 2.0f * sl;
-  const float nn = sl * xi * xi + b.dk * q;
-  const float den = sl + c2 * q;
-  const float A = b.dk1 * xi * xi + 2.0f * sl * q + b.dk * xi1m * xi1m;
-  const float den2 = den * den;
-  // d/dxi
-  const float dnn_dxi = 2.0f * sl * xi + b.dk * (1.0f - 2.0f * xi);
-  const float dden_dxi = c2 * (1.0f - 2.0f * xi);
-  const float dA_dxi = 2.0f * b.dk1 * xi + 2.0f * sl * (1.0f - 2.0f * xi) - 2.0f * b.dk * xi1m;
-  const float g_xi = gy * h * (dnn_dxi * den - nn * dden_dxi) / den2 + gl * (dA_dxi / A - 2.0f * dden_dxi / den);
-  // d/dslope (y and log-det through s, A and den)
-  const float g_s = gy * h * (xi * xi * den - nn * (1.0f - 2.0f * q)) / den2 +
-                    gl * (2.0f / sl + 2.0f * q / A - 2.0f * (1.0f - 2.0f * q) / den);
-  // d/d derivatives at the bin edges
-  const float g_dk = gy * h * q * (den - nn) / den2 + gl * (xi1m * xi1m / A - 2.0f * q / den);
-  const float g_dk1 = -gy * h * nn * q / den2 + gl * (xi * xi / A - 2.0f * q / den);
-  // bin height h (directly and through s = h / w), bin width w (s and xi)
-  const float g_h = gy * nn / den + g_s / w;
-  const float g_w = -g_s * sl / w - g_xi * xi / w;
-  const float dx = g_xi / w;
-  // Knot gradients; the end knots (index 0 and K) are constants.
-  const float gxk = k > 0 ? -g_xi / w - g_w : 0.0f;
-  const float gxk1 = k + 1 < K ? g_w : 0.0f;
-  const float gyk = k > 0 ? gy - g_h : 0.0f;
-  const float gyk1 = k + 1 < K ? g_h : 0.0f;
-  // knot j (0 < j < K) = total * sum_{i < j} width_i - B, so
-  // dL/dwidth_i = total * (gxk [i < k] + gxk1 [i <= k]).
-  float sw_lo = 0.0f, sw_k = 0.0f, sh_lo = 0.0f, sh_k = 0.0f;  // softmax mass of bins < k, bin k
-  for (int i = 0; i <= k; ++i) {
-    const float smw = expf(P[i] - s.max_w) / s.sum_w;
-    const float smh = expf(P[K + i] - s.max_h) / s.sum_h;
-    if (i < k) {
-      sw_lo += smw;
-      sh_lo += smh;
-    } else {
-      sw_k = smw;
-      sh_k = smh;
-    }
-  }
-  const float gw_lo = total * (gxk + gxk1), gw_k = total * gxk1;
-  const float gh_lo = total * (gyk + gyk1), gh_k = total * gyk1;
-  const float dot_w = p.scale_w * (gw_lo * sw_lo + gw_k * sw_k);
-  const float dot_h = p.scale_h * (gh_lo * sh_lo + gh_k * sh_k);
-  for (int i = 0; i < K; ++i) {
-    const float smw = expf(P[i] - s.max_w) / s.sum_w;
-    const float smh = expf(P[K + i] - s.max_h) / s.sum_h;
-    const float gw = i < k ? gw_lo : (i == k ? gw_k : 0.0f);
-    const float gh = i < k ? gh_lo : (i == k ? gh_k : 0.0f);
-    P[i] = smw * (p.scale_w * gw - dot_w);
-    P[K + i] = smh * (p.scale_h * gh - dot_h);
-  }
-  for (int m = 0; m < K - 1; ++m) {
-    const float g = m == k - 1 ? g_dk : (m == k ? g_dk1 : 0.0f);
-    P[2 * K + m] = g != 0.0f ? g * sigmoid(P[2 * K + m]) : 0.0f;
-  }
-  return dx;
 }
 
 __device__ __forceinline__ float clip7(float v) { return fminf(fmaxf(v, -7.0f), 7.0f); }
@@ -240,125 +187,341 @@ __global__ void __launch_bounds__(THREADS) mnle_logprob_fwd_kernel(
   }
 }
 
-__global__ void __launch_bounds__(THREADS) mnle_logprob_bwd_kernel(
-    MnleParams p, const float* __restrict__ t, const float* __restrict__ oh,
+// ---------------------------------------------------------------------------
+// K3: tiles of TILE_ROWS rows over TILE_THREADS threads; the products run
+// through tile_dense (mnle_tile.cuh), the per-row phase one warp per row.
+// ---------------------------------------------------------------------------
+
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+// Butterfly sum: every lane adds the same pair at every level, so every
+// lane ends with the same bits.
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+__device__ __forceinline__ double warp_inclusive_scan(double v, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const double u = __shfl_up_sync(kFull, v, o);
+    if (lane >= o) v += u;
+  }
+  return v;
+}
+
+// find_bin for one row on one warp, lane i holding bin i (K <= 32). The
+// spline's parameters are P[i * ld]. The softmax normalizers and the knots'
+// running sums are taken in double (a butterfly and an inclusive scan), each
+// knot rounded to float32 once, as find_bin does; the bin is the first whose
+// upper knot exceeds x (the JAX masked lookup: x == knot[j+1] falls in bin
+// j+1, the top edge in bin K-1). Writes the softmax weights of the widths
+// and heights over P[0, 2K), which the backward reads.
+__device__ __forceinline__ Bin warp_find_bin(float* P, int ld, const MnleParams& p, float x, int lane) {
+  const int K = p.K;
+  const float B = p.tail_bound, total = 2.0f * p.tail_bound;
+  const bool on = lane < K;
+  const float pw = on ? P[lane * ld] : -INFINITY, ph = on ? P[(K + lane) * ld] : -INFINITY;
+  const float max_w = warp_max(pw), max_h = warp_max(ph);
+  const float ew = on ? expf(pw - max_w) : 0.0f, eh = on ? expf(ph - max_h) : 0.0f;
+  const float sum_w = (float)warp_sum((double)ew), sum_h = (float)warp_sum((double)eh);
+  const float sw = ew / sum_w, sh = eh / sum_h;
+  if (on) {
+    P[lane * ld] = sw;
+    P[(K + lane) * ld] = sh;
+  }
+  const double wd = on ? (double)(p.min_w + p.scale_w * sw) : 0.0;
+  const double hd = on ? (double)(p.min_h + p.scale_h * sh) : 0.0;
+  const double cw = warp_inclusive_scan(wd, lane);
+  const double ch = warp_inclusive_scan(hd, lane);
+  // Upper knots of bin `lane`; the last one is B exactly.
+  const float xu = lane == K - 1 ? B : (float)(cw * (double)total - (double)B);
+  const float yu = lane == K - 1 ? B : (float)(ch * (double)total - (double)B);
+  const unsigned below = __ballot_sync(kFull, lane < K - 1 && x < xu);
+  Bin b;
+  b.k = below != 0u ? __ffs(below) - 1 : K - 1;
+  const int lo = max(b.k - 1, 0);
+  const float xl = __shfl_sync(kFull, xu, lo), yl = __shfl_sync(kFull, yu, lo);
+  b.xk = b.k == 0 ? -B : xl;
+  b.yk = b.k == 0 ? -B : yl;
+  b.xk1 = __shfl_sync(kFull, xu, b.k);
+  b.yk1 = __shfl_sync(kFull, yu, b.k);
+  b.dk = b.k == 0 ? 1.0f : p.min_d + softplus(P[(2 * K + b.k - 1) * ld]);
+  b.dk1 = b.k == K - 1 ? 1.0f : p.min_d + softplus(P[(2 * K + b.k) * ld]);
+  return b;
+}
+
+// spline_fwd's arithmetic in bin b: returns y, adds log|dy/dx| to *ld.
+__device__ __forceinline__ float rq_forward(const Bin& b, float x, float* ld) {
+  const float w = b.xk1 - b.xk, h = b.yk1 - b.yk, sl = h / w;
+  const float xi = (x - b.xk) / w, xi1m = 1.0f - xi;
+  const float num = h * (sl * xi * xi + b.dk * xi * xi1m);
+  const float den = sl + (b.dk1 + b.dk - 2.0f * sl) * xi * xi1m;
+  const float dnum = sl * sl * (b.dk1 * xi * xi + 2.0f * sl * xi * xi1m + b.dk * xi1m * xi1m);
+  *ld += logf(dnum) - 2.0f * logf(den);
+  return b.yk + num / den;
+}
+
+// Backward of one RQ spline on one warp at input x in bin b (from
+// warp_find_bin, whose softmax weights are in P[0, 2K)), with upstream
+// gradients gy (of y) and gl (of the log-det). Overwrites P[0, 3K-1) with
+// dL/dP and returns dL/dx.
+__device__ __forceinline__ float warp_spline_bwd(float* P, int ld, const MnleParams& p, const Bin& b, float x,
+                                                 float gy, float gl, int lane) {
+  const int K = p.K, k = b.k;
+  const float total = 2.0f * p.tail_bound;
+  const float w = b.xk1 - b.xk, h = b.yk1 - b.yk, sl = h / w;
+  const float xi = (x - b.xk) / w, xi1m = 1.0f - xi, q = xi * xi1m;
+  const float c2 = b.dk1 + b.dk - 2.0f * sl;
+  const float nn = sl * xi * xi + b.dk * q;
+  const float den = sl + c2 * q;
+  const float A = b.dk1 * xi * xi + 2.0f * sl * q + b.dk * xi1m * xi1m;
+  const float den2 = den * den;
+  // d/dxi
+  const float dnn_dxi = 2.0f * sl * xi + b.dk * (1.0f - 2.0f * xi);
+  const float dden_dxi = c2 * (1.0f - 2.0f * xi);
+  const float dA_dxi = 2.0f * b.dk1 * xi + 2.0f * sl * (1.0f - 2.0f * xi) - 2.0f * b.dk * xi1m;
+  const float g_xi = gy * h * (dnn_dxi * den - nn * dden_dxi) / den2 + gl * (dA_dxi / A - 2.0f * dden_dxi / den);
+  // d/dslope (y and log-det through s, A and den)
+  const float g_s = gy * h * (xi * xi * den - nn * (1.0f - 2.0f * q)) / den2 +
+                    gl * (2.0f / sl + 2.0f * q / A - 2.0f * (1.0f - 2.0f * q) / den);
+  // d/d derivatives at the bin edges
+  const float g_dk = gy * h * q * (den - nn) / den2 + gl * (xi1m * xi1m / A - 2.0f * q / den);
+  const float g_dk1 = -gy * h * nn * q / den2 + gl * (xi * xi / A - 2.0f * q / den);
+  // bin height h (directly and through s = h / w), bin width w (s and xi)
+  const float g_h = gy * nn / den + g_s / w;
+  const float g_w = -g_s * sl / w - g_xi * xi / w;
+  const float dx = g_xi / w;
+  // Knot gradients; the end knots (index 0 and K) are constants.
+  const float gxk = k > 0 ? -g_xi / w - g_w : 0.0f;
+  const float gxk1 = k + 1 < K ? g_w : 0.0f;
+  const float gyk = k > 0 ? gy - g_h : 0.0f;
+  const float gyk1 = k + 1 < K ? g_h : 0.0f;
+  // knot j (0 < j < K) = total * sum_{i < j} width_i - B, so
+  // dL/dwidth_i = total * (gxk [i < k] + gxk1 [i <= k]), lane i's share.
+  const float gw = lane < k ? total * (gxk + gxk1) : (lane == k ? total * gxk1 : 0.0f);
+  const float gh = lane < k ? total * (gyk + gyk1) : (lane == k ? total * gyk1 : 0.0f);
+  const bool on = lane < K;
+  const float sw = on ? P[lane * ld] : 0.0f, sh = on ? P[(K + lane) * ld] : 0.0f;
+  // Softmax VJP: d param_i = sm_i (scale g_i - scale sum_j g_j sm_j).
+  const float dot_w = p.scale_w * (float)warp_sum((double)(gw * sw));
+  const float dot_h = p.scale_h * (float)warp_sum((double)(gh * sh));
+  if (on) {
+    P[lane * ld] = sw * (p.scale_w * gw - dot_w);
+    P[(K + lane) * ld] = sh * (p.scale_h * gh - dot_h);
+  }
+  if (lane < K - 1) {
+    const float g = lane == k - 1 ? g_dk : (lane == k ? g_dk1 : 0.0f);
+    float* d = P + (2 * K + lane) * ld;
+    *d = g != 0.0f ? g * sigmoid(*d) : 0.0f;
+  }
+  return dx;
+}
+
+__device__ __forceinline__ Bin shfl_bin(const Bin& b, int src) {
+  Bin o;
+  o.k = __shfl_sync(kFull, b.k, src);
+  o.xk = __shfl_sync(kFull, b.xk, src);
+  o.xk1 = __shfl_sync(kFull, b.xk1, src);
+  o.yk = __shfl_sync(kFull, b.yk, src);
+  o.yk1 = __shfl_sync(kFull, b.yk1, src);
+  o.dk = __shfl_sync(kFull, b.dk, src);
+  o.dk1 = __shfl_sync(kFull, b.dk1, src);
+  return o;
+}
+
+// cat_logprob_grad on a row whose logits and one-hot lie `ld` apart.
+__device__ void cat_grad_strided(float* lg, const float* ohr, int ld, int C, float gr) {
+  float mx = -INFINITY;
+  for (int j = 0; j < C; ++j) mx = fmaxf(mx, lg[j * ld]);
+  float se = 0.0f, soh = 0.0f;
+  for (int j = 0; j < C; ++j) {
+    se += expf(lg[j * ld] - mx);
+    soh += ohr[j * ld];
+  }
+  for (int j = 0; j < C; ++j) lg[j * ld] = gr * ohr[j * ld] - (expf(lg[j * ld] - mx) / se) * gr * soh;
+}
+
+// K3's products in the order it runs them: the categorical MLP and the
+// trunk, the head, the head and trunk transposed (the (out, in) copies the
+// wrapper packs, down to the D context columns), the categorical MLP
+// transposed. Each entry is one product whole: weights, bias and ReLU (the
+// backward products have neither; their ReLU masks are the forward's
+// activations, which the call passes).
+struct K3Products {
+  const MnleParams& p;
+  __device__ int count() const { return 4 * p.n_layers + 2; }
+  __device__ TileProduct operator()(int i) const {
+    const int L = p.n_layers, H = p.H, DC = p.D + p.C;
+    if (i < L) {
+      const bool last = i == L - 1;
+      return {p.cat_w[i], p.cat_b[i], last ? p.C : H, i == 0 ? p.D : H, last ? p.C : H, !last};
+    }
+    i -= L;
+    if (i < L) return {p.trunk_w[i], p.trunk_b[i], H, i == 0 ? DC : H, H, true};
+    i -= L;
+    if (i == 0) return {p.head_w, p.head_b, p.HO, H, p.HO, false};
+    if (i == 1) return {p.head_wt, nullptr, H, p.HO, H, false};
+    i -= 2;
+    if (i < L) {
+      const int l = L - 1 - i;
+      return {p.trunk_wt[l], nullptr, l == 0 ? DC : H, H, l == 0 ? p.D : H, false};
+    }
+    const int l = L - 1 - (i - L);
+    return {p.cat_wt[l], nullptr, l == 0 ? p.D : H, l == L - 1 ? p.C : H, l == 0 ? p.D : H, false};
+  }
+};
+
+size_t bwd_smem_bytes(const MnleParams& p) {
+  return sizeof(float) * ((size_t)TILE_STAGES * TILE_WBUF +
+                          (size_t)TILE_ROWS * (p.D + p.C + (2 * p.n_layers - 1) * p.H + p.C + p.HO + 2 * p.H + p.D));
+}
+
+__global__ void __launch_bounds__(TILE_THREADS, 2) mnle_logprob_bwd_kernel(
+    const __grid_constant__ MnleParams p, const float* __restrict__ t, const float* __restrict__ oh,
     const float* __restrict__ ctx, const float* __restrict__ g, float* __restrict__ dt,
     float* __restrict__ dctx, int N) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem4[];
+  constexpr int R = TILE_ROWS;
   const int DC = p.D + p.C, H = p.H, L = p.n_layers, S = 3 * p.K - 1;
-  float* x0 = smem;                        // ROWS x DC
-  float* cat_act = x0 + ROWS * DC;         // (L-1) x ROWS x H
-  float* trunk_act = cat_act + (L - 1) * ROWS * H;  // L x ROWS x H
-  float* logits = trunk_act + L * ROWS * H;         // ROWS x C
-  float* sp = logits + ROWS * p.C;                  // ROWS x HO
-  float* gbuf[2] = {sp + ROWS * p.HO, sp + ROWS * p.HO + ROWS * H};
-  float* dx0 = gbuf[1] + ROWS * H;                  // ROWS x D
-  const int row0 = blockIdx.x * ROWS;
-  load_rows(ctx, oh, x0, row0, N, p);
+  // Every array is k-major: element (k, r) at a[k * R + r].
+  float* ws = reinterpret_cast<float*>(smem4);   // TILE_STAGES x TILE_WBUF weight staging
+  float* x0 = ws + TILE_STAGES * TILE_WBUF;      // DC x R: [ctx | onehot]
+  float* cat_act = x0 + DC * R;                  // (L-1) x H x R
+  float* trunk_act = cat_act + (L - 1) * H * R;  // L x H x R
+  float* logits = trunk_act + L * H * R;         // C x R
+  float* sp = logits + p.C * R;                  // HO x R
+  float* gbuf[2] = {sp + p.HO * R, sp + p.HO * R + H * R};
+  float* dx0 = gbuf[1] + H * R;                  // D x R
+  const int row0 = blockIdx.x * R;
+  WeightStream<K3Products> ws_stream(K3Products{p}, ws);  // starts loading the first products' weights
+  for (int idx = threadIdx.x; idx < R * DC; idx += TILE_THREADS) {
+    const int r = idx / DC, k = idx % DC, row = row0 + r;
+    float v = 0.0f;
+    if (row < N) v = k < p.D ? ctx[(size_t)row * p.D + k] : oh[(size_t)row * p.C + (k - p.D)];
+    x0[k * R + r] = v;
+  }
 
   // Forward, keeping every activation.
   const float* in = x0;
-  int in_ld = DC, in_w = p.D;
   for (int l = 0; l < L; ++l) {
-    const bool last = l == L - 1;
-    float* o = last ? logits : cat_act + l * ROWS * H;
-    const int ow = last ? p.C : H;
-    dense(in, in_ld, in_w, p.cat_w[l], ow, p.cat_b[l], o, ow, ow, !last, nullptr, 0, false);
+    float* o = l == L - 1 ? logits : cat_act + l * H * R;
+    tile_dense(ws_stream, in, o, nullptr, false);
     in = o;
-    in_ld = in_w = ow;
   }
   in = x0;
-  in_ld = in_w = DC;
   for (int l = 0; l < L; ++l) {
-    float* o = trunk_act + l * ROWS * H;
-    dense(in, in_ld, in_w, p.trunk_w[l], H, p.trunk_b[l], o, H, H, true, nullptr, 0, false);
+    float* o = trunk_act + l * H * R;
+    tile_dense(ws_stream, in, o, nullptr, false);
     in = o;
-    in_ld = in_w = H;
   }
-  dense(in, H, H, p.head_w, p.HO, p.head_b, sp, p.HO, p.HO, false, nullptr, 0, false);
+  tile_dense(ws_stream, in, sp, nullptr, false);
+  __syncthreads();
 
-  // Per row: d logits (in place) and the flow backward (d head output in
-  // place, dt to global memory).
-  const int r = threadIdx.x, row = row0 + r;
-  if (r < ROWS) {
+  // Per row, one warp: d logits (in place) and the flow backward (d head
+  // output in place, dt to global memory). Lane i holds bin i of each
+  // spline, and lane j keeps transform j's bin and input between the
+  // forward recompute and the backward; the chain over the transforms
+  // stays serial.
+  const int lane = threadIdx.x & 31;
+  const float B = p.tail_bound;
+  for (int r = threadIdx.x >> 5; r < R; r += TILE_THREADS / 32) {
+    const int row = row0 + r;
     const float gr = row < N ? g[row] : 0.0f;
-    const float* ohr = x0 + r * DC + p.D;
-    cat_logprob_grad(logits + r * p.C, ohr, p.C, gr);
-
-    float* spr = sp + r * p.HO;
-    float keep = 1.0f;
-    if (p.censored_col >= 0) keep = 1.0f - ohr[p.censored_col];
+    const float* ohr = x0 + p.D * R + r;
+    if (lane == 0) cat_grad_strided(logits + r, ohr, R, p.C, gr);
+    float* spr = sp + r;
+    const float keep = p.censored_col >= 0 ? 1.0f - ohr[p.censored_col * R] : 1.0f;
     const float gm = gr * keep;
     float dtr = 0.0f;
     if (keep > 0.0f && row < N) {
       const float tr = t[row];
-      float zs[MAX_TRANSFORMS];
       float mu = 0.0f, ls_raw = 0.0f, e = 1.0f;
       if (p.cond_affine) {
-        mu = spr[p.T * S];
-        ls_raw = spr[p.T * S + 1];
+        mu = spr[p.T * S * R];
+        ls_raw = spr[(p.T * S + 1) * R];
         e = expf(-clip7(ls_raw));
       }
       float ld = 0.0f;
       float z = p.cond_affine ? (tr - mu) * e : tr;
+      Bin mine;  // transform `lane`'s bin (k = -1: identity tail) ...
+      mine.k = -1;
+      float mine_z = 0.0f;  // ... and input
       for (int i = 0; i < p.T; ++i) {
-        zs[i] = z;
-        z = spline_fwd(spr + i * S, p, z, &ld);
+        Bin b;
+        b.k = -1;
+        const float zi = z;
+        if (z >= -B && z <= B) {
+          b = warp_find_bin(spr + i * S * R, R, p, z, lane);
+          z = rq_forward(b, z, &ld);
+        }
+        if (lane == i) {
+          mine = b;
+          mine_z = zi;
+        }
       }
       float gz = -gm * z;  // d base / dz
-      for (int i = p.T - 1; i >= 0; --i) gz = spline_bwd(spr + i * S, p, zs[i], gz, gm);
+      for (int i = p.T - 1; i >= 0; --i) {
+        float* P = spr + i * S * R;
+        const Bin b = shfl_bin(mine, i);
+        const float zi = __shfl_sync(kFull, mine_z, i);
+        if (b.k < 0) {
+          for (int j = lane; j < S; j += 32) P[j * R] = 0.0f;
+        } else {
+          gz = warp_spline_bwd(P, R, p, b, zi, gz, gm, lane);
+        }
+      }
       if (p.cond_affine) {
         dtr = gz * e;
-        spr[p.T * S] = -gz * e;
-        const float g_ls = -gz * (tr - mu) * e - gm;  // through exp(-ls) and log_det -= ls
-        spr[p.T * S + 1] = (ls_raw > -7.0f && ls_raw < 7.0f) ? g_ls : 0.0f;
+        if (lane == 0) {
+          spr[p.T * S * R] = -gz * e;
+          const float g_ls = -gz * (tr - mu) * e - gm;  // through exp(-ls) and log_det -= ls
+          spr[(p.T * S + 1) * R] = (ls_raw > -7.0f && ls_raw < 7.0f) ? g_ls : 0.0f;
+        }
       } else {
         dtr = gz;
       }
     } else {
-      for (int i = 0; i < p.HO; ++i) spr[i] = 0.0f;
+      for (int i = lane; i < p.HO; i += 32) spr[i * R] = 0.0f;
     }
-    if (row < N) dt[row] = dtr;
+    if (lane == 0 && row < N) dt[row] = dtr;
   }
-  __syncthreads();
 
   // Trunk backward: d emb = d sp . head_w^T, masked by ReLU, down to d ctx.
-  dense(sp, p.HO, p.HO, p.head_wt, H, nullptr, gbuf[0], H, H, false, trunk_act + (L - 1) * ROWS * H, H,
-        false);
+  tile_dense(ws_stream, sp, gbuf[0], trunk_act + (L - 1) * H * R, false);
   int cur = 0;
   for (int l = L - 1; l >= 1; --l) {
-    dense(gbuf[cur], H, H, p.trunk_wt[l], H, nullptr, gbuf[1 - cur], H, H, false,
-          trunk_act + (l - 1) * ROWS * H, H, false);
+    tile_dense(ws_stream, gbuf[cur], gbuf[1 - cur], trunk_act + (l - 1) * H * R, false);
     cur = 1 - cur;
   }
-  dense(gbuf[cur], H, H, p.trunk_wt[0], DC, nullptr, dx0, p.D, p.D, false, nullptr, 0, false);
+  tile_dense(ws_stream, gbuf[cur], dx0, nullptr, false);
 
   // Categorical backward: d logits . W^T, masked by ReLU, added to d ctx.
   const float* gin = logits;
-  int gin_w = p.C;
   cur = 0;
   for (int l = L - 1; l >= 1; --l) {
-    dense(gin, gin_w, gin_w, p.cat_wt[l], H, nullptr, gbuf[cur], H, H, false,
-          cat_act + (l - 1) * ROWS * H, H, false);
+    tile_dense(ws_stream, gin, gbuf[cur], cat_act + (l - 1) * H * R, false);
     gin = gbuf[cur];
-    gin_w = H;
     cur = 1 - cur;
   }
-  dense(gin, gin_w, gin_w, p.cat_wt[0], p.D, nullptr, dx0, p.D, p.D, false, nullptr, 0, true);
+  tile_dense(ws_stream, gin, dx0, nullptr, true);
+  __syncthreads();
 
-  for (int idx = threadIdx.x; idx < ROWS * p.D; idx += blockDim.x) {
-    const int rr = idx / p.D, k = idx % p.D;
-    if (row0 + rr < N) dctx[(size_t)(row0 + rr) * p.D + k] = dx0[idx];
+  for (int idx = threadIdx.x; idx < R * p.D; idx += TILE_THREADS) {
+    const int r = idx / p.D, k = idx % p.D;
+    if (row0 + r < N) dctx[(size_t)(row0 + r) * p.D + k] = dx0[k * R + r];
   }
 }
 
 size_t fwd_smem_bytes(const MnleParams& p) {
   return sizeof(float) * (size_t)ROWS * (p.D + p.C + 2 * p.H + p.C + p.HO);
-}
-
-size_t bwd_smem_bytes(const MnleParams& p) {
-  return sizeof(float) * (size_t)ROWS *
-         (p.D + p.C + (2 * p.n_layers - 1) * p.H + p.C + p.HO + 2 * p.H + p.D);
 }
 
 }  // namespace
@@ -382,15 +545,15 @@ int sdm_mnle_logprob_fwd(const MnleParams* p, const float* t, const float* oh, c
 int sdm_mnle_logprob_bwd(const MnleParams* p, const float* t, const float* oh, const float* ctx,
                          const float* g, float* dt, float* dctx, int N, void* stream) {
   if (N <= 0) return 0;
-  if (p->T > MAX_TRANSFORMS || p->n_layers > MAX_LAYERS || p->n_layers < 1)
+  if (p->T > MAX_TRANSFORMS || p->n_layers > MAX_LAYERS || p->n_layers < 1 || p->K < 2 || p->K > 32)
     return (int)cudaErrorInvalidValue;
   const size_t smem = bwd_smem_bytes(*p);
   cudaError_t err = cudaFuncSetAttribute(mnle_logprob_bwd_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (N + ROWS - 1) / ROWS;
-  mnle_logprob_bwd_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(*p, t, oh, ctx, g, dt,
-                                                                           dctx, N);
+  const int blocks = (N + TILE_ROWS - 1) / TILE_ROWS;
+  mnle_logprob_bwd_kernel<<<blocks, TILE_THREADS, smem, (cudaStream_t)stream>>>(*p, t, oh, ctx, g, dt,
+                                                                                  dctx, N);
   return (int)cudaGetLastError();
 }
 

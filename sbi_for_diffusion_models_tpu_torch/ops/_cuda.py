@@ -58,7 +58,7 @@ class _Library:
         self.flags = tuple(flags)
         self._lib: ctypes.CDLL | None = None
         self.build_seconds = 0.0
-        self.build_log = ""  # what nvcc printed (ptxas -v: registers, stack, spills per kernel)
+        self.build_log = ""  # what nvcc printed (ptxas -v: registers, stack, spills per kernel), kept beside the .so
 
     def path(self, nvcc: str) -> Path:
         h = hashlib.sha256()
@@ -73,6 +73,8 @@ class _Library:
         nvcc = _nvcc()
         out = self.path(nvcc)
         if out.exists():
+            log = out.with_suffix(".log")
+            self.build_log = log.read_text() if log.exists() else ""
             return out
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -88,6 +90,7 @@ class _Library:
                 f"nvcc failed on {self.source.name} (rc={proc.returncode}):\n"
                 f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
             )
+        out.with_suffix(".log").write_text(self.build_log)
         os.replace(tmp, out)
         return out
 

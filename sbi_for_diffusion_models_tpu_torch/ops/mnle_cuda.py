@@ -376,6 +376,8 @@ def rows_logp_vjp(t, oh, ctx, w: MNLEWeights, g):
     if not t.is_cuda:
         return rows_logp_vjp_plain(t, oh, ctx, w, g)
     N, p = _check_rows(t, oh, ctx, w)
+    if p.K > 32:
+        raise ValueError(f"K3 holds one spline bin per lane of a warp: num_bins={p.K} > 32")
     check_cuda_tensor("g", g, (N,))
     dt = torch.empty((N,), dtype=torch.float32, device=t.device)
     dctx = torch.empty((N, p.D), dtype=torch.float32, device=t.device)

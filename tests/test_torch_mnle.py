@@ -240,6 +240,45 @@ def test_unported_options_raise():
         est.dispatch_log_prob("triton")
 
 
+@functools.lru_cache(maxsize=None)
+def _ragged_rows_and_jax_vjp(n_max=1201):
+    """n_max rows of the "cond_affine" estimator (censored and affine) with
+    a cotangent, and ``jax.vjp`` of the JAX row function ``_rows_logp`` on
+    them; rows are independent, so the first n rows' VJP is its first n."""
+    jest = _jax_est_cached("cond_affine")
+    cfg = jest.cfg
+    rng = np.random.default_rng(6)
+    t = rng.normal(0, 1.5, n_max).astype(np.float32)
+    oh = np.eye(3, dtype=np.float32)[rng.integers(0, 3, n_max)]
+    ctx = rng.normal(size=(n_max, 9)).astype(np.float32)
+    g = rng.normal(size=n_max).astype(np.float32)
+    kw = dict(n_layers=cfg.trunk_depth + 1, num_transforms=cfg.num_transforms, num_bins=cfg.num_bins,
+              tail_bound=cfg.tail_bound, censored_col=cfg.censored_category, cond_affine=True)
+    jw = jpallas.pack_mnle_weights(jest)
+    _, vjp = jax.vjp(lambda a, b: jpallas._rows_logp(a, jnp.asarray(oh), b, jw, **kw), jnp.asarray(t), jnp.asarray(ctx))
+    return (t, oh, ctx, g) + tuple(np.asarray(a) for a in vjp(jnp.asarray(g)))
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 15, 16, 17, 1199, 1201])
+def test_k3_wrapper_matches_jax_at_ragged_row_counts(n):
+    """K3's wrapper on CPU rows at counts on either side of its 8-row tiles
+    (and K2's 16-row tiles): it takes the plain version without a launch,
+    and that matches ``jax.vjp`` of the JAX row function ``_rows_logp`` on
+    the same packed weights, censored and affine rows included."""
+    t, oh, ctx, g, ref_dt, ref_dc = (a[:n] for a in _ragged_rows_and_jax_vjp())
+    w = tk.pack_mnle_weights(_port(_jax_est_cached("cond_affine")))
+    before = {k: v.launches for k, v in _cuda.KERNELS.items()}
+    dt, dc = tk.rows_logp_vjp(*map(torch.from_numpy, (t, oh, ctx)), w, torch.from_numpy(g))
+    assert {k: v.launches for k, v in _cuda.KERNELS.items()} == before
+    assert dt.shape == (n,) and dc.shape == (n, 9)
+    # To 1e-4 of max(1, largest |ref|), the scale rule of ops/rowcheck.py: a
+    # lone row's small dt can be a cancellation that no float32 version
+    # holds to its own size (row 0's 0.0025 is 1e-3 off float64 in both).
+    for got, want, what in ((dt, ref_dt, "dt"), (dc, ref_dc, "dctx")):
+        err = float(np.abs(got.numpy().astype(np.float64) - want).max())
+        assert err <= 1e-4 * max(1.0, float(np.abs(want).max())), f"{what}: max abs error {err:.3e}"
+
+
 @pytest.fixture(scope="module")
 def flagship(request):
     mp = pytest.MonkeyPatch()
