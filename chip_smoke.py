@@ -39,7 +39,13 @@ port's paths once each through their public entry points:
 7. the pulse path: the same observed session, the pulse-grid model loaded
    and sampled by the same sampler at the same cut. K2p and K3p must have
    launched during this phase;
-8. the training path, at the flagship's full width on the pairs of phase 6:
+8. the slice path: the same observed session and the flagship model
+   sampled by the slice sampler (``MCMC_METHOD="slice"``, no extra moves,
+   no tempering, which is NUTS-only; 24 chains, so each density call has
+   the 1,200 rows of the PT6 x 4 flagship path; warmup and draws cut to
+   SLICE_WARMUP and SLICE_DRAWS). K2 must have
+   launched and K3 must not (the slice sampler evaluates no gradient);
+9. the training path, at the flagship's full width on the pairs of phase 6:
    ``train_mnle`` under ``CALIBRATED_CONFIG`` with the cond-affine head
    (only the epochs are cut, to TRAIN_EPOCHS), ``save_model`` into a
    temporary directory, ``load_model`` back (weights bit-equal, the same
@@ -60,9 +66,9 @@ computes any of these kernels, so ``library_ms`` is null.
 Run from the root of a checkout: ``python3 chip_smoke.py`` (one CUDA card,
 ``nvcc`` under /usr/local/cuda or on PATH). The last line of its output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels with
-their launches, errors, times and bounds (K3's also with its tile height and
-ptxas's registers, stack and spills). Any failed check raises, and the
-script exits non-zero without that line. There is no CPU fallback: without
+their launches, errors, times and bounds (K3's and K3p's also with their
+tile height and ptxas's registers, stack and spills). Any failed check
+raises, and the script exits non-zero without that line. There is no CPU fallback: without
 a CUDA card the script exits with status 2.
 """
 
@@ -93,6 +99,7 @@ P_MIN = 1e-3  # K1 distribution tests
 TRAIN_EPOCHS = 10  # the training path's cut of TRAIN_MAX_EPOCHS (and of the patience)
 TRAIN_MIN_DROP = 0.5  # nats the last validation loss must lie below the first epoch's
 K4_SHAPE = (64, 256, 128)  # the roofline path's K4 input: 2,097,152 float32 elements
+SLICE_WARMUP, SLICE_DRAWS = 20, 240  # the slice path's cut (24 chains: 10 draws each)
 
 
 def _log(*args) -> None:
@@ -542,6 +549,49 @@ def phase_pulse(device, warmup: int = 50, draws: int = 100) -> dict:
     return {"walls": walls, "launches": launches}
 
 
+def phase_slice(device, warmup: int = SLICE_WARMUP, draws: int = SLICE_DRAWS) -> dict:
+    """The slice path: the observed session's posterior on the committed
+    flagship through ``run_inference_mcmc`` with ``MCMC_METHOD="slice"``
+    (``MCMCPosterior(method="slice")``: the batched slice sampler, one K2
+    launch per density evaluation of all chains, no gradient). Parallel
+    tempering is NUTS-only, so the PT6 x 4 chains of the calibrated sampler
+    become 24 untempered chains: each K2 launch gets the same 1,200 rows
+    (24 chains x 50 trials). The grid hop and the t_nd slice move are off,
+    so K3 must not launch."""
+    import torch
+
+    from sbi_for_diffusion_models_tpu_torch.mnle import load_model, run_inference_mcmc
+    from sbi_for_diffusion_models_tpu_torch.run_config import CALIBRATED_CONFIG
+
+    def run():
+        prior, x_o, pulses_o = _observed_session(device)
+        os.environ["MODEL_DIR"] = str(MODEL_DIR)
+        est = load_model(MODEL_FILE, device=device)
+        chains = CALIBRATED_CONFIG.NUM_CHAINS * CALIBRATED_CONFIG.MCMC_PT_REPLICAS
+        cfg = CALIBRATED_CONFIG.replace(MCMC_METHOD="slice", MCMC_PT_REPLICAS=1, NUM_CHAINS=chains,
+                                        MCMC_GRID_HOP=False, MCMC_TAU_SLICE=False,
+                                        WARMUP_STEPS=warmup, POSTERIOR_SAMPLES=draws)
+        t0 = time.perf_counter()
+        samples, info = run_inference_mcmc(cfg, prior, est, x_o, pulses_o, device=device, seed=0, return_info=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if tuple(samples.shape) != (draws, 5) or not bool(torch.isfinite(prior.log_prob(samples)).all()):
+            raise AssertionError(f"slice: samples of shape {tuple(samples.shape)}, or outside the prior's support")
+        calls = info["potential_calls"]
+        _log(f"[slice] chains={chains} rows_per_call={chains * x_o.shape[0]} "
+             f"wall_s={wall:.3f} potential_calls={calls} ms_per_call={wall * 1e3 / calls:.3f} "
+             f"mean_accept={float(info['accept_prob'].mean()):.3f} "
+             f"median_width={[round(v, 4) for v in info['width'].median(0).values.tolist()]} "
+             f"posterior_mean={[round(v, 4) for v in samples.mean(0).tolist()]}")
+        return wall, calls
+
+    (wall, calls), launches = _launches_on("slice", ("mnle_logprob_fwd",), run)
+    if launches["mnle_logprob_bwd"] != 0 or launches["mnle_logprob_fwd"] != calls:
+        raise AssertionError(f"slice: {launches['mnle_logprob_fwd']} K2 and {launches['mnle_logprob_bwd']} K3 launches "
+                             f"for {calls} density evaluations (expected one K2 each, no K3)")
+    return {"wall": wall, "launches": launches}
+
+
 def phase_k4(device) -> dict:
     """K4, both kinds, against its plain version in float64 at chains of 64
     and 1,024 steps on 32,768 values in [0.25, 1).
@@ -851,6 +901,7 @@ def main() -> int:
     roof = phase_roofline(device)
     main_path = phase_main(device)
     pulse_path = phase_pulse(device)
+    phase_slice(device)
     phase_train(device, main_path["proposal"], main_path["z"], main_path["x"])
     _log(f"[time] whole script after start-up: {time.perf_counter() - t_start:.1f} s")
 
@@ -875,13 +926,14 @@ def main() -> int:
             "launches": path["launches"][kname], "max_abs_err": fused[label]["max_abs_err"], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
-    # K3's tile height, as the source it was built from defines it, and ptxas's report of its build.
-    k3 = next(k for k in kernels if k["name"] == "mnle_logprob_bwd")
-    k3["rows_per_block"] = int(re.search(r"#define TILE_ROWS (\d+)", (ROOT / src / "mnle_tile.cuh").read_text())[1])
-    found = [v for e, v in ptxas.items() if "mnle_logprob_bwd_kernel" in e]
-    if len(found) != 1:
-        raise AssertionError(f"ptxas reported {len(found)} builds of K3, expected one: {sorted(ptxas)}")
-    k3["ptxas"] = found[0]
+    # K3's and K3p's tile height, as the source they were built from defines it, and ptxas's report of each build.
+    tile_rows = int(re.search(r"#define TILE_ROWS (\d+)", (ROOT / src / "mnle_tile.cuh").read_text())[1])
+    for k in kernels:
+        if k["name"] in ("mnle_logprob_bwd", "mnle_pulse_bwd"):
+            found = [v for e, v in ptxas.items() if f"{k['name']}_kernel" in e]
+            if len(found) != 1:
+                raise AssertionError(f"ptxas reported {len(found)} builds of {k['name']}, expected one: {sorted(ptxas)}")
+            k["rows_per_block"], k["ptxas"] = tile_rows, found[0]
     kernels.append({
         "name": "issue_ceiling", "route": "cuda", "source": f"{src}/issue_ceiling.cu",
         "replaces": "benchmarks/roofline.py:105", "launches": roof["launches"]["issue_ceiling"],

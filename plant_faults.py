@@ -45,16 +45,17 @@ FAULTS = {
     # K3's tile product leaves out the ragged last chunk of k (in_w not a multiple of 32).
     "k3_tile_drops_ragged_k": (TILE_FILE, "phase_k2k3", "return k0 + TILE_KC >= in_w;",
                                "return k0 + 2 * TILE_KC > in_w;"),
-    # K3p: d emb loses the slot head's term (the product with the transposed slot weights).
-    "no_slot_head_backward": (
-        K3P_FILE, "phase_k2pk3p",
-        "  dense(slot, p.NS, p.NS, p.slot_wt, H, nullptr, gbuf[0], H, H, false, emb, HF, true);\n", ""),
+    # K3p: d emb loses the slot head's term (the slot logits' gradient is zeroed, as for a slot outside the head).
+    "no_slot_head_backward": (K3P_FILE, "phase_k2pk3p", "warp_slot_grad(slot + r, R, p.NS, kv[row], gm, lane);",
+                              "warp_slot_grad(slot + r, R, p.NS, -1.0f, gm, lane);"),
     # K3p: d kf is written as zeros.
-    "zero_dkf": (K3P_FILE, "phase_k2pk3p", "dkf[(size_t)(row0 + rr) * p.F + f] = dkf_s[idx];",
-                 "dkf[(size_t)(row0 + rr) * p.F + f] = 0.0f;"),
+    "zero_dkf": (K3P_FILE, "phase_k2pk3p", "dkf[(size_t)(row0 + r) * p.F + f] = dkf_s[f * R + r];",
+                 "dkf[(size_t)(row0 + r) * p.F + f] = 0.0f;"),
     # K3p: the last bin's right derivative takes its gradient as d_{K-1}, not the shared d_K = d_0.
-    "wrap_derivative_not_shared": (K3P_FILE, "phase_k2pk3p", "const int k1 = (k + 1) % K;",
-                                   "const int k1 = k + 1 < K ? k + 1 : k;"),
+    "wrap_derivative_not_shared": (K3P_FILE, "phase_k2pk3p", "(lane == (k + 1) % K ? g_dk1 : 0.0f)",
+                                   "(lane == min(k + 1, K - 1) ? g_dk1 : 0.0f)"),
+    # K2p and K3p (one circular_phase): the phase's mod is C's fmodf, negative below 0, instead of the floor-mod.
+    "k3p_fmodf_phase": (K3P_FILE, "phase_k2pk3p", "*m = a - floorf(a);", "*m = fmodf(a, 1.0f);"),
 }
 PHASES = ("phase_k2k3", "phase_k2pk3p")
 

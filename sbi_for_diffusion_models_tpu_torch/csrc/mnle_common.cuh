@@ -32,6 +32,13 @@ struct MnleParams {
   const float* slot_wt;
   const float* slot_b;
   int NS, F;
+  // K3p's copy of head_w with leading dimension head_ld, and head_wt's
+  // leading dimension head_t_ld. For the pulse rep both are padded with
+  // zero columns to a multiple of 4 floats, so the tile product stages
+  // their rows by 16-byte copies; K2p reads head_w (leading dimension HO),
+  // K3 head_wt of the other reps (leading dimension H).
+  const float* head_w_pad;
+  int head_ld, head_t_ld;
 };
 
 namespace {
@@ -137,19 +144,6 @@ __device__ float cat_logprob(const float* logits, const float* ohr, int C) {
   float lp = 0.0f;
   for (int j = 0; j < C; ++j) lp += (logits[j] - mx - lse) * ohr[j];
   return lp;
-}
-
-// Cotangent g of one row's categorical log-prob pulled back to its logits,
-// written over them in place: d logit_j = g (oh_j - softmax_j sum(oh)).
-__device__ void cat_logprob_grad(float* lg, const float* ohr, int C, float gr) {
-  float mx = -INFINITY;
-  for (int j = 0; j < C; ++j) mx = fmaxf(mx, lg[j]);
-  float se = 0.0f, soh = 0.0f;
-  for (int j = 0; j < C; ++j) {
-    se += expf(lg[j] - mx);
-    soh += ohr[j];
-  }
-  for (int j = 0; j < C; ++j) lg[j] = gr * ohr[j] - (expf(lg[j] - mx) / se) * gr * soh;
 }
 
 }  // namespace

@@ -69,6 +69,7 @@
 
 #include "mnle_common.cuh"
 #include "mnle_tile.cuh"
+#include "mnle_warp.cuh"
 
 namespace {
 
@@ -192,31 +193,6 @@ __global__ void __launch_bounds__(THREADS) mnle_logprob_fwd_kernel(
 // through tile_dense (mnle_tile.cuh), the per-row phase one warp per row.
 // ---------------------------------------------------------------------------
 
-constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-
-// Butterfly sum: every lane adds the same pair at every level, so every
-// lane ends with the same bits.
-__device__ __forceinline__ double warp_sum(double v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-__device__ __forceinline__ double warp_inclusive_scan(double v, int lane) {
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const double u = __shfl_up_sync(kFull, v, o);
-    if (lane >= o) v += u;
-  }
-  return v;
-}
-
 // find_bin for one row on one warp, lane i holding bin i (K <= 32). The
 // spline's parameters are P[i * ld]. The softmax normalizers and the knots'
 // running sums are taken in double (a butterfly and an inclusive scan), each
@@ -323,30 +299,6 @@ __device__ __forceinline__ float warp_spline_bwd(float* P, int ld, const MnlePar
     *d = g != 0.0f ? g * sigmoid(*d) : 0.0f;
   }
   return dx;
-}
-
-__device__ __forceinline__ Bin shfl_bin(const Bin& b, int src) {
-  Bin o;
-  o.k = __shfl_sync(kFull, b.k, src);
-  o.xk = __shfl_sync(kFull, b.xk, src);
-  o.xk1 = __shfl_sync(kFull, b.xk1, src);
-  o.yk = __shfl_sync(kFull, b.yk, src);
-  o.yk1 = __shfl_sync(kFull, b.yk1, src);
-  o.dk = __shfl_sync(kFull, b.dk, src);
-  o.dk1 = __shfl_sync(kFull, b.dk1, src);
-  return o;
-}
-
-// cat_logprob_grad on a row whose logits and one-hot lie `ld` apart.
-__device__ void cat_grad_strided(float* lg, const float* ohr, int ld, int C, float gr) {
-  float mx = -INFINITY;
-  for (int j = 0; j < C; ++j) mx = fmaxf(mx, lg[j * ld]);
-  float se = 0.0f, soh = 0.0f;
-  for (int j = 0; j < C; ++j) {
-    se += expf(lg[j * ld] - mx);
-    soh += ohr[j * ld];
-  }
-  for (int j = 0; j < C; ++j) lg[j * ld] = gr * ohr[j * ld] - (expf(lg[j * ld] - mx) / se) * gr * soh;
 }
 
 // K3's products in the order it runs them: the categorical MLP and the

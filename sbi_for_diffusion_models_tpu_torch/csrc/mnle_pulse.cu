@@ -27,44 +27,68 @@
 // of weights read once: the compute bound exceeds the memory bound at every
 // row count, so the limit is the rate of FP32 FMAs (no tensor cores: the
 // JAX kernel runs its products at Precision.HIGHEST) and, at the main
-// path's 1,200 rows (75 tiles), how many SMs have work at all. At the
-// H100's 67 TFLOP/s FP32 peak the bound is 0.0064 ms (K2p) and 0.0127 ms
-// (K3p) for 1,200 rows, 0.611 ms and 1.220 ms for 115,200 rows
-// (chip_smoke.py's mnle_bound). The design below accepts 75 busy SMs of
-// 132 at 1,200 rows for now.
+// path's 1,200 rows, how many SMs have work at all. At the H100's 67
+// TFLOP/s FP32 peak the bound is 0.0064 ms (K2p) and 0.0127 ms (K3p) for
+// 1,200 rows, 0.611 ms and 1.220 ms for 115,200 rows (chip_smoke.py's
+// mnle_bound).
 //
-// Design, simple first (the structure of K2/K3, mnle_common.cuh):
+// Design of K2p, simple first (the structure of K2, mnle_common.cuh):
 // - One block of 128 threads per tile of ROWS = 16 rows, activations in
 //   shared memory, thread j computes output unit j of a product for all 16
 //   rows. The trunk output is stored with a leading dimension of H + F and
 //   kf is written into its last F columns, so the head product reads
-//   [emb, kf] as one (16, H + F) operand.
-// - The per-row work (the two log-softmaxes, the spline chain and their
-//   derivatives) runs one thread per row. A circular spline finds its bin by
-//   walking the cumulative widths once (knots are not stored); z == knot[j+1]
-//   falls in bin j+1, the top edge in bin K-1, as in the JAX masked lookup.
-// - The mod is floor-mod (x - floorf(x), never fmodf): its gradient is 1
-//   w.r.t. z and -1 w.r.t. the rotation. Each clip passes the gradient
-//   inside its bounds, none outside, and half of it where the value equals a
-//   bound, the rule of jnp.clip (maximum, then minimum) and of the plain
-//   version's clip.
-// - K3p overwrites each transform's parameters with their gradients in place
-//   (through softmax widths and heights, their cumulative sums, softplus
-//   derivatives with the shared d_K = d_0, which takes gradient from either
-//   end, and the sigmoid rotation) and the slot logits with theirs. Then
-//   d emb = d sp . head_w[:H]^T + d slot . slot_w^T (ReLU-masked) flows back
-//   through the trunk and d kf = d sp . head_w[H:]^T is read from the
-//   transposed head copy's last F columns. Shared memory: ~121 KB per block
-//   at the full widths (the head output is 16 x 730 floats), so one block
-//   per SM; the forward takes ~82 KB.
-// - Censored rows skip the flow and the slot head with a branch, not a
-//   product, so a non-finite term there never reaches the value or the
-//   gradient.
+//   [emb, kf] as one (16, H + F) operand. 75 of the 132 SMs have a block
+//   at 1,200 rows.
+// - The per-row work (the two log-softmaxes, the spline chain) runs one
+//   thread per row. A circular spline finds its bin by walking the
+//   cumulative widths once (knots are not stored); z == knot[j+1] falls in
+//   bin j+1, the top edge in bin K-1, as in the JAX masked lookup.
+// - The mod is floor-mod (x - floorf(x), never fmodf). Censored rows skip
+//   the flow and the slot head with a branch, not a product, so a
+//   non-finite term there never reaches the value.
+//
+// Design of K3p, for the H100 (K2p's design left 57 SMs idle at 1,200
+// rows, issued a shared-memory load per FMA with nothing to hide the
+// weights' L2 latency, and ran a per-row phase that recomputed each
+// transform's softmax and bin in the backward on 16 of 128 threads; split
+// on the card it was 38.8 % per-row phase, 30.4 % backward products):
+// - Tiles of TILE_ROWS = 8 rows on 256 threads, two blocks an SM (150
+//   blocks at 1,200 rows). Every product runs through tile_dense
+//   (mnle_tile.cuh) with K3p's product list (K3pProducts): weights staged
+//   by cp.async, double-buffered, activations k-major, register
+//   micro-tiles, and dense's summation order, so the products give dense's
+//   bits. kf's F columns sit right after the last trunk activation, so
+//   [emb; kf] is one (H + F) x 8 operand of the head and the slot head
+//   reads its first H rows. The head's weights come in copies whose rows
+//   are padded to a multiple of 4 floats (head_ld = 732, head_t_ld = 132)
+//   so that they take 16-byte copies; the padding is never read into an
+//   output.
+// - The per-row phase runs one warp per row, lane i on bin i (K <= 32):
+//   softmax max and normalizers by shuffles (summed in double), the knots
+//   by an inclusive warp scan in double rounded once each, the bin by a
+//   ballot, the softmax VJP by one double shuffle reduction. Each
+//   transform's bin, input and rotation are found once, in the forward
+//   recompute, and kept in lane `transform`'s registers for the backward;
+//   its softmax weights overwrite its width and height parameters. The
+//   slot head's log-softmax runs on the warp, three logits a lane, and so
+//   does d kf (warp_dkf, in dense's summation order: as a product of the
+//   list, 3 columns over 730 inputs, it took 19 % of the kernel).
+// - The circular rules are those of the plain version: knots [0,
+//   cumsum(w)[:K-1], 1], derivatives d_0 .. d_{K-1} with d_K = d_0 (bin
+//   K-1's right edge sends its gradient to lane 0's parameter), the
+//   rotation sigmoid(P[3K]), the floor-mod with gradient +1 for z and -1
+//   for the rotation, the clips of the phase to [0, 1 - 1e-6] and of xi to
+//   [0, 1] with jnp.clip's gradient (all inside, half on a bound, none
+//   outside).
+// - Shared memory at the pulse model's widths: 93,184 B, so two blocks fit
+//   on an SM.
 // - All arithmetic is FP32 (FMAs allowed; no TF32, no fast math), except the
 //   softmax normalizers and the cumulative widths and heights behind the
 //   knots, which are summed in double (mnle_common.cuh, softmax_stats).
 
 #include "mnle_common.cuh"
+#include "mnle_tile.cuh"
+#include "mnle_warp.cuh"
 
 namespace {
 
@@ -107,6 +131,14 @@ __device__ __forceinline__ Bin find_circular_bin(const float* P, const MnleParam
   return b;
 }
 
+// The phase a circular spline bins: m = (x - rot) mod 1 (floor-mod) and
+// zc = clip(m, 0, 1 - 1e-6).
+__device__ __forceinline__ void circular_phase(float x, float rot, float* m, float* zc) {
+  const float a = x - rot;
+  *m = a - floorf(a);
+  *zc = fminf(fmaxf(*m, 0.0f), kPhaseHi);
+}
+
 // The rotated, clipped phase a spline bins: clip((x - rot) mod 1, 0, 1 - 1e-6).
 struct Phase {
   float rot, m, z;
@@ -115,9 +147,7 @@ struct Phase {
 __device__ __forceinline__ Phase rotate(const float* P, int K, float x) {
   Phase ph;
   ph.rot = sigmoid(P[3 * K]);
-  const float a = x - ph.rot;
-  ph.m = a - floorf(a);
-  ph.z = fminf(fmaxf(ph.m, 0.0f), kPhaseHi);
+  circular_phase(x, ph.rot, &ph.m, &ph.z);
   return ph;
 }
 
@@ -135,81 +165,6 @@ __device__ float circular_fwd(const float* P, const MnleParams& p, float x, floa
   return b.yk + num / den;
 }
 
-// Backward circular RQ spline at input x with upstream gradients gy (of y)
-// and gl (of the log-det). Overwrites P[0, 3K+1) with dL/dP, returns dL/dx.
-__device__ float circular_bwd(float* P, const MnleParams& p, float x, float gy, float gl) {
-  const int K = p.K;
-  const SoftmaxStats s = softmax_stats(P, K);
-  const Phase ph = rotate(P, K, x);
-  const Bin b = find_circular_bin(P, p, s, ph.z);
-  const int k = b.k;
-  const float w = b.xk1 - b.xk, h = b.yk1 - b.yk, sl = h / w;
-  const float xr = (ph.z - b.xk) / w;
-  const float xi = fminf(fmaxf(xr, 0.0f), 1.0f), xi1m = 1.0f - xi, q = xi * xi1m;
-  const float c2 = b.dk1 + b.dk - 2.0f * sl;
-  const float nn = sl * xi * xi + b.dk * q;
-  const float den = sl + c2 * q;
-  const float A = b.dk1 * xi * xi + 2.0f * sl * q + b.dk * xi1m * xi1m;
-  const float den2 = den * den;
-  // d/dxi
-  const float dnn_dxi = 2.0f * sl * xi + b.dk * (1.0f - 2.0f * xi);
-  const float dden_dxi = c2 * (1.0f - 2.0f * xi);
-  const float dA_dxi = 2.0f * b.dk1 * xi + 2.0f * sl * (1.0f - 2.0f * xi) - 2.0f * b.dk * xi1m;
-  const float g_xi = gy * h * (dnn_dxi * den - nn * dden_dxi) / den2 + gl * (dA_dxi / A - 2.0f * dden_dxi / den);
-  const float g_xr = g_xi * clip_grad(xr, 0.0f, 1.0f);  // through the clip of xi
-  // d/dslope (y and log-det through s, A and den)
-  const float g_s = gy * h * (xi * xi * den - nn * (1.0f - 2.0f * q)) / den2 +
-                    gl * (2.0f / sl + 2.0f * q / A - 2.0f * (1.0f - 2.0f * q) / den);
-  // d/d derivatives at the bin edges
-  const float g_dk = gy * h * q * (den - nn) / den2 + gl * (xi1m * xi1m / A - 2.0f * q / den);
-  const float g_dk1 = -gy * h * nn * q / den2 + gl * (xi * xi / A - 2.0f * q / den);
-  // bin height h (directly and through s = h / w), bin width w (s and xr)
-  const float g_h = gy * nn / den + g_s / w;
-  const float g_w = -g_s * sl / w - g_xr * xr / w;
-  const float g_z = g_xr / w;
-  // Knot gradients; the end knots (0 and 1) are constants.
-  const float gxk = k > 0 ? -g_xr / w - g_w : 0.0f;
-  const float gxk1 = k + 1 < K ? g_w : 0.0f;
-  const float gyk = k > 0 ? gy - g_h : 0.0f;
-  const float gyk1 = k + 1 < K ? g_h : 0.0f;
-  // knot j (0 < j < K) = sum_{i < j} width_i, so
-  // dL/dwidth_i = gxk [i < k] + gxk1 [i <= k].
-  float sw_lo = 0.0f, sw_k = 0.0f, sh_lo = 0.0f, sh_k = 0.0f;  // softmax mass of bins < k, bin k
-  for (int i = 0; i <= k; ++i) {
-    const float smw = expf(P[i] - s.max_w) / s.sum_w;
-    const float smh = expf(P[K + i] - s.max_h) / s.sum_h;
-    if (i < k) {
-      sw_lo += smw;
-      sh_lo += smh;
-    } else {
-      sw_k = smw;
-      sh_k = smh;
-    }
-  }
-  const float gw_lo = gxk + gxk1, gw_k = gxk1;
-  const float gh_lo = gyk + gyk1, gh_k = gyk1;
-  const float dot_w = p.scale_w * (gw_lo * sw_lo + gw_k * sw_k);
-  const float dot_h = p.scale_h * (gh_lo * sh_lo + gh_k * sh_k);
-  for (int i = 0; i < K; ++i) {
-    const float smw = expf(P[i] - s.max_w) / s.sum_w;
-    const float smh = expf(P[K + i] - s.max_h) / s.sum_h;
-    const float gw = i < k ? gw_lo : (i == k ? gw_k : 0.0f);
-    const float gh = i < k ? gh_lo : (i == k ? gh_k : 0.0f);
-    P[i] = smw * (p.scale_w * gw - dot_w);
-    P[K + i] = smh * (p.scale_h * gh - dot_h);
-  }
-  // Derivatives d_m = min_d + softplus(raw_m); bin k uses d_k and d_{(k+1) mod K}.
-  const int k1 = (k + 1) % K;
-  for (int m = 0; m < K; ++m) {
-    const float g = (m == k ? g_dk : 0.0f) + (m == k1 ? g_dk1 : 0.0f);
-    P[2 * K + m] = g != 0.0f ? g * sigmoid(P[2 * K + m]) : 0.0f;
-  }
-  // Through the phase clip and the floor-mod: d/dx = 1, d/drot = -1.
-  const float g_m = g_z * clip_grad(ph.m, 0.0f, kPhaseHi);
-  P[3 * K] = -g_m * ph.rot * (1.0f - ph.rot);
-  return g_m;
-}
-
 // The slot head's log-probability of slot int(kv) (0 outside [0, NS)).
 __device__ float slot_logprob(const float* sl, int NS, float kv) {
   const int ki = (int)kv;
@@ -219,20 +174,6 @@ __device__ float slot_logprob(const float* sl, int NS, float kv) {
   float se = 0.0f;
   for (int j = 0; j < NS; ++j) se += expf(sl[j] - mx);
   return sl[ki] - mx - logf(se);
-}
-
-// Cotangent gm of slot_logprob pulled back to the logits, in place.
-__device__ void slot_logprob_grad(float* sl, int NS, float kv, float gm) {
-  const int ki = (int)kv;
-  if (!(ki >= 0 && ki < NS)) {
-    for (int j = 0; j < NS; ++j) sl[j] = 0.0f;
-    return;
-  }
-  float mx = -INFINITY;
-  for (int j = 0; j < NS; ++j) mx = fmaxf(mx, sl[j]);
-  float se = 0.0f;
-  for (int j = 0; j < NS; ++j) se += expf(sl[j] - mx);
-  for (int j = 0; j < NS; ++j) sl[j] = gm * ((j == ki ? 1.0f : 0.0f) - expf(sl[j] - mx) / se);
 }
 
 // Writes kf of the tile's rows into columns [H, H + F) of emb (leading
@@ -315,102 +256,372 @@ __global__ void __launch_bounds__(THREADS) mnle_pulse_fwd_kernel(
   }
 }
 
-__global__ void __launch_bounds__(THREADS) mnle_pulse_bwd_kernel(
-    MnleParams p, const float* __restrict__ phi, const float* __restrict__ oh,
-    const float* __restrict__ ctx, const float* __restrict__ kf, const float* __restrict__ kv,
-    const float* __restrict__ g, float* __restrict__ dphi, float* __restrict__ dctx,
-    float* __restrict__ dkf, int N) {
-  extern __shared__ float smem[];
-  const int DC = p.D + p.C, H = p.H, L = p.n_layers, S = 3 * p.K + 1, HF = p.H + p.F;
-  float* x0 = smem;                                  // ROWS x DC
-  float* cat_act = x0 + ROWS * DC;                   // (L-1) x ROWS x H
-  float* trunk_act = cat_act + (L - 1) * ROWS * H;   // (L-1) x ROWS x H
-  float* emb = trunk_act + (L - 1) * ROWS * H;       // ROWS x (H + F)
-  float* logits = emb + ROWS * HF;                   // ROWS x C
-  float* slot = logits + ROWS * p.C;                 // ROWS x NS
-  float* sp = slot + ROWS * p.NS;                    // ROWS x HO
-  float* gbuf[2] = {sp + ROWS * p.HO, sp + ROWS * p.HO + ROWS * H};
-  float* dkf_s = gbuf[1] + ROWS * H;                 // ROWS x F
-  float* dx0 = dkf_s + ROWS * p.F;                   // ROWS x D
-  const int row0 = blockIdx.x * ROWS;
-  load_rows(ctx, oh, x0, row0, N, p);
-  forward_products(p, x0, cat_act, trunk_act, max(L - 1, 1), emb, logits, slot, sp, kf, row0, N);
+// ---------------------------------------------------------------------------
+// K3p: tiles of TILE_ROWS rows over TILE_THREADS threads; the products run
+// through tile_dense (mnle_tile.cuh), the per-row phase one warp per row.
+// ---------------------------------------------------------------------------
 
-  // Per row: d logits and d slot logits (in place), the flow backward (d
-  // head output in place) and dphi to global memory.
-  const int r = threadIdx.x, row = row0 + r;
-  if (r < ROWS) {
+// find_circular_bin for one row on one warp, lane i holding bin i (K <=
+// 32). The spline's parameters are P[i * ld]. The softmax normalizers and
+// the knots' running sums are taken in double (a butterfly and an
+// inclusive scan), each knot rounded to float32 once, as find_circular_bin
+// does; the end knots are 0 and 1. The bin is the first whose upper knot
+// exceeds z (z == knot[j+1] falls in bin j+1, the top edge in bin K-1).
+// Writes the softmax weights of the widths and heights over P[0, 2K),
+// which the backward reads.
+__device__ __forceinline__ Bin warp_circular_bin(float* P, int ld, const MnleParams& p, float z, int lane) {
+  const int K = p.K;
+  const bool on = lane < K;
+  const float pw = on ? P[lane * ld] : -INFINITY, ph = on ? P[(K + lane) * ld] : -INFINITY;
+  const float max_w = warp_max(pw), max_h = warp_max(ph);
+  const float ew = on ? expf(pw - max_w) : 0.0f, eh = on ? expf(ph - max_h) : 0.0f;
+  const float sum_w = (float)warp_sum((double)ew), sum_h = (float)warp_sum((double)eh);
+  const float sw = ew / sum_w, sh = eh / sum_h;
+  if (on) {
+    P[lane * ld] = sw;
+    P[(K + lane) * ld] = sh;
+  }
+  const double cw = warp_inclusive_scan(on ? (double)(p.min_w + p.scale_w * sw) : 0.0, lane);
+  const double ch = warp_inclusive_scan(on ? (double)(p.min_h + p.scale_h * sh) : 0.0, lane);
+  // Upper knots of bin `lane`; the last one is 1 exactly.
+  const float xu = lane >= K - 1 ? 1.0f : (float)cw;
+  const float yu = lane >= K - 1 ? 1.0f : (float)ch;
+  const unsigned below = __ballot_sync(kFull, lane < K - 1 && z < xu);
+  Bin b;
+  b.k = below != 0u ? __ffs(below) - 1 : K - 1;
+  const int lo = max(b.k - 1, 0);
+  const float xl = __shfl_sync(kFull, xu, lo), yl = __shfl_sync(kFull, yu, lo);
+  b.xk = b.k == 0 ? 0.0f : xl;
+  b.yk = b.k == 0 ? 0.0f : yl;
+  b.xk1 = __shfl_sync(kFull, xu, b.k);
+  b.yk1 = __shfl_sync(kFull, yu, b.k);
+  b.dk = p.min_d + softplus(P[(2 * K + b.k) * ld]);
+  b.dk1 = p.min_d + softplus(P[(2 * K + (b.k + 1) % K) * ld]);
+  return b;
+}
+
+// circular_fwd's output in bin b at the clipped phase zc (no log-det: the
+// backward does not need it).
+__device__ __forceinline__ float circular_y(const Bin& b, float zc) {
+  const float w = b.xk1 - b.xk, h = b.yk1 - b.yk, sl = h / w;
+  const float xi = fminf(fmaxf((zc - b.xk) / w, 0.0f), 1.0f), xi1m = 1.0f - xi;
+  const float num = h * (sl * xi * xi + b.dk * xi * xi1m);
+  const float den = sl + (b.dk1 + b.dk - 2.0f * sl) * xi * xi1m;
+  return b.yk + num / den;
+}
+
+// Backward of one circular RQ spline on one warp at input x, rotation rot
+// and bin b (from warp_circular_bin, whose softmax weights are in P[0,
+// 2K)), with upstream gradients gy (of y) and gl (of the log-det).
+// Overwrites P[0, 3K+1) with dL/dP and returns dL/dx.
+__device__ __forceinline__ float warp_circular_bwd(float* P, int ld, const MnleParams& p, const Bin& b, float rot,
+                                                   float x, float gy, float gl, int lane) {
+  const int K = p.K, k = b.k;
+  float m, zc;
+  circular_phase(x, rot, &m, &zc);
+  const float w = b.xk1 - b.xk, h = b.yk1 - b.yk, sl = h / w;
+  const float xr = (zc - b.xk) / w;
+  const float xi = fminf(fmaxf(xr, 0.0f), 1.0f), xi1m = 1.0f - xi, q = xi * xi1m;
+  const float c2 = b.dk1 + b.dk - 2.0f * sl;
+  const float nn = sl * xi * xi + b.dk * q;
+  const float den = sl + c2 * q;
+  const float A = b.dk1 * xi * xi + 2.0f * sl * q + b.dk * xi1m * xi1m;
+  const float den2 = den * den;
+  // d/dxi
+  const float dnn_dxi = 2.0f * sl * xi + b.dk * (1.0f - 2.0f * xi);
+  const float dden_dxi = c2 * (1.0f - 2.0f * xi);
+  const float dA_dxi = 2.0f * b.dk1 * xi + 2.0f * sl * (1.0f - 2.0f * xi) - 2.0f * b.dk * xi1m;
+  const float g_xi = gy * h * (dnn_dxi * den - nn * dden_dxi) / den2 + gl * (dA_dxi / A - 2.0f * dden_dxi / den);
+  const float g_xr = g_xi * clip_grad(xr, 0.0f, 1.0f);  // through the clip of xi
+  // d/dslope (y and log-det through s, A and den)
+  const float g_s = gy * h * (xi * xi * den - nn * (1.0f - 2.0f * q)) / den2 +
+                    gl * (2.0f / sl + 2.0f * q / A - 2.0f * (1.0f - 2.0f * q) / den);
+  // d/d derivatives at the bin edges
+  const float g_dk = gy * h * q * (den - nn) / den2 + gl * (xi1m * xi1m / A - 2.0f * q / den);
+  const float g_dk1 = -gy * h * nn * q / den2 + gl * (xi * xi / A - 2.0f * q / den);
+  // bin height h (directly and through s = h / w), bin width w (s and xr)
+  const float g_h = gy * nn / den + g_s / w;
+  const float g_w = -g_s * sl / w - g_xr * xr / w;
+  const float g_z = g_xr / w;
+  // Knot gradients; the end knots (0 and 1) are constants.
+  const float gxk = k > 0 ? -g_xr / w - g_w : 0.0f;
+  const float gxk1 = k + 1 < K ? g_w : 0.0f;
+  const float gyk = k > 0 ? gy - g_h : 0.0f;
+  const float gyk1 = k + 1 < K ? g_h : 0.0f;
+  // knot j (0 < j < K) = sum_{i < j} width_i, so
+  // dL/dwidth_i = gxk [i < k] + gxk1 [i <= k], lane i's share.
+  const float gw = lane < k ? gxk + gxk1 : (lane == k ? gxk1 : 0.0f);
+  const float gh = lane < k ? gyk + gyk1 : (lane == k ? gyk1 : 0.0f);
+  const bool on = lane < K;
+  const float sw = on ? P[lane * ld] : 0.0f, sh = on ? P[(K + lane) * ld] : 0.0f;
+  // Softmax VJP: d param_i = sm_i (scale g_i - scale sum_j g_j sm_j).
+  const float dot_w = p.scale_w * (float)warp_sum((double)(gw * sw));
+  const float dot_h = p.scale_h * (float)warp_sum((double)(gh * sh));
+  if (on) {
+    P[lane * ld] = sw * (p.scale_w * gw - dot_w);
+    P[(K + lane) * ld] = sh * (p.scale_h * gh - dot_h);
+    // Derivatives d_m = min_d + softplus(raw_m); bin k uses d_k and
+    // d_{(k+1) mod K}, so lane 0 takes bin K-1's right edge too.
+    const float g = (lane == k ? g_dk : 0.0f) + (lane == (k + 1) % K ? g_dk1 : 0.0f);
+    float* d = P + (2 * K + lane) * ld;
+    *d = g != 0.0f ? g * sigmoid(*d) : 0.0f;
+  }
+  // Through the phase clip and the floor-mod: d/dx = 1, d/drot = -1.
+  const float g_m = g_z * clip_grad(m, 0.0f, kPhaseHi);
+  if (lane == 0) P[3 * K * ld] = -g_m * rot * (1.0f - rot);
+  return g_m;
+}
+
+// The cotangent gm of the slot head's log-softmax at int(kv) pulled back
+// to the row's NS logits sl[j * ld], in place, on one warp (lane l on
+// logits l, l + 32, ...): zeros where int(kv) is outside [0, NS).
+__device__ __forceinline__ void warp_slot_grad(float* sl, int ld, int NS, float kv, float gm, int lane) {
+  const int ki = (int)kv;
+  if (!(ki >= 0 && ki < NS)) {
+    for (int j = lane; j < NS; j += 32) sl[j * ld] = 0.0f;
+    return;
+  }
+  float mx = -INFINITY;
+  for (int j = lane; j < NS; j += 32) mx = fmaxf(mx, sl[j * ld]);
+  mx = warp_max(mx);
+  double se = 0.0;
+  for (int j = lane; j < NS; j += 32) se += (double)expf(sl[j * ld] - mx);
+  const float sum = (float)warp_sum(se);
+  for (int j = lane; j < NS; j += 32) sl[j * ld] = gm * ((j == ki ? 1.0f : 0.0f) - expf(sl[j * ld] - mx) / sum);
+}
+
+constexpr int kMaxF = 4;  // flow-head features a warp's d kf holds in registers
+
+// d kf = d sp . head_w[H:H+F]^T of one row on one warp, the row's d sp at
+// dsp[k * ld], its F outputs to out[f * TILE_ROWS], in dense's summation
+// order: lane c takes the partial sum of inputs [32c, 32c + 32) (fmaf, k
+// ascending) and the partials are added in order, so the result has the
+// bits of the same product through tile_dense. (As a product of the list,
+// 3 columns over HO inputs, it took 19 % of K3p's time on the H100 for
+// 0.4 % of its FLOP: 23 chunks of weights staged for 24 outputs.) The rows
+// of head_w_pad are 16-byte aligned, so the weights come as float4.
+__device__ __forceinline__ void warp_dkf(const float* dsp, int ld, const MnleParams& p, float* out, int lane) {
+  float acc[kMaxF] = {};
+  for (int base = 0; base < p.HO; base += 32 * 32) {
+    const int k0 = base + 32 * lane;
+    float part[kMaxF] = {};
+    if (k0 + 32 <= p.HO) {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        float4 wq[kMaxF];
+#pragma unroll
+        for (int f = 0; f < kMaxF; ++f)
+          if (f < p.F) wq[f] = __ldg(reinterpret_cast<const float4*>(p.head_w_pad + (size_t)(p.H + f) * p.head_ld + k0) + q);
+        const float v[4] = {dsp[(k0 + 4 * q) * ld], dsp[(k0 + 4 * q + 1) * ld], dsp[(k0 + 4 * q + 2) * ld],
+                            dsp[(k0 + 4 * q + 3) * ld]};
+#pragma unroll
+        for (int f = 0; f < kMaxF; ++f) {
+          if (f < p.F) {
+            part[f] = fmaf(v[0], wq[f].x, part[f]);
+            part[f] = fmaf(v[1], wq[f].y, part[f]);
+            part[f] = fmaf(v[2], wq[f].z, part[f]);
+            part[f] = fmaf(v[3], wq[f].w, part[f]);
+          }
+        }
+      }
+    } else {
+      for (int k = k0; k < p.HO; ++k) {
+        const float v = dsp[k * ld];
+#pragma unroll
+        for (int f = 0; f < kMaxF; ++f)
+          if (f < p.F) part[f] = fmaf(v, __ldg(p.head_w_pad + (size_t)(p.H + f) * p.head_ld + k), part[f]);
+      }
+    }
+    const int parts = min(32, (p.HO - base + 31) / 32);
+    for (int c = 0; c < parts; ++c) {
+#pragma unroll
+      for (int f = 0; f < kMaxF; ++f) acc[f] += __shfl_sync(kFull, part[f], c);
+    }
+  }
+  if (lane < p.F) {
+#pragma unroll
+    for (int f = 0; f < kMaxF; ++f)
+      if (f == lane) out[f * TILE_ROWS] = acc[f];
+  }
+}
+
+// K3p's products in the order it runs them: the categorical MLP and the
+// trunk, the slot head and the head on [emb; kf]; then d emb from the head
+// (the padded transposed copy's first H columns), d emb from the slot head
+// (accumulated), the trunk transposed down to the D context columns, the
+// categorical MLP transposed. Each entry is one product whole: weights,
+// bias and ReLU. (d kf is warp_dkf's.)
+struct K3pProducts {
+  const MnleParams& p;
+  __device__ int count() const { return 4 * p.n_layers + 4; }
+  __device__ TileProduct operator()(int i) const {
+    const int L = p.n_layers, H = p.H, DC = p.D + p.C;
+    if (i < L) {
+      const bool last = i == L - 1;
+      return {p.cat_w[i], p.cat_b[i], last ? p.C : H, i == 0 ? p.D : H, last ? p.C : H, !last};
+    }
+    i -= L;
+    if (i < L) return {p.trunk_w[i], p.trunk_b[i], H, i == 0 ? DC : H, H, true};
+    i -= L;
+    switch (i) {
+      case 0: return {p.slot_w, p.slot_b, p.NS, H, p.NS, false};
+      case 1: return {p.head_w_pad, p.head_b, p.head_ld, H + p.F, p.HO, false};
+      case 2: return {p.head_wt, nullptr, p.head_t_ld, p.HO, H, false};
+      case 3: return {p.slot_wt, nullptr, H, p.NS, H, false};
+      default: break;
+    }
+    i -= 4;
+    if (i < L) {
+      const int l = L - 1 - i;
+      return {p.trunk_wt[l], nullptr, l == 0 ? DC : H, H, l == 0 ? p.D : H, false};
+    }
+    const int l = L - 1 - (i - L);
+    return {p.cat_wt[l], nullptr, l == 0 ? p.D : H, l == L - 1 ? p.C : H, l == 0 ? p.D : H, false};
+  }
+};
+
+size_t bwd_smem_bytes(const MnleParams& p) {
+  return sizeof(float) * ((size_t)TILE_STAGES * TILE_WBUF +
+                          (size_t)TILE_ROWS * (p.D + p.C + (2 * p.n_layers - 1) * p.H + 2 * p.F + p.C + p.NS +
+                                               p.HO + 2 * p.H + p.D));
+}
+
+__global__ void __launch_bounds__(TILE_THREADS, 2) mnle_pulse_bwd_kernel(
+    const __grid_constant__ MnleParams p, const float* __restrict__ phi, const float* __restrict__ oh,
+    const float* __restrict__ ctx, const float* __restrict__ kf, const float* __restrict__ kv,
+    const float* __restrict__ g, float* __restrict__ dphi, float* __restrict__ dctx, float* __restrict__ dkf,
+    int N) {
+  extern __shared__ float4 smem4[];
+  constexpr int R = TILE_ROWS;
+  const int DC = p.D + p.C, H = p.H, L = p.n_layers, K = p.K, S = 3 * p.K + 1;
+  // Every array is k-major: element (k, r) at a[k * R + r].
+  float* ws = reinterpret_cast<float*>(smem4);   // TILE_STAGES x TILE_WBUF weight staging
+  float* x0 = ws + TILE_STAGES * TILE_WBUF;      // DC x R: [ctx | onehot]
+  float* cat_act = x0 + DC * R;                  // (L-1) x H x R
+  float* trunk_act = cat_act + (L - 1) * H * R;  // L x H x R, then ...
+  float* kf_s = trunk_act + L * H * R;           // ... F x R: [emb; kf] is one (H + F) x R operand
+  float* logits = kf_s + p.F * R;                // C x R
+  float* slot = logits + p.C * R;                // NS x R
+  float* sp = slot + p.NS * R;                   // HO x R
+  float* gbuf[2] = {sp + p.HO * R, sp + p.HO * R + H * R};
+  float* dx0 = gbuf[1] + H * R;                  // D x R
+  float* dkf_s = dx0 + p.D * R;                  // F x R
+  float* emb = trunk_act + (L - 1) * H * R;
+  const int row0 = blockIdx.x * R;
+  WeightStream<K3pProducts> ws_stream(K3pProducts{p}, ws);  // starts loading the first products' weights
+  for (int idx = threadIdx.x; idx < R * DC; idx += TILE_THREADS) {
+    const int r = idx / DC, k = idx % DC, row = row0 + r;
+    float v = 0.0f;
+    if (row < N) v = k < p.D ? ctx[(size_t)row * p.D + k] : oh[(size_t)row * p.C + (k - p.D)];
+    x0[k * R + r] = v;
+  }
+  for (int idx = threadIdx.x; idx < R * p.F; idx += TILE_THREADS) {
+    const int r = idx / p.F, f = idx % p.F, row = row0 + r;
+    kf_s[f * R + r] = row < N ? kf[(size_t)row * p.F + f] : 0.0f;
+  }
+
+  // Forward, keeping every activation.
+  const float* in = x0;
+  for (int l = 0; l < L; ++l) {
+    float* o = l == L - 1 ? logits : cat_act + l * H * R;
+    tile_dense(ws_stream, in, o, nullptr, false);
+    in = o;
+  }
+  in = x0;
+  for (int l = 0; l < L; ++l) {
+    float* o = trunk_act + l * H * R;
+    tile_dense(ws_stream, in, o, nullptr, false);
+    in = o;
+  }
+  tile_dense(ws_stream, emb, slot, nullptr, false);
+  tile_dense(ws_stream, emb, sp, nullptr, false);  // [emb; kf]
+  __syncthreads();
+
+  // Per row, one warp: d logits (in place), d slot logits (in place), the
+  // flow backward (d head output in place, dphi to global memory) and d kf.
+  // Lane i holds bin i of each spline, and lane j keeps transform j's bin,
+  // input and rotation between the forward recompute and the backward; the
+  // chain over the transforms stays serial. Censored rows take the branch
+  // that zeroes their slot and spline gradients.
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < R; r += TILE_THREADS / 32) {
+    const int row = row0 + r;
     const float gr = row < N ? g[row] : 0.0f;
-    const float* ohr = x0 + r * DC + p.D;
-    cat_logprob_grad(logits + r * p.C, ohr, p.C, gr);
-    float* spr = sp + r * p.HO;
-    float* slr = slot + r * p.NS;
-    const float keep = keep_factor(ohr, p);
+    const float* ohr = x0 + p.D * R + r;
+    if (lane == 0) cat_grad_strided(logits + r, ohr, R, p.C, gr);
+    float* spr = sp + r;
+    const float keep = p.censored_col >= 0 ? 1.0f - ohr[p.censored_col * R] : 1.0f;
     float dz = 0.0f;
     if (keep > 0.0f && row < N) {
       const float gm = gr * keep;
-      slot_logprob_grad(slr, p.NS, kv[row], gm);
-      float zs[MAX_TRANSFORMS];
-      float z = phi[row], ld = 0.0f;
+      warp_slot_grad(slot + r, R, p.NS, kv[row], gm, lane);
+      Bin mine{};  // transform `lane`'s bin ...
+      float mine_x = 0.0f, mine_rot = 0.0f;  // ... input and rotation
+      float z = phi[row];
       for (int i = 0; i < p.T; ++i) {
-        zs[i] = z;
-        z = circular_fwd(spr + i * S, p, z, &ld);
+        float* P = spr + i * S * R;
+        const float rot = sigmoid(P[3 * K * R]);
+        float m, zc;
+        circular_phase(z, rot, &m, &zc);
+        const Bin b = warp_circular_bin(P, R, p, zc, lane);
+        if (lane == i) {
+          mine = b;
+          mine_x = z;
+          mine_rot = rot;
+        }
+        z = circular_y(b, zc);
       }
       // Uniform base: the last z carries no gradient; each log-det gets gm.
-      for (int i = p.T - 1; i >= 0; --i) dz = circular_bwd(spr + i * S, p, zs[i], dz, gm);
+      for (int i = p.T - 1; i >= 0; --i) {
+        const Bin b = shfl_bin(mine, i);
+        const float x = __shfl_sync(kFull, mine_x, i), rot = __shfl_sync(kFull, mine_rot, i);
+        dz = warp_circular_bwd(spr + i * S * R, R, p, b, rot, x, dz, gm, lane);
+      }
+      __syncwarp();  // every lane's d sp written
+      warp_dkf(spr, R, p, dkf_s + r, lane);
     } else {
-      for (int j = 0; j < p.NS; ++j) slr[j] = 0.0f;
-      for (int i = 0; i < p.HO; ++i) spr[i] = 0.0f;
+      for (int j = lane; j < p.NS; j += 32) slot[j * R + r] = 0.0f;
+      for (int j = lane; j < p.HO; j += 32) spr[j * R] = 0.0f;
+      if (lane < p.F) dkf_s[lane * R + r] = 0.0f;
     }
-    if (row < N) dphi[row] = dz;
+    if (lane == 0 && row < N) dphi[row] = dz;
   }
-  __syncthreads();
 
-  // d emb = d sp . head_w[:H]^T + d slot . slot_w^T, masked by the ReLU;
-  // d kf = d sp . head_w[H:]^T (the last F columns of the transposed copy).
-  dense(sp, p.HO, p.HO, p.head_wt, HF, nullptr, gbuf[0], H, H, false, emb, HF, false);
-  dense(slot, p.NS, p.NS, p.slot_wt, H, nullptr, gbuf[0], H, H, false, emb, HF, true);
-  dense(sp, p.HO, p.HO, p.head_wt + H, HF, nullptr, dkf_s, p.F, p.F, false, nullptr, 0, false);
+  // d emb = d sp . head_w[:H]^T + d slot . slot_w^T, masked by the ReLU.
+  tile_dense(ws_stream, sp, gbuf[0], emb, false);
+  tile_dense(ws_stream, slot, gbuf[0], emb, true);
 
   // Trunk backward down to d ctx.
   int cur = 0;
   for (int l = L - 1; l >= 1; --l) {
-    dense(gbuf[cur], H, H, p.trunk_wt[l], H, nullptr, gbuf[1 - cur], H, H, false,
-          trunk_act + (l - 1) * ROWS * H, H, false);
+    tile_dense(ws_stream, gbuf[cur], gbuf[1 - cur], trunk_act + (l - 1) * H * R, false);
     cur = 1 - cur;
   }
-  dense(gbuf[cur], H, H, p.trunk_wt[0], DC, nullptr, dx0, p.D, p.D, false, nullptr, 0, false);
+  tile_dense(ws_stream, gbuf[cur], dx0, nullptr, false);
 
   // Categorical backward: d logits . W^T, masked by ReLU, added to d ctx.
   const float* gin = logits;
-  int gin_w = p.C;
   cur = 0;
   for (int l = L - 1; l >= 1; --l) {
-    dense(gin, gin_w, gin_w, p.cat_wt[l], H, nullptr, gbuf[cur], H, H, false,
-          cat_act + (l - 1) * ROWS * H, H, false);
+    tile_dense(ws_stream, gin, gbuf[cur], cat_act + (l - 1) * H * R, false);
     gin = gbuf[cur];
-    gin_w = H;
     cur = 1 - cur;
   }
-  dense(gin, gin_w, gin_w, p.cat_wt[0], p.D, nullptr, dx0, p.D, p.D, false, nullptr, 0, true);
+  tile_dense(ws_stream, gin, dx0, nullptr, true);
+  __syncthreads();
 
-  for (int idx = threadIdx.x; idx < ROWS * p.D; idx += blockDim.x) {
-    const int rr = idx / p.D, k = idx % p.D;
-    if (row0 + rr < N) dctx[(size_t)(row0 + rr) * p.D + k] = dx0[idx];
+  for (int idx = threadIdx.x; idx < R * p.D; idx += TILE_THREADS) {
+    const int r = idx / p.D, k = idx % p.D;
+    if (row0 + r < N) dctx[(size_t)(row0 + r) * p.D + k] = dx0[k * R + r];
   }
-  for (int idx = threadIdx.x; idx < ROWS * p.F; idx += blockDim.x) {
-    const int rr = idx / p.F, f = idx % p.F;
-    if (row0 + rr < N) dkf[(size_t)(row0 + rr) * p.F + f] = dkf_s[idx];
+  for (int idx = threadIdx.x; idx < R * p.F; idx += TILE_THREADS) {
+    const int r = idx / p.F, f = idx % p.F;
+    if (row0 + r < N) dkf[(size_t)(row0 + r) * p.F + f] = dkf_s[f * R + r];
   }
 }
 
 size_t fwd_smem_bytes(const MnleParams& p) {
   return sizeof(float) * (size_t)ROWS * (p.D + p.C + 2 * p.H + p.H + p.F + p.C + p.NS + p.HO);
-}
-
-size_t bwd_smem_bytes(const MnleParams& p) {
-  return sizeof(float) * (size_t)ROWS *
-         (p.D + p.C + 2 * (p.n_layers - 1) * p.H + p.H + p.F + p.C + p.NS + p.HO + 2 * p.H + p.F + p.D);
 }
 
 bool params_ok(const MnleParams* p) {
@@ -442,14 +653,17 @@ int sdm_mnle_pulse_bwd(const MnleParams* p, const float* phi, const float* oh, c
                        const float* kf, const float* kv, const float* g, float* dphi, float* dctx,
                        float* dkf, int N, void* stream) {
   if (N <= 0) return 0;
-  if (!params_ok(p)) return (int)cudaErrorInvalidValue;
+  // One bin per lane of a warp; kf's columns and the padded head copies.
+  if (!params_ok(p) || p->K > 32 || p->F < 1 || p->F > kMaxF || p->head_ld < p->HO || p->head_t_ld < p->H + p->F ||
+      p->head_ld % 4 != 0)
+    return (int)cudaErrorInvalidValue;
   const size_t smem = bwd_smem_bytes(*p);
   cudaError_t err = cudaFuncSetAttribute(mnle_pulse_bwd_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (N + ROWS - 1) / ROWS;
-  mnle_pulse_bwd_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(*p, phi, oh, ctx, kf, kv,
-                                                                         g, dphi, dctx, dkf, N);
+  const int blocks = (N + TILE_ROWS - 1) / TILE_ROWS;
+  mnle_pulse_bwd_kernel<<<blocks, TILE_THREADS, smem, (cudaStream_t)stream>>>(*p, phi, oh, ctx, kf, kv, g, dphi,
+                                                                              dctx, dkf, N);
   return (int)cudaGetLastError();
 }
 

@@ -6,9 +6,9 @@ path), ``make_grid_hop``, ``make_dim_slice`` and ``compose_moves``. The
 potential is evaluated for all chains at once (``potential_fn`` takes theta
 (N, D)), so each move costs one batched likelihood call per evaluation.
 
-Not ported yet: the slice sampler (``inference/slice.py``). ``method="slice"``
-raises, and where the JAX package would fall back from NUTS to slice
-sampling, this port raises instead of carrying on.
+``method="slice"`` runs the batched slice sampler (``inference/slice.py``),
+and plain NUTS falls back to it when its chains are unhealthy, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -23,10 +23,9 @@ from ..distributions import Bijector, Distribution
 from ..utils.device import resolve_device
 from ..utils.rng import child_seed, make_generator
 from .nuts import ReplicaExchange, geometric_ladder, run_nuts
+from .slice import run_slice
 
 __all__ = ["MCMCPosterior", "make_grid_hop", "make_dim_slice", "compose_moves"]
-
-_NO_SLICE = "the slice sampler (inference/slice.py) is not ported to PyTorch yet (see ROADMAP.md, Queue 1)"
 
 
 class MCMCPosterior:
@@ -64,8 +63,6 @@ class MCMCPosterior:
         self.proposal = proposal
         self.bij = theta_transform
         self.method = {"nuts_pyro": "nuts", "slice_np_vectorized": "slice"}.get(method, method)
-        if self.method == "slice":
-            raise NotImplementedError(f"method={method!r}: {_NO_SLICE}")
         self.num_chains = int(num_chains)
         self.warmup_steps = int(warmup_steps)
         self.thin = int(thin)
@@ -77,6 +74,11 @@ class MCMCPosterior:
         self.pt_replicas = int(pt_replicas)
         self.pt_beta_min = float(pt_beta_min)
         self.pt_swap_every = int(pt_swap_every)
+        if self.pt_replicas > 1 and self.method not in ("nuts", "hmc"):
+            raise ValueError(
+                "pt_replicas > 1 requires the NUTS sampler (parallel "
+                "tempering is not wired into run_slice)"
+            )
         self.auto_fallback = bool(auto_fallback)
         self.fallback_divergence_rate = float(fallback_divergence_rate)
         self.fallback_r_hat = float(fallback_r_hat)
@@ -215,26 +217,40 @@ class MCMCPosterior:
         else:
             init_u = self._init_positions(gen_init)
             vg = self._closed_form_vg()
-            samples_u, info = run_nuts(
-                seed_run, self._logp_u, init_u,
-                num_warmup=self.warmup_steps, num_samples=per_chain,
-                max_depth=self.max_tree_depth, target_accept=self.target_accept,
-                thin=self.thin, mode_hop=self.mode_hop,
-                value_and_grad_fn=None if vg is None else (
-                    lambda u, need_grad=True: vg(u, torch.ones(u.shape[:-1], device=u.device), need_grad)),
-            )
-            if self.auto_fallback and self._nuts_failed(samples_u, info):
-                raise RuntimeError(
-                    "NUTS unhealthy (divergence storm / failed mixing): the JAX package "
-                    f"would fall back to slice sampling here, but {_NO_SLICE}"
+            vg1 = None if vg is None else (
+                lambda u, need_grad=True: vg(u, torch.ones(u.shape[:-1], device=u.device), need_grad))
+
+            def slice_run(seed):
+                return run_slice(
+                    seed, self._logp_u, init_u,
+                    num_warmup=self.warmup_steps, num_samples=per_chain,
+                    thin=self.thin, mode_hop=self.mode_hop, value_and_grad_fn=vg1,
                 )
+
+            if self.method == "slice":
+                samples_u, info = slice_run(seed_run)
+            else:
+                samples_u, info = run_nuts(
+                    seed_run, self._logp_u, init_u,
+                    num_warmup=self.warmup_steps, num_samples=per_chain,
+                    max_depth=self.max_tree_depth, target_accept=self.target_accept,
+                    thin=self.thin, mode_hop=self.mode_hop, value_and_grad_fn=vg1,
+                )
+                if self.auto_fallback and self._nuts_failed(samples_u, info):
+                    self.used_fallback = True
+                    print(
+                        "[mcmc] NUTS unhealthy (divergence storm / failed "
+                        "mixing); falling back to the vectorized slice sampler "
+                        "(reference recipe, ryans_test.ipynb cell 4)"
+                    )
+                    samples_u, info = slice_run(child_seed(seed_run, 1))
         self._last_info = info
 
         # (C, S_per, D) -> interleave chains -> (C * S_per, D) -> trim to S.
         theta = self.bij.forward(samples_u)
         pooled = theta.transpose(0, 1).reshape(-1, theta.shape[-1])
         out = pooled[:num_samples]
-        if self.verbose:
+        if self.verbose and "diverging" in info:
             ap = float(info["accept_prob"].mean())
             dv = int(info["diverging"].sum())
             print(

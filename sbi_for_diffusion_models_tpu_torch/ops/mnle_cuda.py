@@ -74,7 +74,7 @@ __all__ = [
 
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 MAX_LAYERS = 4  # trunk_depth + 1, bounded by the C struct
-MAX_TRANSFORMS = 16  # per-row z stack of the backward kernel
+MAX_TRANSFORMS = 16  # transforms in a spline chain, as the kernels check it
 
 
 class _Params(ctypes.Structure):
@@ -110,6 +110,9 @@ class _Params(ctypes.Structure):
         ("slot_b", ctypes.c_void_p),
         ("NS", ctypes.c_int),
         ("F", ctypes.c_int),
+        ("head_w_pad", ctypes.c_void_p),
+        ("head_ld", ctypes.c_int),
+        ("head_t_ld", ctypes.c_int),
     ]
 
 
@@ -132,7 +135,8 @@ class MNLEWeights:
     (H [+ F], T*S [+2]) and ``head_b`` the concatenated spline heads (and
     the affine head last, when cond_affine) — the JAX ``pack_mnle_weights``
     order. ``*_t`` are (out, in) copies read by the backward kernels, so
-    their transposed products read weights coalesced.
+    their transposed products read weights coalesced; K3p reads the head's
+    copies from ``padded_head``.
     """
 
     cat: list
@@ -180,6 +184,20 @@ class MNLEWeights:
             out += [W, b]
         return out + [self.head_w, self.head_b]
 
+    def padded_head(self) -> tuple:
+        """K3p's copies of the head weights: head_w (H + F, HO) and its
+        transpose (HO, H + F), each with zero columns appended up to a
+        multiple of 4 floats (16 bytes), so the tile product stages every
+        row by 16-byte copies. The padding is never read into an output."""
+
+        def pad(a):
+            cols = -(-a.shape[1] // 4) * 4
+            out = a.new_zeros((a.shape[0], cols))
+            out[:, : a.shape[1]] = a
+            return out
+
+        return pad(self.head_w), pad(self.head_w.t())
+
     def struct(self) -> _Params:
         """The ctypes struct of device pointers (built once; the tensors it
         points into are kept alive by this object)."""
@@ -195,9 +213,12 @@ class MNLEWeights:
                     getattr(p, f"{name}_w")[i] = Wc.data_ptr()
                     getattr(p, f"{name}_wt")[i] = Wt.data_ptr()
                     getattr(p, f"{name}_b")[i] = bc.data_ptr()
-            hw, hwt, hb = self.head_w.contiguous(), self.head_w.t().contiguous(), self.head_b.contiguous()
-            keep += [hw, hwt, hb]
+            hw, hb = self.head_w.contiguous(), self.head_b.contiguous()
+            # The pulse rep's transposed head is read by K3p only, padded; K2p reads head_w as it is.
+            hwp, hwt = self.padded_head() if self.pulse else (hw, self.head_w.t().contiguous())
+            keep += [hw, hwp, hwt, hb]
             p.head_w, p.head_wt, p.head_b = hw.data_ptr(), hwt.data_ptr(), hb.data_ptr()
+            p.head_w_pad, p.head_ld, p.head_t_ld = hwp.data_ptr(), hwp.shape[1], hwt.shape[1]
             if self.pulse:
                 sw, swt, sb = self.slot[0].contiguous(), self.slot[0].t().contiguous(), self.slot[1].contiguous()
                 keep += [sw, swt, sb]
@@ -432,6 +453,8 @@ def rows_logp_pulse_vjp(phi, oh, ctx, kf, kv, w: MNLEWeights, g):
     if not phi.is_cuda:
         return rows_logp_pulse_vjp_plain(phi, oh, ctx, kf, kv, w, g)
     N, p = _check_pulse_rows(phi, oh, ctx, kf, kv, w)
+    if p.K > 32:
+        raise ValueError(f"K3p holds one spline bin per lane of a warp: num_bins={p.K} > 32")
     check_cuda_tensor("g", g, (N,))
     dphi = torch.empty((N,), dtype=torch.float32, device=phi.device)
     dctx = torch.empty((N, p.D), dtype=torch.float32, device=phi.device)

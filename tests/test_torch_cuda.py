@@ -4,6 +4,7 @@ every test here is skipped; ``chip_smoke.py`` runs the same checks at the
 main path's full sizes.
 """
 
+import functools
 import shutil
 from pathlib import Path
 
@@ -11,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from sbi_for_diffusion_models_tpu_torch.mnle import load_model
 from sbi_for_diffusion_models_tpu_torch.nets.mnle_net import MNLEConfig, mnle_from_flax_params
 from sbi_for_diffusion_models_tpu_torch.ops import mnle_cuda as mc
 from sbi_for_diffusion_models_tpu_torch.ops.ceiling_cuda import FUSED_ULPS, K4, ceiling_chain, ceiling_plain, fma_tolerance
@@ -66,7 +68,7 @@ def test_k1_is_deterministic_per_seed_and_differs_across_seeds():
 
 
 def _small_estimator(**kw):
-    cfg = MNLEConfig(condition_dim=9, hidden_features=32, num_transforms=4, num_bins=8, **kw)
+    cfg = MNLEConfig(**{**dict(condition_dim=9, hidden_features=32, num_transforms=4, num_bins=8), **kw})
     rng = np.random.default_rng(0)
     H, C, D = cfg.hidden_features, cfg.num_categories, cfg.condition_dim
     S = 3 * cfg.num_bins + 1 if cfg.circular else 3 * cfg.num_bins - 1
@@ -125,49 +127,117 @@ def test_wrappers_reject_wrong_dtypes():
         mc.rows_logp(t, torch.zeros((4, 3), device=DEV), torch.zeros((4, 9), device=DEV), w)
 
 
-def test_k2p_k3p_match_their_plain_versions():
-    """K2p/K3p on a small pulse-grid model (1,000 rows, not a multiple of the
-    16-row tile; censored rows, phases at the clip edges and one slot index
-    past the last slot) against the plain version in float64 on the same
-    float32 inputs and weights."""
-    est = _small_estimator(rt_rep="pulse", censor_rt=True)
-    assert est.device.type == "cuda"
-    w = mc.pack_mnle_weights(est)
-    gen = torch.Generator(DEV).manual_seed(1)
-    n = 1000
+def _pulse_rows(n, seed=1):
+    """n rows of the small pulse-grid model; row i is special by i % 5:
+    the phase at either clip edge, the slot index past the last slot or
+    below the first (int(kv) outside [0, NS)), or a censored choice."""
+    gen = torch.Generator(DEV).manual_seed(seed)
     phi = torch.rand((n,), generator=gen, device=DEV)
-    phi[:2] = torch.tensor([1e-6, 1.0 - 1e-6], device=DEV)
     ctx = torch.randn((n, 9), generator=gen, device=DEV)
-    oh = torch.nn.functional.one_hot(torch.randint(0, 3, (n,), generator=gen, device=DEV), 3).float()
+    choice = torch.randint(0, 3, (n,), generator=gen, device=DEV)
     k = torch.randint(0, 80, (n,), generator=gen, device=DEV)
-    k[2] = 80
+    i = torch.arange(n, device=DEV) % 5
+    phi = torch.where(i == 0, 1e-6, torch.where(i == 1, 1.0 - 1e-6, phi))
+    k = torch.where(i == 2, 80, torch.where(i == 3, -1, k))
+    choice = torch.where(i == 4, 2, choice)  # the censored category
+    oh = torch.nn.functional.one_hot(choice, 3).float()
     ang = 2 * np.pi * torch.rand((n,), generator=gen, device=DEV)
     kf = torch.stack([(k + 0.5) / 80, torch.sin(ang), torch.cos(ang)], -1).contiguous()
-    kv = k.float()
     g = torch.randn((n,), generator=gen, device=DEV)
-    rows64 = [a.double() for a in (phi, oh, ctx, kf, kv)]
+    return (phi.contiguous(), oh, ctx, kf, k.float()), g
+
+
+@pytest.mark.parametrize("n", [1000, 1, 7, 8, 9, 17, 1201])
+def test_k2p_k3p_match_their_plain_versions(n):
+    """K2p/K3p on a small pulse-grid model against the plain version in
+    float64 on the same float32 inputs and weights, at row counts on either
+    side of K3p's 8-row tiles and K2p's 16-row tiles, with censored rows,
+    phases at the clip edges and slot indices outside the slots."""
+    est = _small_estimator(rt_rep="pulse", censor_rt=True)
+    assert est.device.type == "cuda" and est.cfg.censored_category == 2
+    w = mc.pack_mnle_weights(est)
+    rows, g = _pulse_rows(n)
     w64 = w.astype(torch.float64)
     before = (mc.K2P.launches, mc.K3P.launches)
-    val = mc.rows_logp_pulse(phi, oh, ctx, kf, kv, w).double()
-    ref = mc.rows_logp_pulse_plain(*rows64, w64)
+    val = mc.rows_logp_pulse(*rows, w).double()
+    ref = mc.rows_logp_pulse_plain(*[a.double() for a in rows], w64)
     assert float(((val - ref).abs() / ref.abs().clamp(min=1.0)).max()) <= 1e-4
-    grads = mc.rows_logp_pulse_vjp(phi, oh, ctx, kf, kv, w, g)
+    grads = mc.rows_logp_pulse_vjp(*rows, w, g)
     # Gradients row by row: each to 1e-3 x max(1, the row's largest |ref|),
     # with the row's float32 spread added where it exceeds that, on all but
     # 0.1 % of the rows (ops/rowcheck.py, as chip_smoke.py holds K3p), and
-    # on each of the rows at the clip edges and past the last slot.
-    rows = (phi, oh, ctx, kf, kv)
+    # on each of the first five rows (one of each special kind).
     refs, spreads = reference(lambda *a: mc.rows_logp_pulse_vjp_plain(*a[:-1], w64, a[-1]), rows, g, (2, 3))
     plains = mc.rows_logp_pulse_vjp_plain(*rows, w, g)
     for got, plain, want, spread in zip(grads, plains, refs, spreads):
         c = row_check(got, plain, want, spread, value=False)
-        assert c.ok and not bool(c.over[:3].any()), c
+        assert c.ok and not bool(c.over[:5].any()), c
+    # Censored rows: no phase or feature gradient, and finite context gradients.
+    cens = rows[1][:, 2] > 0
+    assert bool((grads[0][cens] == 0).all()) and bool((grads[2][cens] == 0).all())
+    assert all(bool(a.isfinite().all()) for a in grads)
     assert (mc.K2P.launches, mc.K3P.launches) == (before[0] + 1, before[1] + 1)
     # Autograd through the fused Function launches the same pair.
-    phi_ = phi.clone().requires_grad_(True)
-    out = mc.FusedPulseRowsLogProb.apply(phi_, oh, ctx, kf, kv, w)
+    phi_ = rows[0].clone().requires_grad_(True)
+    out = mc.FusedPulseRowsLogProb.apply(phi_, *rows[1:], w)
     (dphi,) = torch.autograd.grad(out, phi_, grad_outputs=g)
     torch.testing.assert_close(dphi, grads[0], rtol=0, atol=0)
+
+
+def test_k3p_rejects_more_than_32_bins():
+    """K3p holds a spline's bins on the lanes of one warp: 33 bins raise,
+    with no fallback to the plain version."""
+    est = _small_estimator(rt_rep="pulse", censor_rt=True, num_bins=33)
+    w = mc.pack_mnle_weights(est)
+    rows, g = _pulse_rows(16)
+    before = mc.K3P.launches
+    with pytest.raises(ValueError, match="num_bins=33"):
+        mc.rows_logp_pulse_vjp(*rows, w, g)
+    assert mc.K3P.launches == before
+
+
+# Written and held to JAX on the CPU by tests/test_torch_mnle.py.
+K3P_JAX_REFERENCE = Path(__file__).with_name("data") / "k3p_pulse_jax_vjp.npz"
+
+
+@functools.lru_cache(maxsize=None)
+def _k3p_jax_reference():
+    """The small "pulse_abs" estimator's weights on the card, its 1,201 rows
+    and cotangent, ``jax.vjp``'s gradients of the JAX row function
+    ``_rows_logp_pulse`` on them, and each row's float32 spread (the plain
+    version in float64, ``ops/rowcheck.py``)."""
+    est = load_model(str(K3P_JAX_REFERENCE), device=DEV)
+    with np.load(K3P_JAX_REFERENCE) as data:
+        rows = [torch.from_numpy(data[f"row:{k}"]).to(DEV) for k in ("phi", "onehot", "ctx", "kf", "kv", "g")]
+        refs = [data[f"jax:{k}"].astype(np.float64) for k in ("dphi", "dctx", "dkf")]
+    w = mc.pack_mnle_weights(est)
+    w64 = w.astype(torch.float64)
+    _, spreads = reference(lambda *a: mc.rows_logp_pulse_vjp_plain(*a[:-1], w64, a[-1]), rows[:5], rows[5], (2, 3))
+    return w, rows, refs, [a.cpu().numpy() for a in spreads]
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 17, 1000, 1201])
+def test_k3p_matches_jax_vjp_at_ragged_row_counts(n):
+    """K3p itself against ``jax.vjp`` of the JAX row function on the same
+    weights and rows as ``tests/test_torch_mnle.py`` holds its plain version
+    to, at counts on either side of its 8-row tiles, with censored rows,
+    phases at the clip edges and slot indices outside the slots: row by row
+    to 1e-4 of max(1, the row's largest |ref|) plus twice the row's spread
+    (the allowance rule of ``ops/rowcheck.py``)."""
+    w, rows, refs, spreads = _k3p_jax_reference()
+    rows = [a[:n].contiguous() for a in rows]
+    before = mc.K3P.launches
+    grads = mc.rows_logp_pulse_vjp(*rows[:5], w, rows[5])
+    assert mc.K3P.launches == before + 1
+    assert [tuple(a.shape) for a in grads] == [(n,), (n, 9), (n, 3)]
+    censored = (rows[1][:, 2] > 0).cpu().numpy()
+    for got, want, spread, what in zip(grads, refs, spreads, ("dphi", "dctx", "dkf")):
+        got = got.cpu().numpy().astype(np.float64)
+        if what != "dctx":
+            assert not got[censored].any(), f"{what}: a censored row has a gradient"
+        err = np.abs(got - want[:n]).reshape(n, -1).max(1)
+        allow = 1e-4 * np.maximum(1.0, np.abs(want[:n]).reshape(n, -1).max(1)) + 2.0 * spread[:n]
+        assert (err <= allow).all(), f"{what}: worst row {int((err / allow).argmax())} at {float((err / allow).max()):.3f}"
 
 
 @pytest.mark.parametrize("kind", ["fma", "transcendental"])

@@ -8,6 +8,9 @@ plain row function, so its plumbing is tested here too.
 """
 
 import functools
+import os
+import tempfile
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +26,7 @@ from sbi_for_diffusion_models_tpu_torch import mnle as tmnle
 from sbi_for_diffusion_models_tpu_torch.nets.mnle_net import MNLEConfig, mnle_from_flax_params
 from sbi_for_diffusion_models_tpu_torch.ops import _cuda
 from sbi_for_diffusion_models_tpu_torch.ops import mnle_cuda as tk
+from sbi_for_diffusion_models_tpu_torch.ops.rowcheck import reference
 
 SMALL = dict(hidden_features=32, num_transforms=4, num_bins=8)
 VARIANTS = {
@@ -279,6 +283,132 @@ def test_k3_wrapper_matches_jax_at_ragged_row_counts(n):
         assert err <= 1e-4 * max(1.0, float(np.abs(want).max())), f"{what}: max abs error {err:.3e}"
 
 
+@functools.lru_cache(maxsize=None)
+def _ragged_pulse_rows_and_jax_vjp(n_max=1201):
+    """n_max rows of the "pulse_abs" estimator with a cotangent, and
+    ``jax.vjp`` of the JAX row function ``_rows_logp_pulse`` on them (w.r.t.
+    phi, ctx and kf). Row i is special by i % 5: the phase at either clip
+    edge, the slot index past the last slot or below the first, or a
+    censored choice."""
+    jest = _jax_est_cached("pulse_abs")
+    cfg = jest.cfg
+    NS = cfg.num_pulse_slots
+    rng = np.random.default_rng(7)
+    i = np.arange(n_max) % 5
+    phi = np.where(i == 0, 1e-6, np.where(i == 1, 1.0 - 1e-6, rng.uniform(0, 1, n_max))).astype(np.float32)
+    choice = np.where(i == 4, cfg.censored_category, rng.integers(0, 3, n_max))
+    oh = np.eye(3, dtype=np.float32)[choice]
+    ctx = rng.normal(size=(n_max, 9)).astype(np.float32)
+    k = np.where(i == 2, NS, np.where(i == 3, -1, rng.integers(0, NS, n_max)))
+    ang = 2 * np.pi * rng.uniform(0, 1, n_max)
+    kf = np.stack([(k + 0.5) / NS, np.sin(ang), np.cos(ang)], -1).astype(np.float32)
+    kv = k.astype(np.float32)
+    g = rng.normal(size=n_max).astype(np.float32)
+    kw = dict(n_layers=cfg.trunk_depth + 1, num_transforms=cfg.num_transforms, num_bins=cfg.num_bins,
+              num_slots=NS, censored_col=cfg.censored_category)
+    jw = jpallas.pack_mnle_weights(jest)
+    f = lambda a, b, c: jpallas._rows_logp_pulse(a, jnp.asarray(oh), b, c, jnp.asarray(kv), jw, **kw)  # noqa: E731
+    _, vjp = jax.vjp(f, *map(jnp.asarray, (phi, ctx, kf)))
+    # Each row's float32 conditioning: how far the exact gradients move under
+    # an input change of a few ulps (ops/rowcheck.py, the plain version in float64).
+    w64 = tk.pack_mnle_weights(_port(jest)).astype(torch.float64)
+    rows = tuple(map(torch.from_numpy, (phi, oh, ctx, kf, kv)))
+    _, spread = reference(lambda *a: tk.rows_logp_pulse_vjp_plain(*a[:-1], w64, a[-1]), rows,
+                          torch.from_numpy(g), (2, 3))
+    return (phi, oh, ctx, kf, kv, g), [np.asarray(a) for a in vjp(jnp.asarray(g))], [a.numpy() for a in spread]
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 17, 1000, 1201])
+def test_k3p_wrapper_matches_jax_at_ragged_row_counts(n):
+    """K3p's wrapper on CPU rows at counts on either side of its 8-row
+    tiles: it takes the plain version without a launch, and that matches
+    ``jax.vjp`` of the JAX row function ``_rows_logp_pulse`` on the same
+    packed weights, with censored rows, phases at the clip edges and slot
+    indices outside the slots. The kernel itself is held to the same
+    ``jax.vjp`` results on the card, through ``K3P_JAX_REFERENCE``
+    (``tests/test_torch_cuda.py``)."""
+    rows, refs, spreads = ([a[:n] for a in part] for part in _ragged_pulse_rows_and_jax_vjp())
+    phi, oh, ctx, kf, kv, g = rows
+    w = tk.pack_mnle_weights(_port(_jax_est_cached("pulse_abs")))
+    before = {k: v.launches for k, v in _cuda.KERNELS.items()}
+    grads = tk.rows_logp_pulse_vjp(*map(torch.from_numpy, (phi, oh, ctx, kf, kv)), w, torch.from_numpy(g))
+    assert {k: v.launches for k, v in _cuda.KERNELS.items()} == before
+    assert [tuple(a.shape) for a in grads] == [(n,), (n, 9), (n, 3)]
+    censored = oh[:, 2] > 0
+    assert not grads[0].numpy()[censored].any() and not grads[2].numpy()[censored].any()
+    # Row by row to 1e-4 of max(1, the row's largest |ref|), plus twice the
+    # row's spread on steep rows, where the two float32 versions round apart
+    # (the allowance rule of ops/rowcheck.py).
+    for got, want, spread, what in zip(grads, refs, spreads, ("dphi", "dctx", "dkf")):
+        err = np.abs(got.numpy().astype(np.float64) - want).reshape(n, -1).max(1)
+        allow = 1e-4 * np.maximum(1.0, np.abs(want).reshape(n, -1).max(1)) + 2.0 * spread
+        assert (err <= allow).all(), f"{what}: worst row {int((err / allow).argmax())} at {float((err / allow).max()):.3f}"
+
+
+# The small "pulse_abs" estimator in the ``save_model`` layout, with the rows
+# of ``_ragged_pulse_rows_and_jax_vjp`` ("row:<name>") and ``jax.vjp``'s
+# gradients on them ("jax:<name>"): the card has no JAX, so the card test
+# of K3p reads them from here. Rewritten by running this file as a script.
+K3P_JAX_REFERENCE = Path(__file__).with_name("data") / "k3p_pulse_jax_vjp.npz"
+K3P_ROWS = ("phi", "onehot", "ctx", "kf", "kv", "g")
+K3P_GRADS = ("dphi", "dctx", "dkf")
+
+
+def write_k3p_jax_reference(path=K3P_JAX_REFERENCE):
+    rows, refs, _ = _ragged_pulse_rows_and_jax_vjp()
+    with tempfile.TemporaryDirectory() as d:
+        os.environ["MODEL_DIR"] = d
+        with np.load(tmnle.save_model(_port(_jax_est_cached("pulse_abs")), None, "model.npz")) as m:
+            model = dict(m)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **model, **{f"row:{k}": a for k, a in zip(K3P_ROWS, rows)},
+             **{f"jax:{k}": a for k, a in zip(K3P_GRADS, refs)})
+
+
+def test_k3p_jax_reference_file_is_what_jax_gives_now():
+    """``K3P_JAX_REFERENCE`` loads to the small "pulse_abs" estimator's
+    weights, and holds the rows and the ``jax.vjp`` gradients that JAX
+    gives on them now: row by row to 1e-6 of max(1, the row's largest
+    |ref|) plus the row's float32 spread, for XLA on another CPU may round
+    steep rows apart."""
+    est = tmnle.load_model(str(K3P_JAX_REFERENCE), device="cpu")
+    now = _port(_jax_est_cached("pulse_abs"))
+    for a, b in zip(tk.pack_mnle_weights(est).as_list(), tk.pack_mnle_weights(now).as_list()):
+        assert torch.equal(a, b)
+    assert est.cfg == now.cfg
+    rows, refs, spreads = _ragged_pulse_rows_and_jax_vjp()
+    with np.load(K3P_JAX_REFERENCE) as data:
+        for name, a in zip(K3P_ROWS, rows):
+            np.testing.assert_array_equal(data[f"row:{name}"], a)
+        for name, want, spread in zip(K3P_GRADS, refs, spreads):
+            got = data[f"jax:{name}"]
+            assert got.shape == want.shape and got.dtype == np.float32
+            err = np.abs(got.astype(np.float64) - want).reshape(len(got), -1).max(1)
+            allow = 1e-6 * np.maximum(1.0, np.abs(want).reshape(len(got), -1).max(1)) + spread
+            assert (err <= allow).all(), f"{name}: worst row {int((err / allow).argmax())}"
+
+
+@pytest.mark.parametrize("model", ["small", "committed"])
+def test_k3p_padded_head_copies_equal_the_head_with_zero_padding(model, request):
+    """K3p's copies of the head weights (``MNLEWeights.padded_head``): rows
+    padded with zero columns to a multiple of 4 floats, the head (and its
+    transpose) unchanged in the other columns; the committed pulse model's
+    730 and 131 columns become 732 and 132."""
+    if model == "small":
+        est = _port(_jax_est_cached("pulse_abs"))
+    else:
+        est = request.getfixturevalue("pulse_model")[1]
+    w = tk.pack_mnle_weights(est)
+    hw, hwt = w.padded_head()
+    HF, HO = w.head_w.shape
+    if model == "committed":
+        assert (HF, HO) == (131, 730) and hw.shape == (131, 732) and hwt.shape == (730, 132)
+    assert hw.shape[1] % 4 == 0 and hwt.shape[1] % 4 == 0
+    assert hw.shape[1] - HO < 4 and hwt.shape[1] - HF < 4
+    assert torch.equal(hw[:, :HO], w.head_w) and torch.equal(hwt[:, :HF], w.head_w.t())
+    assert not hw[:, HO:].any() and not hwt[:, HF:].any()
+
+
 @pytest.fixture(scope="module")
 def flagship(request):
     mp = pytest.MonkeyPatch()
@@ -382,3 +512,9 @@ def _hold_committed_model_to_jax(jest, est, kernel):
 
     assert val_err(t32_v) <= max(1e-4, 2 * val_err(j32_v)), (val_err(t32_v), val_err(j32_v))
     assert grad_err(t32_g) <= max(1e-3, 2 * grad_err(j32_g)), (grad_err(t32_g), grad_err(j32_g))
+
+
+if __name__ == "__main__":
+    # JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_mnle.py rewrites K3P_JAX_REFERENCE.
+    write_k3p_jax_reference()
+    print(f"wrote {K3P_JAX_REFERENCE}")

@@ -192,7 +192,7 @@ def test_grid_hop_moves_by_grid_multiples_and_stays_in_support():
     assert len(torch.unique(theta[:, 1].round(decimals=2))) >= 5  # the hop visits other modes
 
 
-def test_mcmc_posterior_plain_nuts_on_gaussian_and_slice_raises():
+def test_mcmc_posterior_plain_nuts_and_slice_on_gaussian():
     from sbi_for_diffusion_models_tpu_torch.distributions import Distribution
 
     class Flat(Distribution):
@@ -214,8 +214,12 @@ def test_mcmc_posterior_plain_nuts_on_gaussian_and_slice_raises():
     assert s.shape == (400, 2)
     assert torch.allclose(s.mean(0), MEAN, atol=0.25)
     assert set(post.last_info) >= {"accept_prob", "diverging", "step_size", "inv_mass"}
-    with pytest.raises(NotImplementedError, match="slice"):
-        tm.MCMCPosterior(Pot(), Flat(), Bijector(Flat().supports()), method="slice", device="cpu")
+    post = tm.MCMCPosterior(Pot(), Flat(), Bijector(Flat().supports()), method="slice", num_chains=4,
+                            warmup_steps=100, verbose=False, device="cpu")
+    s = post.sample((400,), seed=2)
+    assert s.shape == (400, 2)
+    assert torch.allclose(s.mean(0), MEAN, atol=0.25)
+    assert set(post.last_info) >= {"accept_prob", "width"}
 
 
 def _tiny_estimator(pulse: bool):
