@@ -20,9 +20,12 @@ port's paths once each through their public entry points:
    max(1, the row's largest |ref|) against the plain version in float64,
    with an allowance on rows where float32 cannot resolve the function and
    a limit on the share of rows over their allowance (see ``phase_k2k3``);
+   the value K3 writes beside its gradients is held the same way and must
+   equal K2's bit for bit on every row;
 4. K2p/K3p against their plain version on the committed pulse-grid model
    (``artifacts/models/mnle_1m_pulseabs.npz``, absolute anchor) at the same
-   two sizes, held the same way (values, dphi, dctx and dkf);
+   two sizes, held the same way (K2p's and K3p's values, bit-equal, dphi,
+   dctx and dkf);
 5. K4, both kinds, at chains of 64 and 1,024 steps against its plain version
    in float64 (``phase_k4``), then the roofline path: the entry point
    ``roofline.main`` times K4 at its full shape (2,097,152 elements, chains
@@ -35,10 +38,12 @@ port's paths once each through their public entry points:
 6. the flagship path: simulate 131,072 training pairs, an observed 50-trial
    session, load the flagship model and sample its posterior with the
    calibrated sampler (PT6 NUTS, grid hop, t_nd slice; warmup and draws cut
-   to 50 and 100). K1, K2 and K3 must have launched during this phase;
+   to SERVE_WARMUP and SERVE_DRAWS). K1, K2 and K3 must have launched during this phase, and
+   K2 less than 5 % as often as K3 (a gradient call launches K3 alone; K2
+   serves the value-only calls of the grid hop and the t_nd slice);
 7. the pulse path: the same observed session, the pulse-grid model loaded
    and sampled by the same sampler at the same cut. K2p and K3p must have
-   launched during this phase;
+   launched during this phase, K2p less than 5 % as often as K3p;
 8. the slice path: the same observed session and the flagship model
    sampled by the slice sampler (``MCMC_METHOD="slice"``, no extra moves,
    no tempering, which is NUTS-only; 24 chains, so each density call has
@@ -52,7 +57,8 @@ port's paths once each through their public entry points:
    fingerprint), and ``run_inference_mcmc`` with the loaded model on the
    observed session (warmup 20 / draws 20). The validation loss must be
    finite at every epoch and end at least TRAIN_MIN_DROP below the first
-   epoch's; K2 and K3 must have launched. Then K2/K3 on the trained model
+   epoch's; K2 and K3 must have launched, K2 less than 5 % as often as K3.
+   Then K2/K3 on the trained model
    against their plain version at 1,200 and 115,200 rows, held as in
    phase 3, and one more epoch under ``torch.profiler`` for the card's busy
    share of an optimizer step.
@@ -66,8 +72,9 @@ computes any of these kernels, so ``library_ms`` is null.
 Run from the root of a checkout: ``python3 chip_smoke.py`` (one CUDA card,
 ``nvcc`` under /usr/local/cuda or on PATH). The last line of its output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels with
-their launches, errors, times and bounds (K3's and K3p's also with their
-tile height and ptxas's registers, stack and spills). Any failed check
+their launches, errors, times and bounds (the four fused kernels' also with
+their tile height and ptxas's registers, stack and spills; a spill fails
+the run). Any failed check
 raises, and the script exits non-zero without that line. There is no CPU fallback: without
 a CUDA card the script exits with status 2.
 """
@@ -100,6 +107,9 @@ TRAIN_EPOCHS = 10  # the training path's cut of TRAIN_MAX_EPOCHS (and of the pat
 TRAIN_MIN_DROP = 0.5  # nats the last validation loss must lie below the first epoch's
 K4_SHAPE = (64, 256, 128)  # the roofline path's K4 input: 2,097,152 float32 elements
 SLICE_WARMUP, SLICE_DRAWS = 20, 240  # the slice path's cut (24 chains: 10 draws each)
+# The flagship and pulse paths' cut: the whole script took 767.1 s on the H100 at warmup 50 / draws 100 on a host
+# at 3.6 ms a batched call; this keeps it near half its 1200 s limit there.
+SERVE_WARMUP, SERVE_DRAWS = 30, 60
 
 
 def _log(*args) -> None:
@@ -160,7 +170,7 @@ def mnle_bound(w, n: int, backward: bool) -> tuple[float, str]:
     matrices transposed; the first layers only to the D context columns; no
     weight gradients). The per-row softmaxes and splines are not counted.
     Bytes: the packed weights once, the row inputs, the cotangent and the
-    outputs."""
+    outputs (the backward kernel's: the value and the gradients)."""
     from sbi_for_diffusion_models_tpu_torch.roofline import mnle_layer_shapes
 
     D = w.cat[0][0].shape[0]
@@ -173,7 +183,7 @@ def mnle_bound(w, n: int, backward: bool) -> tuple[float, str]:
         macs += sum((D if i in first else a) * b for i, (a, b) in enumerate(layers))
     C, F = w.cat[-1][0].shape[1], HF - H
     row_in = (1 + C + D + F + (1 if w.pulse else 0)) * 4
-    row_out = (1 + D + F) * 4 if backward else 4
+    row_out = (2 + D + F) * 4 if backward else 4
     nbytes = 4 * sum(a.numel() for a in w.as_list()) + n * (row_in + row_out + (4 if backward else 0))
     return _bound(2.0 * macs * n, nbytes)
 
@@ -315,7 +325,7 @@ def _check_against_reference(label, names, kern, plain, ref, spread, n) -> None:
 
     failed = []
     for i, name in enumerate(names):
-        c = row_check(kern[i], plain[i], ref[i], spread[i], value=i == 0)
+        c = row_check(kern[i], plain[i], ref[i], spread[i], value=name.startswith("value"))
         r = c.worst_row
         col = int((kern[i][r].double() - ref[i][r]).abs().reshape(-1).argmax())
         at = [float(x[r].reshape(-1)[col]) for x in (kern[i], plain[i], ref[i])]
@@ -337,7 +347,10 @@ def _phase_fused(device, model_file, fwd, bwd, sizes, model_dir=MODEL_DIR) -> di
     """A fused forward/backward pair against its plain versions on the
     model ``model_dir/model_file`` (default: the committed models), at each
     row count of ``sizes``. ``fwd``/``bwd`` are (label, kernel wrapper,
-    plain version)."""
+    plain version); the backward's wrapper returns the value and the
+    gradients, its plain version the gradients. The backward kernel's value
+    must equal the forward kernel's on every row, and each is held to
+    float64 as the gradients are."""
     import torch
 
     from sbi_for_diffusion_models_tpu_torch.mnle import load_model
@@ -357,17 +370,28 @@ def _phase_fused(device, model_file, fwd, bwd, sizes, model_dir=MODEL_DIR) -> di
         rows = tuple(a[:n].contiguous() for a in session_rows(est, prior, device, -(-n // ROWS_MAIN)))
         g = torch.randn(rows[0].shape, generator=torch.Generator(device).manual_seed(5), device=device)
         kern = (f_kernel(*rows, w32), *b_kernel(*rows, w32, g))
-        plain = (f_plain(*rows, w32), *b_plain(*rows, w32, g))
+        value = f_plain(*rows, w32)
+        plain = (value, value, *b_plain(*rows, w32, g))
+        n_equal = int((kern[1] == kern[0]).sum())
+        _log(f"[{f_label}/{b_label}] n={n}: {b_label}'s value has {f_label}'s bits on {n_equal} of {n} rows")
+        if n_equal != n:
+            raise AssertionError(f"{b_label}'s value differs from {f_label}'s on {n - n_equal} of {n} rows")
+
+        def run64(*a):
+            v = f_plain(*a[:-1], w64)
+            return (v, v, *b_plain(*a[:-1], w64, a[-1]))
+
         continuous = (2, 3) if w32.pulse else (2,)  # ctx (and kf); never the one-hot or the slot index
-        ref, spread = reference(
-            lambda *a: (f_plain(*a[:-1], w64), *b_plain(*a[:-1], w64, a[-1])), rows, g, continuous)
-        _check_against_reference(f"{f_label}/{b_label}", ("value",) + grad_names, kern, plain, ref, spread, n)
+        ref, spread = reference(run64, rows, g, continuous)
+        _check_against_reference(f"{f_label}/{b_label}", (f"value ({f_label})", f"value ({b_label})") + grad_names,
+                                 kern, plain, ref, spread, n)
         reps = 20 if n <= ROWS_MAIN else 5
         times = {
             f_label: (_time_ms(lambda: f_kernel(*rows, w32), reps, device),
                       _time_ms(lambda: f_plain(*rows, w32), reps, device), *mnle_bound(w32, n, False)),
             b_label: (_time_ms(lambda: b_kernel(*rows, w32, g), reps, device),
-                      _time_ms(lambda: b_plain(*rows, w32, g), reps, device), *mnle_bound(w32, n, True)),
+                      _time_ms(lambda: (f_plain(*rows, w32), b_plain(*rows, w32, g)), reps, device),
+                      *mnle_bound(w32, n, True)),
         }
         for name, (k_ms, p_ms, b_ms, b_by) in times.items():
             _log(f"[{name}] time n={n}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.4g} ({b_by}, "
@@ -381,7 +405,8 @@ def _phase_fused(device, model_file, fwd, bwd, sizes, model_dir=MODEL_DIR) -> di
 
 
 def phase_k2k3(device, sizes=(ROWS_MAIN, ROWS_SBC), model_file=MODEL_FILE, model_dir=MODEL_DIR) -> dict:
-    """K2/K3 against their plain version on the same rows.
+    """K2/K3 against their plain version on the same rows; K3's value is
+    K2's, bit for bit.
 
     The reference is the plain version run in float64 on the kernels'
     float32 inputs and weights. Each row is held to the stated tolerance
@@ -399,17 +424,17 @@ def phase_k2k3(device, sizes=(ROWS_MAIN, ROWS_SBC), model_file=MODEL_FILE, model
     from sbi_for_diffusion_models_tpu_torch.ops import mnle_cuda as mc
 
     return _phase_fused(device, model_file, ("K2", mc.rows_logp, mc.rows_logp_plain),
-                        ("K3", mc.rows_logp_vjp, mc.rows_logp_vjp_plain), sizes, model_dir)
+                        ("K3", mc.rows_logp_and_vjp, mc.rows_logp_vjp_plain), sizes, model_dir)
 
 
 def phase_k2pk3p(device, sizes=(ROWS_MAIN, ROWS_SBC)) -> dict:
     """K2p/K3p against their plain version on the pulse-grid model, held as
-    K2/K3 are (``phase_k2k3``) over the value and dphi, dctx and dkf."""
+    K2/K3 are (``phase_k2k3``) over the values and dphi, dctx and dkf."""
     from sbi_for_diffusion_models_tpu_torch.ops import mnle_cuda as mc
 
     return _phase_fused(device, PULSE_MODEL_FILE,
                         ("K2p", mc.rows_logp_pulse, mc.rows_logp_pulse_plain),
-                        ("K3p", mc.rows_logp_pulse_vjp, mc.rows_logp_pulse_vjp_plain), sizes)
+                        ("K3p", mc.rows_logp_pulse_and_vjp, mc.rows_logp_pulse_vjp_plain), sizes)
 
 
 def _sample_posterior(label, device, model_file, prior, x_o, pulses_o, warmup: int, draws: int,
@@ -474,6 +499,16 @@ def _observed_session(device):
     return prior, x_o, pulses_o
 
 
+def _forward_share(label, launches, fwd: str, bwd: str) -> None:
+    """Fail unless the forward kernel ``fwd`` launched less than 5 % as
+    often as the backward ``bwd`` on the path: a gradient call launches the
+    backward kernel alone, which writes the value too."""
+    share = launches[fwd] / launches[bwd]
+    _log(f"[{label}] {fwd} launches / {bwd} launches = {launches[fwd]} / {launches[bwd]} = {share:.4f} (limit 0.05)")
+    if not share < 0.05:
+        raise AssertionError(f"{label}: {fwd} launched {launches[fwd]} times against {bwd}'s {launches[bwd]}")
+
+
 def _launches_on(label, required, run) -> tuple:
     """Run ``run()`` with every kernel's count set to 0 just before and read
     just after; fail unless each kernel in ``required`` launched."""
@@ -490,7 +525,7 @@ def _launches_on(label, required, run) -> tuple:
     return result, launches
 
 
-def phase_main(device, n_sim: int = N_SIM, warmup: int = 50, draws: int = 100) -> dict:
+def phase_main(device, n_sim: int = N_SIM, warmup: int = SERVE_WARMUP, draws: int = SERVE_DRAWS) -> dict:
     """The flagship serving path through its public entry points: simulate
     a training set and the observed session (K1), load the flagship model
     and sample its posterior (K2/K3 at every gradient). The simulated pairs
@@ -529,10 +564,11 @@ def phase_main(device, n_sim: int = N_SIM, warmup: int = 50, draws: int = 100) -
 
     (walls, proposal, z, x), launches = _launches_on(
         "main", ("ddm_rt_choice", "mnle_logprob_fwd", "mnle_logprob_bwd"), run)
+    _forward_share("main", launches, "mnle_logprob_fwd", "mnle_logprob_bwd")
     return {"walls": walls, "launches": launches, "proposal": proposal, "z": z, "x": x}
 
 
-def phase_pulse(device, warmup: int = 50, draws: int = 100) -> dict:
+def phase_pulse(device, warmup: int = SERVE_WARMUP, draws: int = SERVE_DRAWS) -> dict:
     """The pulse-grid serving path: the same observed session, the
     committed pulse-grid model loaded and sampled by the same sampler
     (K2p/K3p at every gradient)."""
@@ -546,6 +582,7 @@ def phase_pulse(device, warmup: int = 50, draws: int = 100) -> dict:
         return walls
 
     walls, launches = _launches_on("pulse", ("mnle_pulse_fwd", "mnle_pulse_bwd"), run)
+    _forward_share("pulse", launches, "mnle_pulse_fwd", "mnle_pulse_bwd")
     return {"walls": walls, "launches": launches}
 
 
@@ -844,6 +881,7 @@ def phase_train(device, proposal, z, x, warmup: int = 20, draws: int = 20) -> di
             return walls, meta
 
         (walls, meta), launches = _launches_on("train", ("mnle_logprob_fwd", "mnle_logprob_bwd"), run)
+        _forward_share("train", launches, "mnle_logprob_fwd", "mnle_logprob_bwd")
         # After the counts are read: comparison launches do not count.
         check = phase_k2k3(device, model_file=model_file, model_dir=model_dir)
     _train_epoch_device_time(cfg, proposal, z, x, meta["step_ms"])
@@ -926,14 +964,17 @@ def main() -> int:
             "launches": path["launches"][kname], "max_abs_err": fused[label]["max_abs_err"], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
-    # K3's and K3p's tile height, as the source they were built from defines it, and ptxas's report of each build.
+    # The fused kernels' tile height, as the source they were built from defines it, and ptxas's report of each
+    # build; a spill fails the run.
     tile_rows = int(re.search(r"#define TILE_ROWS (\d+)", (ROOT / src / "mnle_tile.cuh").read_text())[1])
     for k in kernels:
-        if k["name"] in ("mnle_logprob_bwd", "mnle_pulse_bwd"):
+        if k["name"].startswith("mnle_"):
             found = [v for e, v in ptxas.items() if f"{k['name']}_kernel" in e]
             if len(found) != 1:
                 raise AssertionError(f"ptxas reported {len(found)} builds of {k['name']}, expected one: {sorted(ptxas)}")
             k["rows_per_block"], k["ptxas"] = tile_rows, found[0]
+            if found[0].get("spill_stores", 0) or found[0].get("spill_loads", 0):
+                raise AssertionError(f"{k['name']} spills registers: {found[0]}")
     kernels.append({
         "name": "issue_ceiling", "route": "cuda", "source": f"{src}/issue_ceiling.cu",
         "replaces": "benchmarks/roofline.py:105", "launches": roof["launches"]["issue_ceiling"],

@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
-"""Plant known faults in K3 and K3p and show that ``chip_smoke.py``'s
-kernel checks fail on each of them.
+"""Plant known faults in the fused MNLE kernels (K2/K3, K2p/K3p) and show
+that ``chip_smoke.py``'s kernel checks fail on each of them.
 
 For the unchanged source and for each fault in FAULTS, the script copies the
 port's package, ``chip_smoke.py`` and the committed models into a temporary
 directory, makes the fault's one text replacement in the copy of the
 fault's kernel file, and runs the fault's check there (the copy builds its
-own kernels): ``chip_smoke.phase_k2k3`` for K3 (``csrc/mnle_logprob.cu``,
+own kernels): ``chip_smoke.phase_k2k3`` for K2/K3 (``csrc/mnle_logprob.cu``,
 with the tile product of ``csrc/mnle_tile.cuh``), ``chip_smoke.phase_k2pk3p``
-for K3p (``csrc/mnle_pulse.cu``), at 1,200 and at 115,200 rows, each size on
-its own. The unchanged source runs both checks. It prints the checks' lines
+for K2p/K3p (``csrc/mnle_pulse.cu``), at 1,200 and at 115,200 rows, each
+size on its own. The unchanged source runs both checks. It prints the checks' lines
 for each run, then one JSON object as the last line: per fault and size,
 "passed" or "failed". It exits with 0 only if the unchanged source passes
 every check at both sizes and every fault fails at both.
@@ -45,9 +45,21 @@ FAULTS = {
     # K3's tile product leaves out the ragged last chunk of k (in_w not a multiple of 32).
     "k3_tile_drops_ragged_k": (TILE_FILE, "phase_k2k3", "return k0 + TILE_KC >= in_w;",
                                "return k0 + 2 * TILE_KC > in_w;"),
+    # K3: the value it writes beside its gradients leaves out the categorical term.
+    "k3_value_skips_categorical": (K3_FILE, "phase_k2k3", "if (lane == 0) out[row] = lp;",
+                                   "if (lane == 0) out[row] = lp - cat_logprob_strided(logits + r, ohr, R, p.C);"),
+    # K2 (and K3, one warp_find_bin): the ballot's bin is one above the first whose upper knot exceeds z.
+    "k2_ballot_off_by_one": (K3_FILE, "phase_k2k3", "b.k = below != 0u ? __ffs(below) - 1 : K - 1;",
+                             "b.k = below != 0u ? __ffs(below) : K - 1;"),
+    # K2p (and K3p, one product list): the padded head is read with the unpadded leading dimension HO, not head_ld.
+    "k2p_head_unpadded_ld": (K3P_FILE, "phase_k2pk3p", "case 1: return {p.head_w, p.head_b, p.head_ld, H + p.F,",
+                             "case 1: return {p.head_w, p.head_b, p.HO, H + p.F,"),
+    # K2p (and K3p's value): the slot head's log-softmax picks the logit of the next slot.
+    "k2p_slot_logit_off_by_one": (K3P_FILE, "phase_k2pk3p", "return sl[ki * ld] - mx - logf(s.slot_sum);",
+                                  "return sl[min(ki + 1, NS - 1) * ld] - mx - logf(s.slot_sum);"),
     # K3p: d emb loses the slot head's term (the slot logits' gradient is zeroed, as for a slot outside the head).
-    "no_slot_head_backward": (K3P_FILE, "phase_k2pk3p", "warp_slot_grad(slot + r, R, p.NS, kv[row], gm, lane);",
-                              "warp_slot_grad(slot + r, R, p.NS, -1.0f, gm, lane);"),
+    "no_slot_head_backward": (K3P_FILE, "phase_k2pk3p", "warp_slot_grad(slot + r, R, p.NS, kv[row], gm, s, lane);",
+                              "warp_slot_grad(slot + r, R, p.NS, -1.0f, gm, s, lane);"),
     # K3p: d kf is written as zeros.
     "zero_dkf": (K3P_FILE, "phase_k2pk3p", "dkf[(size_t)(row0 + r) * p.F + f] = dkf_s[f * R + r];",
                  "dkf[(size_t)(row0 + r) * p.F + f] = 0.0f;"),

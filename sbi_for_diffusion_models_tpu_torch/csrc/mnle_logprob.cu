@@ -12,8 +12,9 @@
 //   splines on [-B, B] with identity tails, then the standard normal base;
 //   out = cat_lp + m (log_det + base), m = 1 - oh[censored] when the model
 //   censors (rows with m = 0 skip the flow and take cat_lp alone).
-// K3 recomputes that forward for a tile of rows and pulls a cotangent g back
-// to dt (N) and dctx (N, D). It gives no weight gradients.
+// K3 recomputes that forward for a tile of rows, writes the value as K2
+// does, and pulls a cotangent g back to dt (N) and dctx (N, D). It gives no
+// weight gradients.
 //
 // What bounds them on the card: the matrix products. A row costs about
 // 2*(D*H + H*H + H*C + (D+C)*H + 2*H*H + H*HO) = 0.33 MFLOP forward (D = 85,
@@ -24,48 +25,40 @@
 // how many SMs have work at all. The spline chain is a serial walk of
 // 10 x 24 bins per row and costs little beside the products.
 //
-// Design of K2, simple first:
-// - One block of 128 threads per tile of ROWS = 16 rows. The tile's
-//   activations live in shared memory. In a product, thread j computes
-//   output unit j for all 16 rows (16 accumulators in registers), streams
-//   column j of W (in, out) from global memory/L2 (coalesced across j:
-//   neighbouring threads read neighbouring columns) and reads the
-//   activations as shared-memory broadcasts.
-// - The per-row work (log-softmax, the affine layer, the spline chain) runs
-//   one thread per row on the row's slice of the head output in shared
-//   memory (16 x 712 x 4 B = 45 KB). A spline finds its bin by walking the
-//   cumulative widths once; knots are not stored. The bin rule is that of
-//   the JAX masked lookup: z == knot[j+1] falls in bin j+1 and the top edge
-//   in bin K-1.
-//
-// Design of K3, for the H100 (the 16-row, 128-thread design above left half
-// the SMs without a block at the main path's 1,200 rows, kept one warp per
-// scheduler with nothing to hide the weights' L2 latency, issued a
-// shared-memory load per FMA and ran the spline phase on 16 of 128 threads):
+// Design, for the H100. (The first design of both kernels ran 16-row tiles
+// on 128 threads: it left 57 of the 132 SMs without a block at the main
+// path's 1,200 rows, kept one warp per scheduler with nothing to hide the
+// weights' L2 latency, issued a shared-memory load per FMA and ran the
+// per-row phase on 16 of 128 threads.)
 // - Tiles of TILE_ROWS = 8 rows on 256 threads (150 blocks at 1,200 rows).
 //   Every product runs through tile_dense (mnle_tile.cuh): weights staged
 //   by cp.async, double-buffered, activations k-major, register
-//   micro-tiles, and dense's summation order, so the products give dense's
-//   bits. The backward products multiply by W^T and stage the (out, in)
-//   copies the wrapper packs, so their rows are contiguous too.
+//   micro-tiles, one fixed summation order. The backward products multiply
+//   by W^T and stage the (out, in) copies the wrapper packs, so their rows
+//   are contiguous too.
+// - K2 runs the forward products (K2Products: K3Products' first 2L + 1)
+//   through two hidden buffers in turn: 66,656 B of shared memory at the
+//   flagship's widths, three blocks an SM. K3 runs the same products first
+//   and keeps every layer's activation (ReLU masks) for its backward:
+//   89,856 B, two blocks an SM.
 // - The per-row phase runs one warp per row, lane i on bin i (K <= 32): the
 //   softmax max and normalizers by shuffles (the sums in double), the knots
 //   by an inclusive warp scan in double rounded once each, the bin by a
-//   ballot, the softmax VJP by a shuffle reduction. Each transform's bin and
-//   softmax weights are found once, in the forward recompute, and kept for
-//   the backward (the bin in the registers of lane `transform`, the weights
-//   over the transform's width and height parameters). The chain over the
-//   transforms stays serial. (Finding every transform's softmaxes and knots
-//   first, four at a time with their shuffle chains interleaved, was slower
-//   on the H100.)
-// - K3 keeps every layer's activation of the tile (ReLU masks). The spline
-//   backward overwrites each transform's parameters with their gradients in
-//   place, and those gradients flow back through the head, trunk and
-//   categorical products. Shared memory at the flagship's widths: 89,856 B,
-//   so two blocks fit on an SM.
+//   ballot; the bin rule is that of the JAX masked lookup (z == knot[j+1]
+//   falls in bin j+1, the top edge in bin K-1). One function, warp_row_logp,
+//   computes a row's value from the tile's logits and head output, and K2
+//   and K3 both call it on the same products' bits, so K3's value equals
+//   K2's bit for bit: a gradient call launches K3 alone. K3 keeps each
+//   transform's bin and input in the registers of lane `transform`, and its
+//   softmax weights over the transform's width and height parameters, for
+//   the backward, which overwrites the parameters with their gradients in
+//   place; those flow back through the head, trunk and categorical
+//   products. The chain over the transforms stays serial. (Finding every
+//   transform's softmaxes and knots first, four at a time with their
+//   shuffle chains interleaved, was slower on the H100.)
 // - All arithmetic is FP32 (FMAs allowed; no TF32, no fast math), except the
 //   softmax normalizers and the cumulative widths and heights behind the
-//   knots, which are summed in double (mnle_common.cuh, softmax_stats).
+//   knots, which are summed in double (mnle_warp.cuh).
 
 #include "mnle_common.cuh"
 #include "mnle_tile.cuh"
@@ -73,133 +66,18 @@
 
 namespace {
 
+
 constexpr float kLogSqrt2Pi = 0.91893853320467274178f;
-
-// The bin of z (|z| <= B) and its knots/derivatives, walking the cumulative
-// widths and heights once. The cumulative sums run in double and each knot
-// is rounded to float32 once (see softmax_stats).
-__device__ __forceinline__ Bin find_bin(const float* P, const MnleParams& p, const SoftmaxStats& s,
-                                        float z) {
-  const int K = p.K;
-  const float B = p.tail_bound, total = 2.0f * p.tail_bound;
-  double cw = 0.0, ch = 0.0;
-  Bin b;
-  b.xk = -B;
-  b.yk = -B;
-  b.k = K - 1;
-  for (int j = 0; j < K; ++j) {
-    cw += p.min_w + p.scale_w * (expf(P[j] - s.max_w) / s.sum_w);
-    ch += p.min_h + p.scale_h * (expf(P[K + j] - s.max_h) / s.sum_h);
-    const bool last = j == K - 1;
-    const float xk1 = last ? B : (float)(cw * (double)total - (double)B);
-    const float yk1 = last ? B : (float)(ch * (double)total - (double)B);
-    if (last || z < xk1) {
-      b.k = j;
-      b.xk1 = xk1;
-      b.yk1 = yk1;
-      break;
-    }
-    b.xk = xk1;
-    b.yk = yk1;
-  }
-  b.dk = b.k == 0 ? 1.0f : p.min_d + softplus(P[2 * K + b.k - 1]);
-  b.dk1 = b.k == K - 1 ? 1.0f : p.min_d + softplus(P[2 * K + b.k]);
-  return b;
-}
-
-// Forward RQ spline: returns y, adds log|dy/dx| to *ld.
-__device__ float spline_fwd(const float* P, const MnleParams& p, float x, float* ld) {
-  const float B = p.tail_bound;
-  if (!(x >= -B && x <= B)) return x;  // identity tail, zero log-det
-  const SoftmaxStats s = softmax_stats(P, p.K);
-  const Bin b = find_bin(P, p, s, x);
-  const float w = b.xk1 - b.xk, h = b.yk1 - b.yk, sl = h / w;
-  const float xi = (x - b.xk) / w, xi1m = 1.0f - xi;
-  const float num = h * (sl * xi * xi + b.dk * xi * xi1m);
-  const float den = sl + (b.dk1 + b.dk - 2.0f * sl) * xi * xi1m;
-  const float dnum = sl * sl * (b.dk1 * xi * xi + 2.0f * sl * xi * xi1m + b.dk * xi1m * xi1m);
-  *ld += logf(dnum) - 2.0f * logf(den);
-  return b.yk + num / den;
-}
 
 __device__ __forceinline__ float clip7(float v) { return fminf(fmaxf(v, -7.0f), 7.0f); }
 
-// log_det + base of the flow for one row; zs (optional) receives the input
-// of each transform.
-__device__ float flow_forward(const float* sp, const MnleParams& p, float t, float* zs) {
-  const int S = 3 * p.K - 1;
-  float z = t, ld = 0.0f;
-  if (p.cond_affine) {
-    const float mu = sp[p.T * S], ls = clip7(sp[p.T * S + 1]);
-    z = (z - mu) * expf(-ls);
-    ld -= ls;
-  }
-  for (int i = 0; i < p.T; ++i) {
-    if (zs != nullptr) zs[i] = z;
-    z = spline_fwd(sp + i * S, p, z, &ld);
-  }
-  return ld + (-kLogSqrt2Pi - 0.5f * z * z);
-}
-
-__global__ void __launch_bounds__(THREADS) mnle_logprob_fwd_kernel(
-    MnleParams p, const float* __restrict__ t, const float* __restrict__ oh,
-    const float* __restrict__ ctx, float* __restrict__ out, int N) {
-  extern __shared__ float smem[];
-  const int DC = p.D + p.C, H = p.H, L = p.n_layers;
-  float* x0 = smem;
-  float* buf[2] = {x0 + ROWS * DC, x0 + ROWS * DC + ROWS * H};
-  float* logits = buf[1] + ROWS * H;
-  float* sp = logits + ROWS * p.C;
-  const int row0 = blockIdx.x * ROWS;
-  load_rows(ctx, oh, x0, row0, N, p);
-
-  // Categorical MLP on ctx = x0[:, :D].
-  const float* in = x0;
-  int in_ld = DC, in_w = p.D;
-  for (int l = 0; l < L; ++l) {
-    const bool last = l == L - 1;
-    float* o = last ? logits : buf[l % 2];
-    const int ow = last ? p.C : H;
-    dense(in, in_ld, in_w, p.cat_w[l], ow, p.cat_b[l], o, ow, ow, !last, nullptr, 0, false);
-    in = o;
-    in_ld = in_w = ow;
-  }
-  const int r = threadIdx.x;
-  float cat_lp = 0.0f;
-  if (r < ROWS) cat_lp = cat_logprob(logits + r * p.C, x0 + r * DC + p.D, p.C);
-
-  // Flow trunk on [ctx, onehot], ReLU on every layer, then the head product.
-  in = x0;
-  in_ld = in_w = DC;
-  for (int l = 0; l < L; ++l) {
-    dense(in, in_ld, in_w, p.trunk_w[l], H, p.trunk_b[l], buf[l % 2], H, H, true, nullptr, 0, false);
-    in = buf[l % 2];
-    in_ld = in_w = H;
-  }
-  dense(in, H, H, p.head_w, p.HO, p.head_b, sp, p.HO, p.HO, false, nullptr, 0, false);
-
-  const int row = row0 + r;
-  if (r < ROWS && row < N) {
-    float keep = 1.0f;
-    if (p.censored_col >= 0) keep = 1.0f - x0[r * DC + p.D + p.censored_col];
-    float lp = cat_lp;
-    if (keep > 0.0f) lp += keep * flow_forward(sp + r * p.HO, p, t[row], nullptr);
-    out[row] = lp;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K3: tiles of TILE_ROWS rows over TILE_THREADS threads; the products run
-// through tile_dense (mnle_tile.cuh), the per-row phase one warp per row.
-// ---------------------------------------------------------------------------
-
-// find_bin for one row on one warp, lane i holding bin i (K <= 32). The
-// spline's parameters are P[i * ld]. The softmax normalizers and the knots'
-// running sums are taken in double (a butterfly and an inclusive scan), each
-// knot rounded to float32 once, as find_bin does; the bin is the first whose
-// upper knot exceeds x (the JAX masked lookup: x == knot[j+1] falls in bin
-// j+1, the top edge in bin K-1). Writes the softmax weights of the widths
-// and heights over P[0, 2K), which the backward reads.
+// The bin of x (|x| <= B) for one row on one warp, lane i holding bin i
+// (K <= 32). The spline's parameters are P[i * ld]. The softmax normalizers
+// and the knots' running sums are taken in double (a butterfly and an
+// inclusive scan), each knot rounded to float32 once; the bin is the first
+// whose upper knot exceeds x (the JAX masked lookup: x == knot[j+1] falls in
+// bin j+1, the top edge in bin K-1). Writes the softmax weights of the
+// widths and heights over P[0, 2K), which K3's backward reads.
 __device__ __forceinline__ Bin warp_find_bin(float* P, int ld, const MnleParams& p, float x, int lane) {
   const int K = p.K;
   const float B = p.tail_bound, total = 2.0f * p.tail_bound;
@@ -234,7 +112,7 @@ __device__ __forceinline__ Bin warp_find_bin(float* P, int ld, const MnleParams&
   return b;
 }
 
-// spline_fwd's arithmetic in bin b: returns y, adds log|dy/dx| to *ld.
+// The RQ spline in bin b: returns y, adds log|dy/dx| to *ld.
 __device__ __forceinline__ float rq_forward(const Bin& b, float x, float* ld) {
   const float w = b.xk1 - b.xk, h = b.yk1 - b.yk, sl = h / w;
   const float xi = (x - b.xk) / w, xi1m = 1.0f - xi;
@@ -243,6 +121,66 @@ __device__ __forceinline__ float rq_forward(const Bin& b, float x, float* ld) {
   const float dnum = sl * sl * (b.dk1 * xi * xi + 2.0f * sl * xi * xi1m + b.dk * xi1m * xi1m);
   *ld += logf(dnum) - 2.0f * logf(den);
   return b.yk + num / den;
+}
+
+// What the forward of one row's flow leaves for K3's backward.
+struct FlowState {
+  float mu, ls_raw, e;  // the affine layer: mu, the raw log sigma, exp(-clip(log sigma, -7, 7))
+  float z;              // the base's input
+  Bin mine;             // transform `lane`'s bin (k = -1: identity tail) ...
+  float mine_z;         // ... and input
+};
+
+// log_det + base of one row's flow on its warp, every lane with the same
+// bits: the affine layer (cond_affine), then the T splines with identity
+// tails, then the standard normal. The row's head output is spr[j *
+// TILE_ROWS]; warp_find_bin writes each transform's softmax weights there.
+__device__ __forceinline__ float warp_flow_forward(float* spr, const MnleParams& p, float t, FlowState& f, int lane) {
+  constexpr int R = TILE_ROWS;
+  const int S = 3 * p.K - 1;
+  const float B = p.tail_bound;
+  float z = t, ld = 0.0f;
+  f.mu = 0.0f;
+  f.ls_raw = 0.0f;
+  f.e = 1.0f;
+  if (p.cond_affine) {
+    f.mu = spr[p.T * S * R];
+    f.ls_raw = spr[(p.T * S + 1) * R];
+    const float ls = clip7(f.ls_raw);
+    f.e = expf(-ls);
+    z = (z - f.mu) * f.e;
+    ld -= ls;
+  }
+  f.mine.k = -1;
+  f.mine_z = 0.0f;
+  for (int i = 0; i < p.T; ++i) {
+    Bin b;
+    b.k = -1;
+    const float zi = z;
+    if (z >= -B && z <= B) {
+      b = warp_find_bin(spr + i * S * R, R, p, z, lane);
+      z = rq_forward(b, z, &ld);
+    }
+    if (lane == i) {
+      f.mine = b;
+      f.mine_z = zi;
+    }
+  }
+  f.z = z;
+  return ld + (-kLogSqrt2Pi - 0.5f * z * z);
+}
+
+// One row's log-prob on its warp from the tile's logits (lg[j * TILE_ROWS])
+// and head output (spr): cat_lp + m (log_det + base), m = 1 - oh[censored],
+// the flow skipped where m = 0. Lane 0 holds the value (it alone reads the
+// logits). K2 and K3 both take a row's value from here.
+__device__ __forceinline__ float warp_row_logp(const float* lg, const float* ohr, float* spr, const MnleParams& p,
+                                               float t, FlowState& f, int lane) {
+  const float cat_lp = lane == 0 ? cat_logprob_strided(lg, ohr, TILE_ROWS, p.C) : 0.0f;
+  const float keep = keep_factor(ohr, p);
+  float lp = cat_lp;
+  if (keep > 0.0f) lp += keep * warp_flow_forward(spr, p, t, f, lane);
+  return lp;
 }
 
 // Backward of one RQ spline on one warp at input x in bin b (from
@@ -319,8 +257,8 @@ struct K3Products {
     i -= L;
     if (i < L) return {p.trunk_w[i], p.trunk_b[i], H, i == 0 ? DC : H, H, true};
     i -= L;
-    if (i == 0) return {p.head_w, p.head_b, p.HO, H, p.HO, false};
-    if (i == 1) return {p.head_wt, nullptr, H, p.HO, H, false};
+    if (i == 0) return {p.head_w, p.head_b, p.head_ld, H, p.HO, false};
+    if (i == 1) return {p.head_wt, nullptr, p.head_t_ld, p.HO, H, false};
     i -= 2;
     if (i < L) {
       const int l = L - 1 - i;
@@ -331,6 +269,66 @@ struct K3Products {
   }
 };
 
+// K2's products: the forward, K3's first 2L + 1.
+struct K2Products {
+  const MnleParams& p;
+  __device__ int count() const { return 2 * p.n_layers + 1; }
+  __device__ TileProduct operator()(int i) const { return K3Products{p}(i); }
+};
+
+// ---------------------------------------------------------------------------
+// K2: the forward products through two hidden buffers, then a warp per row.
+// ---------------------------------------------------------------------------
+
+size_t fwd_smem_bytes(const MnleParams& p) {
+  return sizeof(float) * ((size_t)TILE_STAGES * TILE_WBUF + (size_t)TILE_ROWS * (p.D + p.C + 2 * p.H + p.C + p.HO));
+}
+
+__global__ void __launch_bounds__(TILE_THREADS, FWD_BLOCKS_PER_SM) mnle_logprob_fwd_kernel(
+    const __grid_constant__ MnleParams p, const float* __restrict__ t, const float* __restrict__ oh,
+    const float* __restrict__ ctx, float* __restrict__ out, int N) {
+  extern __shared__ float4 smem4[];
+  constexpr int R = TILE_ROWS;
+  const int DC = p.D + p.C, H = p.H, L = p.n_layers;
+  // Every array is k-major: element (k, r) at a[k * R + r].
+  float* ws = reinterpret_cast<float*>(smem4);         // TILE_STAGES x TILE_WBUF weight staging
+  float* x0 = ws + TILE_STAGES * TILE_WBUF;            // DC x R: [ctx | onehot]
+  float* hid[2] = {x0 + DC * R, x0 + DC * R + H * R};  // H x R each, the hidden layers in turn
+  float* logits = hid[1] + H * R;                      // C x R
+  float* sp = logits + p.C * R;                        // HO x R
+  const int row0 = blockIdx.x * R;
+  WeightStream<K2Products> ws_stream(K2Products{p}, ws);  // starts loading the first products' weights
+  load_tile_rows(ctx, p.D, oh, p.C, x0, row0, N);
+
+  const float* in = x0;
+  for (int l = 0; l < L; ++l) {
+    float* o = l == L - 1 ? logits : hid[l % 2];
+    tile_dense(ws_stream, in, o, nullptr, false);
+    in = o;
+  }
+  in = x0;
+  for (int l = 0; l < L; ++l) {
+    tile_dense(ws_stream, in, hid[l % 2], nullptr, false);
+    in = hid[l % 2];
+  }
+  tile_dense(ws_stream, in, sp, nullptr, false);
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < R; r += TILE_THREADS / 32) {
+    const int row = row0 + r;
+    if (row >= N) continue;
+    FlowState f;
+    const float v = warp_row_logp(logits + r, x0 + p.D * R + r, sp + r, p, t[row], f, lane);
+    if (lane == 0) out[row] = v;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3: the same forward keeping every activation, the row's value, then the
+// backward.
+// ---------------------------------------------------------------------------
+
 size_t bwd_smem_bytes(const MnleParams& p) {
   return sizeof(float) * ((size_t)TILE_STAGES * TILE_WBUF +
                           (size_t)TILE_ROWS * (p.D + p.C + (2 * p.n_layers - 1) * p.H + p.C + p.HO + 2 * p.H + p.D));
@@ -338,8 +336,8 @@ size_t bwd_smem_bytes(const MnleParams& p) {
 
 __global__ void __launch_bounds__(TILE_THREADS, 2) mnle_logprob_bwd_kernel(
     const __grid_constant__ MnleParams p, const float* __restrict__ t, const float* __restrict__ oh,
-    const float* __restrict__ ctx, const float* __restrict__ g, float* __restrict__ dt,
-    float* __restrict__ dctx, int N) {
+    const float* __restrict__ ctx, const float* __restrict__ g, float* __restrict__ out,
+    float* __restrict__ dt, float* __restrict__ dctx, int N) {
   extern __shared__ float4 smem4[];
   constexpr int R = TILE_ROWS;
   const int DC = p.D + p.C, H = p.H, L = p.n_layers, S = 3 * p.K - 1;
@@ -354,12 +352,7 @@ __global__ void __launch_bounds__(TILE_THREADS, 2) mnle_logprob_bwd_kernel(
   float* dx0 = gbuf[1] + H * R;                  // D x R
   const int row0 = blockIdx.x * R;
   WeightStream<K3Products> ws_stream(K3Products{p}, ws);  // starts loading the first products' weights
-  for (int idx = threadIdx.x; idx < R * DC; idx += TILE_THREADS) {
-    const int r = idx / DC, k = idx % DC, row = row0 + r;
-    float v = 0.0f;
-    if (row < N) v = k < p.D ? ctx[(size_t)row * p.D + k] : oh[(size_t)row * p.C + (k - p.D)];
-    x0[k * R + r] = v;
-  }
+  load_tile_rows(ctx, p.D, oh, p.C, x0, row0, N);
 
   // Forward, keeping every activation.
   const float* in = x0;
@@ -377,53 +370,32 @@ __global__ void __launch_bounds__(TILE_THREADS, 2) mnle_logprob_bwd_kernel(
   tile_dense(ws_stream, in, sp, nullptr, false);
   __syncthreads();
 
-  // Per row, one warp: d logits (in place) and the flow backward (d head
-  // output in place, dt to global memory). Lane i holds bin i of each
-  // spline, and lane j keeps transform j's bin and input between the
-  // forward recompute and the backward; the chain over the transforms
-  // stays serial.
+  // Per row, one warp: the value (as K2 writes it), then d logits (in
+  // place) and the flow backward (d head output in place, dt to global
+  // memory). Lane i holds bin i of each spline, and lane j keeps transform
+  // j's bin and input between the forward and the backward; the chain over
+  // the transforms stays serial.
   const int lane = threadIdx.x & 31;
-  const float B = p.tail_bound;
   for (int r = threadIdx.x >> 5; r < R; r += TILE_THREADS / 32) {
     const int row = row0 + r;
-    const float gr = row < N ? g[row] : 0.0f;
     const float* ohr = x0 + p.D * R + r;
-    if (lane == 0) cat_grad_strided(logits + r, ohr, R, p.C, gr);
     float* spr = sp + r;
-    const float keep = p.censored_col >= 0 ? 1.0f - ohr[p.censored_col * R] : 1.0f;
+    FlowState f;
+    if (row < N) {
+      const float lp = warp_row_logp(logits + r, ohr, spr, p, t[row], f, lane);
+      if (lane == 0) out[row] = lp;
+    }
+    const float gr = row < N ? g[row] : 0.0f;
+    if (lane == 0) cat_grad_strided(logits + r, ohr, R, p.C, gr);
+    const float keep = keep_factor(ohr, p);
     const float gm = gr * keep;
     float dtr = 0.0f;
     if (keep > 0.0f && row < N) {
-      const float tr = t[row];
-      float mu = 0.0f, ls_raw = 0.0f, e = 1.0f;
-      if (p.cond_affine) {
-        mu = spr[p.T * S * R];
-        ls_raw = spr[(p.T * S + 1) * R];
-        e = expf(-clip7(ls_raw));
-      }
-      float ld = 0.0f;
-      float z = p.cond_affine ? (tr - mu) * e : tr;
-      Bin mine;  // transform `lane`'s bin (k = -1: identity tail) ...
-      mine.k = -1;
-      float mine_z = 0.0f;  // ... and input
-      for (int i = 0; i < p.T; ++i) {
-        Bin b;
-        b.k = -1;
-        const float zi = z;
-        if (z >= -B && z <= B) {
-          b = warp_find_bin(spr + i * S * R, R, p, z, lane);
-          z = rq_forward(b, z, &ld);
-        }
-        if (lane == i) {
-          mine = b;
-          mine_z = zi;
-        }
-      }
-      float gz = -gm * z;  // d base / dz
+      float gz = -gm * f.z;  // d base / dz
       for (int i = p.T - 1; i >= 0; --i) {
         float* P = spr + i * S * R;
-        const Bin b = shfl_bin(mine, i);
-        const float zi = __shfl_sync(kFull, mine_z, i);
+        const Bin b = shfl_bin(f.mine, i);
+        const float zi = __shfl_sync(kFull, f.mine_z, i);
         if (b.k < 0) {
           for (int j = lane; j < S; j += 32) P[j * R] = 0.0f;
         } else {
@@ -431,11 +403,11 @@ __global__ void __launch_bounds__(TILE_THREADS, 2) mnle_logprob_bwd_kernel(
         }
       }
       if (p.cond_affine) {
-        dtr = gz * e;
+        dtr = gz * f.e;
         if (lane == 0) {
-          spr[p.T * S * R] = -gz * e;
-          const float g_ls = -gz * (tr - mu) * e - gm;  // through exp(-ls) and log_det -= ls
-          spr[(p.T * S + 1) * R] = (ls_raw > -7.0f && ls_raw < 7.0f) ? g_ls : 0.0f;
+          spr[p.T * S * R] = -gz * f.e;
+          const float g_ls = -gz * (t[row] - f.mu) * f.e - gm;  // through exp(-ls) and log_det -= ls
+          spr[(p.T * S + 1) * R] = (f.ls_raw > -7.0f && f.ls_raw < 7.0f) ? g_ls : 0.0f;
         }
       } else {
         dtr = gz;
@@ -472,8 +444,10 @@ __global__ void __launch_bounds__(TILE_THREADS, 2) mnle_logprob_bwd_kernel(
   }
 }
 
-size_t fwd_smem_bytes(const MnleParams& p) {
-  return sizeof(float) * (size_t)ROWS * (p.D + p.C + 2 * p.H + p.C + p.HO);
+// One bin per lane of a warp; the head's leading dimensions cover its columns.
+bool params_ok(const MnleParams* p) {
+  return p->T <= MAX_TRANSFORMS && p->n_layers >= 1 && p->n_layers <= MAX_LAYERS && p->K >= 2 && p->K <= 32 &&
+         p->head_ld >= p->HO && p->head_t_ld >= p->H;
 }
 
 }  // namespace
@@ -485,26 +459,26 @@ const char* sdm_error_string(int err) { return cudaGetErrorString((cudaError_t)e
 int sdm_mnle_logprob_fwd(const MnleParams* p, const float* t, const float* oh, const float* ctx,
                          float* out, int N, void* stream) {
   if (N <= 0) return 0;
+  if (!params_ok(p)) return (int)cudaErrorInvalidValue;
   const size_t smem = fwd_smem_bytes(*p);
   cudaError_t err = cudaFuncSetAttribute(mnle_logprob_fwd_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (N + ROWS - 1) / ROWS;
-  mnle_logprob_fwd_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(*p, t, oh, ctx, out, N);
+  const int blocks = (N + TILE_ROWS - 1) / TILE_ROWS;
+  mnle_logprob_fwd_kernel<<<blocks, TILE_THREADS, smem, (cudaStream_t)stream>>>(*p, t, oh, ctx, out, N);
   return (int)cudaGetLastError();
 }
 
 int sdm_mnle_logprob_bwd(const MnleParams* p, const float* t, const float* oh, const float* ctx,
-                         const float* g, float* dt, float* dctx, int N, void* stream) {
+                         const float* g, float* out, float* dt, float* dctx, int N, void* stream) {
   if (N <= 0) return 0;
-  if (p->T > MAX_TRANSFORMS || p->n_layers > MAX_LAYERS || p->n_layers < 1 || p->K < 2 || p->K > 32)
-    return (int)cudaErrorInvalidValue;
+  if (!params_ok(p)) return (int)cudaErrorInvalidValue;
   const size_t smem = bwd_smem_bytes(*p);
   cudaError_t err = cudaFuncSetAttribute(mnle_logprob_bwd_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (N + TILE_ROWS - 1) / TILE_ROWS;
-  mnle_logprob_bwd_kernel<<<blocks, TILE_THREADS, smem, (cudaStream_t)stream>>>(*p, t, oh, ctx, g, dt,
+  mnle_logprob_bwd_kernel<<<blocks, TILE_THREADS, smem, (cudaStream_t)stream>>>(*p, t, oh, ctx, g, out, dt,
                                                                                   dctx, N);
   return (int)cudaGetLastError();
 }

@@ -17,8 +17,9 @@
 //   uniform base (log p = 0);
 //   out = cat_lp + m (slot_lp + log_det), m = 1 - oh[censored] (rows with
 //   m = 0 skip the rest and take cat_lp alone).
-// K3p recomputes that forward for a tile of rows and pulls a cotangent g back
-// to dphi (N), dctx (N, D) and dkf (N, F). It gives no weight gradients.
+// K3p recomputes that forward for a tile of rows, writes the value as K2p
+// does, and pulls a cotangent g back to dphi (N), dctx (N, D) and dkf (N,
+// F). It gives no weight gradients.
 //
 // What bounds them on the card: the matrix products. A row costs
 // 2*(D*H + H*H + H*C + (D+C)*H + 2*H*H + H*NS + (H+F)*HO) = 0.355 MFLOP
@@ -32,59 +33,50 @@
 // 1,200 rows, 0.611 ms and 1.220 ms for 115,200 rows (chip_smoke.py's
 // mnle_bound).
 //
-// Design of K2p, simple first (the structure of K2, mnle_common.cuh):
-// - One block of 128 threads per tile of ROWS = 16 rows, activations in
-//   shared memory, thread j computes output unit j of a product for all 16
-//   rows. The trunk output is stored with a leading dimension of H + F and
-//   kf is written into its last F columns, so the head product reads
-//   [emb, kf] as one (16, H + F) operand. 75 of the 132 SMs have a block
-//   at 1,200 rows.
-// - The per-row work (the two log-softmaxes, the spline chain) runs one
-//   thread per row. A circular spline finds its bin by walking the
-//   cumulative widths once (knots are not stored); z == knot[j+1] falls in
-//   bin j+1, the top edge in bin K-1, as in the JAX masked lookup.
-// - The mod is floor-mod (x - floorf(x), never fmodf). Censored rows skip
-//   the flow and the slot head with a branch, not a product, so a
-//   non-finite term there never reaches the value.
-//
-// Design of K3p, for the H100 (K2p's design left 57 SMs idle at 1,200
-// rows, issued a shared-memory load per FMA with nothing to hide the
-// weights' L2 latency, and ran a per-row phase that recomputed each
-// transform's softmax and bin in the backward on 16 of 128 threads; split
-// on the card it was 38.8 % per-row phase, 30.4 % backward products):
-// - Tiles of TILE_ROWS = 8 rows on 256 threads, two blocks an SM (150
-//   blocks at 1,200 rows). Every product runs through tile_dense
-//   (mnle_tile.cuh) with K3p's product list (K3pProducts): weights staged
+// Design, for the H100. (The first design of both kernels ran 16-row tiles
+// on 128 threads, thread j computing output unit j for all 16 rows, the
+// per-row phase one thread per row: 75 of the 132 SMs had a block at 1,200
+// rows; split on the card, K3p in that design was 38.8 % per-row phase,
+// 30.4 % backward products.)
+// - Tiles of TILE_ROWS = 8 rows on 256 threads (150 blocks at 1,200 rows).
+//   Every product runs through tile_dense (mnle_tile.cuh): weights staged
 //   by cp.async, double-buffered, activations k-major, register
-//   micro-tiles, and dense's summation order, so the products give dense's
-//   bits. kf's F columns sit right after the last trunk activation, so
-//   [emb; kf] is one (H + F) x 8 operand of the head and the slot head
-//   reads its first H rows. The head's weights come in copies whose rows
-//   are padded to a multiple of 4 floats (head_ld = 732, head_t_ld = 132)
-//   so that they take 16-byte copies; the padding is never read into an
-//   output.
+//   micro-tiles, one fixed summation order. kf's F columns sit right after
+//   the trunk's last activation, so [emb; kf] is one (H + F) x 8 operand of
+//   the head and the slot head reads its first H rows. The head's weights
+//   come in copies whose rows are padded to a multiple of 4 floats (head_ld
+//   = 732, head_t_ld = 132) so that they take 16-byte copies; the padding is
+//   never read into an output.
+// - K2p runs the forward products (K2pProducts: K3pProducts' first 2L + 2)
+//   through two hidden buffers in turn, the trunk's last layer landing in
+//   the one kf follows: 69,888 B of shared memory at the pulse model's
+//   widths, three blocks an SM. K3p keeps every activation for its
+//   backward: 93,184 B, two blocks an SM.
 // - The per-row phase runs one warp per row, lane i on bin i (K <= 32):
 //   softmax max and normalizers by shuffles (summed in double), the knots
 //   by an inclusive warp scan in double rounded once each, the bin by a
-//   ballot, the softmax VJP by one double shuffle reduction. Each
-//   transform's bin, input and rotation are found once, in the forward
-//   recompute, and kept in lane `transform`'s registers for the backward;
-//   its softmax weights overwrite its width and height parameters. The
-//   slot head's log-softmax runs on the warp, three logits a lane, and so
-//   does d kf (warp_dkf, in dense's summation order: as a product of the
-//   list, 3 columns over 730 inputs, it took 19 % of the kernel).
+//   ballot (z == knot[j+1] falls in bin j+1, the top edge in bin K-1, as in
+//   the JAX masked lookup), the slot head's log-softmax on the warp, three
+//   logits a lane. One function, warp_pulse_row_logp, computes a row's
+//   value, and K2p and K3p both call it on the same products' bits, so
+//   K3p's value equals K2p's bit for bit: a gradient call launches K3p
+//   alone. K3p keeps each transform's bin, input and rotation in lane
+//   `transform`'s registers for the backward, and its softmax weights over
+//   its width and height parameters; the softmax VJP is one double shuffle
+//   reduction, and d kf runs on the warps too (warp_dkf: as a product of
+//   the list, 3 columns over 730 inputs, it took 19 % of the kernel).
 // - The circular rules are those of the plain version: knots [0,
 //   cumsum(w)[:K-1], 1], derivatives d_0 .. d_{K-1} with d_K = d_0 (bin
 //   K-1's right edge sends its gradient to lane 0's parameter), the
-//   rotation sigmoid(P[3K]), the floor-mod with gradient +1 for z and -1
-//   for the rotation, the clips of the phase to [0, 1 - 1e-6] and of xi to
-//   [0, 1] with jnp.clip's gradient (all inside, half on a bound, none
-//   outside).
-// - Shared memory at the pulse model's widths: 93,184 B, so two blocks fit
-//   on an SM.
+//   rotation sigmoid(P[3K]), the floor-mod (x - floorf(x), never fmodf) with
+//   gradient +1 for z and -1 for the rotation, the clips of the phase to
+//   [0, 1 - 1e-6] and of xi to [0, 1] with jnp.clip's gradient (all inside,
+//   half on a bound, none outside). Censored rows skip the flow and the
+//   slot head with a branch, not a product, so a non-finite term there
+//   never reaches the value.
 // - All arithmetic is FP32 (FMAs allowed; no TF32, no fast math), except the
 //   softmax normalizers and the cumulative widths and heights behind the
-//   knots, which are summed in double (mnle_common.cuh, softmax_stats).
+//   knots, which are summed in double (mnle_warp.cuh).
 
 #include "mnle_common.cuh"
 #include "mnle_tile.cuh"
@@ -99,38 +91,6 @@ __device__ __forceinline__ float clip_grad(float x, float lo, float hi) {
   return (x > lo && x < hi) ? 1.0f : ((x == lo || x == hi) ? 0.5f : 0.0f);
 }
 
-// The circular bin of z in [0, 1) and its knots/derivatives: knots are
-// [0, cumsum(widths)[:K-1], 1], derivatives d_0 .. d_{K-1}, d_K = d_0. The
-// cumulative sums run in double and each knot is rounded to float32 once
-// (see softmax_stats).
-__device__ __forceinline__ Bin find_circular_bin(const float* P, const MnleParams& p,
-                                                 const SoftmaxStats& s, float z) {
-  const int K = p.K;
-  double cw = 0.0, ch = 0.0;
-  Bin b;
-  b.xk = 0.0f;
-  b.yk = 0.0f;
-  b.k = K - 1;
-  for (int j = 0; j < K; ++j) {
-    cw += p.min_w + p.scale_w * (expf(P[j] - s.max_w) / s.sum_w);
-    ch += p.min_h + p.scale_h * (expf(P[K + j] - s.max_h) / s.sum_h);
-    const bool last = j == K - 1;
-    const float xk1 = last ? 1.0f : (float)cw;
-    const float yk1 = last ? 1.0f : (float)ch;
-    if (last || z < xk1) {
-      b.k = j;
-      b.xk1 = xk1;
-      b.yk1 = yk1;
-      break;
-    }
-    b.xk = xk1;
-    b.yk = yk1;
-  }
-  b.dk = p.min_d + softplus(P[2 * K + b.k]);
-  b.dk1 = p.min_d + softplus(P[2 * K + (b.k + 1) % K]);
-  return b;
-}
-
 // The phase a circular spline bins: m = (x - rot) mod 1 (floor-mod) and
 // zc = clip(m, 0, 1 - 1e-6).
 __device__ __forceinline__ void circular_phase(float x, float rot, float* m, float* zc) {
@@ -139,136 +99,14 @@ __device__ __forceinline__ void circular_phase(float x, float rot, float* m, flo
   *zc = fminf(fmaxf(*m, 0.0f), kPhaseHi);
 }
 
-// The rotated, clipped phase a spline bins: clip((x - rot) mod 1, 0, 1 - 1e-6).
-struct Phase {
-  float rot, m, z;
-};
-
-__device__ __forceinline__ Phase rotate(const float* P, int K, float x) {
-  Phase ph;
-  ph.rot = sigmoid(P[3 * K]);
-  circular_phase(x, ph.rot, &ph.m, &ph.z);
-  return ph;
-}
-
-// Forward circular RQ spline: returns y, adds log|dy/dx| to *ld.
-__device__ float circular_fwd(const float* P, const MnleParams& p, float x, float* ld) {
-  const SoftmaxStats s = softmax_stats(P, p.K);
-  const Phase ph = rotate(P, p.K, x);
-  const Bin b = find_circular_bin(P, p, s, ph.z);
-  const float w = b.xk1 - b.xk, h = b.yk1 - b.yk, sl = h / w;
-  const float xi = fminf(fmaxf((ph.z - b.xk) / w, 0.0f), 1.0f), xi1m = 1.0f - xi;
-  const float num = h * (sl * xi * xi + b.dk * xi * xi1m);
-  const float den = sl + (b.dk1 + b.dk - 2.0f * sl) * xi * xi1m;
-  const float dnum = sl * sl * (b.dk1 * xi * xi + 2.0f * sl * xi * xi1m + b.dk * xi1m * xi1m);
-  *ld += logf(dnum) - 2.0f * logf(den);
-  return b.yk + num / den;
-}
-
-// The slot head's log-probability of slot int(kv) (0 outside [0, NS)).
-__device__ float slot_logprob(const float* sl, int NS, float kv) {
-  const int ki = (int)kv;
-  if (!(ki >= 0 && ki < NS)) return 0.0f;
-  float mx = -INFINITY;
-  for (int j = 0; j < NS; ++j) mx = fmaxf(mx, sl[j]);
-  float se = 0.0f;
-  for (int j = 0; j < NS; ++j) se += expf(sl[j] - mx);
-  return sl[ki] - mx - logf(se);
-}
-
-// Writes kf of the tile's rows into columns [H, H + F) of emb (leading
-// dimension H + F), zeros past the last row.
-__device__ void load_features(const float* __restrict__ kf, float* emb, int row0, int N,
-                              const MnleParams& p) {
-  const int HF = p.H + p.F;
-  for (int idx = threadIdx.x; idx < ROWS * p.F; idx += blockDim.x) {
-    const int r = idx / p.F, f = idx % p.F, row = row0 + r;
-    emb[r * HF + p.H + f] = row < N ? kf[(size_t)row * p.F + f] : 0.0f;
-  }
-  __syncthreads();
-}
-
-// Forward products of the tile: categorical logits, the trunk into emb
-// (leading dimension H + F, kf in the last F columns), the slot logits and
-// the head output. Hidden layer l of each MLP goes to slot l % slots of
-// `cat_act`/`trunk_act` (ROWS x H each): slots = 2 alternates two buffers,
-// slots >= n_layers - 1 keeps every activation for the backward.
-__device__ void forward_products(const MnleParams& p, const float* x0, float* cat_act, float* trunk_act,
-                                 int slots, float* emb, float* logits, float* slot, float* sp,
-                                 const float* __restrict__ kf, int row0, int N) {
-  const int DC = p.D + p.C, H = p.H, L = p.n_layers, HF = p.H + p.F;
-  const float* in = x0;
-  int in_ld = DC, in_w = p.D;
-  for (int l = 0; l < L; ++l) {
-    const bool last = l == L - 1;
-    float* o = last ? logits : cat_act + (l % slots) * ROWS * H;
-    const int ow = last ? p.C : H;
-    dense(in, in_ld, in_w, p.cat_w[l], ow, p.cat_b[l], o, ow, ow, !last, nullptr, 0, false);
-    in = o;
-    in_ld = in_w = ow;
-  }
-  in = x0;
-  in_ld = in_w = DC;
-  for (int l = 0; l < L; ++l) {
-    const bool last = l == L - 1;
-    float* o = last ? emb : trunk_act + (l % slots) * ROWS * H;
-    dense(in, in_ld, in_w, p.trunk_w[l], H, p.trunk_b[l], o, last ? HF : H, H, true, nullptr, 0, false);
-    in = o;
-    in_ld = in_w = H;
-  }
-  load_features(kf, emb, row0, N, p);
-  dense(emb, HF, H, p.slot_w, p.NS, p.slot_b, slot, p.NS, p.NS, false, nullptr, 0, false);
-  dense(emb, HF, HF, p.head_w, p.HO, p.head_b, sp, p.HO, p.HO, false, nullptr, 0, false);
-}
-
-__device__ __forceinline__ float keep_factor(const float* ohr, const MnleParams& p) {
-  return p.censored_col >= 0 ? 1.0f - ohr[p.censored_col] : 1.0f;
-}
-
-__global__ void __launch_bounds__(THREADS) mnle_pulse_fwd_kernel(
-    MnleParams p, const float* __restrict__ phi, const float* __restrict__ oh,
-    const float* __restrict__ ctx, const float* __restrict__ kf, const float* __restrict__ kv,
-    float* __restrict__ out, int N) {
-  extern __shared__ float smem[];
-  const int DC = p.D + p.C, H = p.H, S = 3 * p.K + 1;
-  float* x0 = smem;                        // ROWS x DC
-  float* hid = x0 + ROWS * DC;             // 2 x ROWS x H, ping-pong hidden layers
-  float* emb = hid + 2 * ROWS * H;         // ROWS x (H + F)
-  float* logits = emb + ROWS * (H + p.F);  // ROWS x C
-  float* slot = logits + ROWS * p.C;       // ROWS x NS
-  float* sp = slot + ROWS * p.NS;          // ROWS x HO
-  const int row0 = blockIdx.x * ROWS;
-  load_rows(ctx, oh, x0, row0, N, p);
-  forward_products(p, x0, hid, hid, 2, emb, logits, slot, sp, kf, row0, N);
-
-  const int r = threadIdx.x, row = row0 + r;
-  if (r < ROWS && row < N) {
-    const float* ohr = x0 + r * DC + p.D;
-    const float keep = keep_factor(ohr, p);
-    float lp = cat_logprob(logits + r * p.C, ohr, p.C);
-    if (keep > 0.0f) {
-      float z = phi[row], ld = 0.0f;
-      const float* spr = sp + r * p.HO;
-      for (int i = 0; i < p.T; ++i) z = circular_fwd(spr + i * S, p, z, &ld);
-      lp += keep * (slot_logprob(slot + r * p.NS, p.NS, kv[row]) + ld);
-    }
-    out[row] = lp;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K3p: tiles of TILE_ROWS rows over TILE_THREADS threads; the products run
-// through tile_dense (mnle_tile.cuh), the per-row phase one warp per row.
-// ---------------------------------------------------------------------------
-
-// find_circular_bin for one row on one warp, lane i holding bin i (K <=
-// 32). The spline's parameters are P[i * ld]. The softmax normalizers and
-// the knots' running sums are taken in double (a butterfly and an
-// inclusive scan), each knot rounded to float32 once, as find_circular_bin
-// does; the end knots are 0 and 1. The bin is the first whose upper knot
-// exceeds z (z == knot[j+1] falls in bin j+1, the top edge in bin K-1).
-// Writes the softmax weights of the widths and heights over P[0, 2K),
-// which the backward reads.
+// The circular bin of z in [0, 1) for one row on one warp, lane i holding
+// bin i (K <= 32). The spline's parameters are P[i * ld]. The softmax
+// normalizers and the knots' running sums are taken in double (a butterfly
+// and an inclusive scan), each knot rounded to float32 once; the knots are
+// [0, cumsum(widths)[:K-1], 1], the derivatives d_0 .. d_{K-1}, d_K = d_0.
+// The bin is the first whose upper knot exceeds z (z == knot[j+1] falls in
+// bin j+1, the top edge in bin K-1). Writes the softmax weights of the
+// widths and heights over P[0, 2K), which K3p's backward reads.
 __device__ __forceinline__ Bin warp_circular_bin(float* P, int ld, const MnleParams& p, float z, int lane) {
   const int K = p.K;
   const bool on = lane < K;
@@ -300,14 +138,87 @@ __device__ __forceinline__ Bin warp_circular_bin(float* P, int ld, const MnlePar
   return b;
 }
 
-// circular_fwd's output in bin b at the clipped phase zc (no log-det: the
-// backward does not need it).
-__device__ __forceinline__ float circular_y(const Bin& b, float zc) {
+// The circular RQ spline in bin b at the clipped phase zc, with xi clipped
+// to [0, 1]: returns y, adds log|dy/dx| to *ld.
+__device__ __forceinline__ float circular_forward(const Bin& b, float zc, float* ld) {
   const float w = b.xk1 - b.xk, h = b.yk1 - b.yk, sl = h / w;
   const float xi = fminf(fmaxf((zc - b.xk) / w, 0.0f), 1.0f), xi1m = 1.0f - xi;
   const float num = h * (sl * xi * xi + b.dk * xi * xi1m);
   const float den = sl + (b.dk1 + b.dk - 2.0f * sl) * xi * xi1m;
+  const float dnum = sl * sl * (b.dk1 * xi * xi + 2.0f * sl * xi * xi1m + b.dk * xi1m * xi1m);
+  *ld += logf(dnum) - 2.0f * logf(den);
   return b.yk + num / den;
+}
+
+// What the forward of one row leaves for K3p's backward.
+struct PulseState {
+  float slot_max, slot_sum;  // the slot head's log-softmax: max and normalizer
+  Bin mine;                  // transform `lane`'s bin ...
+  float mine_x, mine_rot;    // ... input and rotation
+};
+
+// The slot head's log-probability of slot int(kv) (0 outside [0, NS)) on
+// one warp, lane l on logits l, l + 32, ... (the row's logits at sl[j *
+// ld]), the normalizer summed in double; every lane the same bits. Leaves
+// the max and the normalizer in s for the backward.
+__device__ __forceinline__ float warp_slot_logprob(const float* sl, int ld, int NS, float kv, PulseState& s,
+                                                   int lane) {
+  const int ki = (int)kv;
+  if (!(ki >= 0 && ki < NS)) return 0.0f;
+  float mx = -INFINITY;
+  for (int j = lane; j < NS; j += 32) mx = fmaxf(mx, sl[j * ld]);
+  mx = warp_max(mx);
+  double se = 0.0;
+  for (int j = lane; j < NS; j += 32) se += (double)expf(sl[j * ld] - mx);
+  s.slot_max = mx;
+  s.slot_sum = (float)warp_sum(se);
+  return sl[ki * ld] - mx - logf(s.slot_sum);
+}
+
+// log_det of one row's circular spline chain on its warp, z = phi through
+// the T transforms (a uniform base adds nothing), every lane with the same
+// bits. The row's head output is spr[j * TILE_ROWS]; warp_circular_bin
+// writes each transform's softmax weights there.
+__device__ __forceinline__ float warp_circular_flow(float* spr, const MnleParams& p, float phi, PulseState& s,
+                                                    int lane) {
+  constexpr int R = TILE_ROWS;
+  const int K = p.K, S = 3 * p.K + 1;
+  s.mine = Bin{};
+  s.mine_x = 0.0f;
+  s.mine_rot = 0.0f;
+  float z = phi, ld = 0.0f;
+  for (int i = 0; i < p.T; ++i) {
+    float* P = spr + i * S * R;
+    const float rot = sigmoid(P[3 * K * R]);
+    float m, zc;
+    circular_phase(z, rot, &m, &zc);
+    const Bin b = warp_circular_bin(P, R, p, zc, lane);
+    if (lane == i) {
+      s.mine = b;
+      s.mine_x = z;
+      s.mine_rot = rot;
+    }
+    z = circular_forward(b, zc, &ld);
+  }
+  return ld;
+}
+
+// One row's log-prob on its warp from the tile's logits (lg[j *
+// TILE_ROWS]), slot logits (slr) and head output (spr): cat_lp + m
+// (slot_lp + log_det), m = 1 - oh[censored], the slot head and the flow
+// skipped where m = 0. Lane 0 holds the value (it alone reads the logits).
+// K2p and K3p both take a row's value from here.
+__device__ __forceinline__ float warp_pulse_row_logp(const float* lg, const float* ohr, const float* slr,
+                                                     float* spr, const MnleParams& p, float phi, float kv,
+                                                     PulseState& s, int lane) {
+  const float cat_lp = lane == 0 ? cat_logprob_strided(lg, ohr, TILE_ROWS, p.C) : 0.0f;
+  const float keep = keep_factor(ohr, p);
+  float lp = cat_lp;
+  if (keep > 0.0f) {
+    const float slot_lp = warp_slot_logprob(slr, TILE_ROWS, p.NS, kv, s, lane);
+    lp += keep * (slot_lp + warp_circular_flow(spr, p, phi, s, lane));
+  }
+  return lp;
 }
 
 // Backward of one circular RQ spline on one warp at input x, rotation rot
@@ -374,32 +285,30 @@ __device__ __forceinline__ float warp_circular_bwd(float* P, int ld, const MnleP
 
 // The cotangent gm of the slot head's log-softmax at int(kv) pulled back
 // to the row's NS logits sl[j * ld], in place, on one warp (lane l on
-// logits l, l + 32, ...): zeros where int(kv) is outside [0, NS).
-__device__ __forceinline__ void warp_slot_grad(float* sl, int ld, int NS, float kv, float gm, int lane) {
+// logits l, l + 32, ...), with the forward's max and normalizer (s): zeros
+// where int(kv) is outside [0, NS).
+__device__ __forceinline__ void warp_slot_grad(float* sl, int ld, int NS, float kv, float gm, const PulseState& s,
+                                               int lane) {
   const int ki = (int)kv;
   if (!(ki >= 0 && ki < NS)) {
     for (int j = lane; j < NS; j += 32) sl[j * ld] = 0.0f;
     return;
   }
-  float mx = -INFINITY;
-  for (int j = lane; j < NS; j += 32) mx = fmaxf(mx, sl[j * ld]);
-  mx = warp_max(mx);
-  double se = 0.0;
-  for (int j = lane; j < NS; j += 32) se += (double)expf(sl[j * ld] - mx);
-  const float sum = (float)warp_sum(se);
-  for (int j = lane; j < NS; j += 32) sl[j * ld] = gm * ((j == ki ? 1.0f : 0.0f) - expf(sl[j * ld] - mx) / sum);
+  for (int j = lane; j < NS; j += 32)
+    sl[j * ld] = gm * ((j == ki ? 1.0f : 0.0f) - expf(sl[j * ld] - s.slot_max) / s.slot_sum);
 }
 
 constexpr int kMaxF = 4;  // flow-head features a warp's d kf holds in registers
 
 // d kf = d sp . head_w[H:H+F]^T of one row on one warp, the row's d sp at
-// dsp[k * ld], its F outputs to out[f * TILE_ROWS], in dense's summation
-// order: lane c takes the partial sum of inputs [32c, 32c + 32) (fmaf, k
-// ascending) and the partials are added in order, so the result has the
-// bits of the same product through tile_dense. (As a product of the list,
-// 3 columns over HO inputs, it took 19 % of K3p's time on the H100 for
-// 0.4 % of its FLOP: 23 chunks of weights staged for 24 outputs.) The rows
-// of head_w_pad are 16-byte aligned, so the weights come as float4.
+// dsp[k * ld], its F outputs to out[f * TILE_ROWS], in tile_dense's
+// summation order: lane c takes the partial sum of inputs [32c, 32c + 32)
+// (fmaf, k ascending) and the partials are added in order, so the result
+// has the bits of the same product through tile_dense. (As a product of the
+// list, 3 columns over HO inputs, it took 19 % of K3p's time on the H100
+// for 0.4 % of its FLOP: 23 chunks of weights staged for 24 outputs.) The
+// rows of the padded head_w are 16-byte aligned, so the weights come as
+// float4.
 __device__ __forceinline__ void warp_dkf(const float* dsp, int ld, const MnleParams& p, float* out, int lane) {
   float acc[kMaxF] = {};
   for (int base = 0; base < p.HO; base += 32 * 32) {
@@ -411,7 +320,8 @@ __device__ __forceinline__ void warp_dkf(const float* dsp, int ld, const MnlePar
         float4 wq[kMaxF];
 #pragma unroll
         for (int f = 0; f < kMaxF; ++f)
-          if (f < p.F) wq[f] = __ldg(reinterpret_cast<const float4*>(p.head_w_pad + (size_t)(p.H + f) * p.head_ld + k0) + q);
+          if (f < p.F)
+            wq[f] = __ldg(reinterpret_cast<const float4*>(p.head_w + (size_t)(p.H + f) * p.head_ld + k0) + q);
         const float v[4] = {dsp[(k0 + 4 * q) * ld], dsp[(k0 + 4 * q + 1) * ld], dsp[(k0 + 4 * q + 2) * ld],
                             dsp[(k0 + 4 * q + 3) * ld]};
 #pragma unroll
@@ -429,7 +339,7 @@ __device__ __forceinline__ void warp_dkf(const float* dsp, int ld, const MnlePar
         const float v = dsp[k * ld];
 #pragma unroll
         for (int f = 0; f < kMaxF; ++f)
-          if (f < p.F) part[f] = fmaf(v, __ldg(p.head_w_pad + (size_t)(p.H + f) * p.head_ld + k), part[f]);
+          if (f < p.F) part[f] = fmaf(v, __ldg(p.head_w + (size_t)(p.H + f) * p.head_ld + k), part[f]);
       }
     }
     const int parts = min(32, (p.HO - base + 31) / 32);
@@ -465,7 +375,7 @@ struct K3pProducts {
     i -= L;
     switch (i) {
       case 0: return {p.slot_w, p.slot_b, p.NS, H, p.NS, false};
-      case 1: return {p.head_w_pad, p.head_b, p.head_ld, H + p.F, p.HO, false};
+      case 1: return {p.head_w, p.head_b, p.head_ld, H + p.F, p.HO, false};
       case 2: return {p.head_wt, nullptr, p.head_t_ld, p.HO, H, false};
       case 3: return {p.slot_wt, nullptr, H, p.NS, H, false};
       default: break;
@@ -480,6 +390,86 @@ struct K3pProducts {
   }
 };
 
+// K2p's products: the forward, K3p's first 2L + 2.
+struct K2pProducts {
+  const MnleParams& p;
+  __device__ int count() const { return 2 * p.n_layers + 2; }
+  __device__ TileProduct operator()(int i) const { return K3pProducts{p}(i); }
+};
+
+// Writes kf of the tile's rows k-major into kf_s (F x TILE_ROWS, zeros past
+// the last row).
+__device__ __forceinline__ void load_tile_features(const float* __restrict__ kf, float* kf_s, int row0, int N,
+                                                   int F) {
+  for (int idx = threadIdx.x; idx < TILE_ROWS * F; idx += TILE_THREADS) {
+    const int r = idx / F, f = idx % F, row = row0 + r;
+    kf_s[f * TILE_ROWS + r] = row < N ? kf[(size_t)row * F + f] : 0.0f;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2p: the forward products through two hidden buffers, then a warp per row.
+// ---------------------------------------------------------------------------
+
+size_t fwd_smem_bytes(const MnleParams& p) {
+  return sizeof(float) * ((size_t)TILE_STAGES * TILE_WBUF +
+                          (size_t)TILE_ROWS * (p.D + p.C + 2 * p.H + p.F + p.C + p.NS + p.HO));
+}
+
+__global__ void __launch_bounds__(TILE_THREADS, FWD_BLOCKS_PER_SM) mnle_pulse_fwd_kernel(
+    const __grid_constant__ MnleParams p, const float* __restrict__ phi, const float* __restrict__ oh,
+    const float* __restrict__ ctx, const float* __restrict__ kf, const float* __restrict__ kv,
+    float* __restrict__ out, int N) {
+  extern __shared__ float4 smem4[];
+  constexpr int R = TILE_ROWS;
+  const int DC = p.D + p.C, H = p.H, L = p.n_layers;
+  // Every array is k-major: element (k, r) at a[k * R + r]. The hidden
+  // layers go to hid[0] and hid[1] in turn, the trunk's last to hid[0],
+  // which kf_s follows: [emb; kf] is one (H + F) x R operand.
+  float* ws = reinterpret_cast<float*>(smem4);  // TILE_STAGES x TILE_WBUF weight staging
+  float* x0 = ws + TILE_STAGES * TILE_WBUF;     // DC x R: [ctx | onehot]
+  float* kf_s = x0 + DC * R + H * R;            // F x R
+  float* hid[2] = {x0 + DC * R, kf_s + p.F * R};
+  float* logits = hid[1] + H * R;  // C x R
+  float* slot = logits + p.C * R;  // NS x R
+  float* sp = slot + p.NS * R;     // HO x R
+  const int row0 = blockIdx.x * R;
+  WeightStream<K2pProducts> ws_stream(K2pProducts{p}, ws);  // starts loading the first products' weights
+  load_tile_rows(ctx, p.D, oh, p.C, x0, row0, N);
+  load_tile_features(kf, kf_s, row0, N, p.F);
+
+  const float* in = x0;
+  for (int l = 0; l < L; ++l) {
+    float* o = l == L - 1 ? logits : hid[l % 2];
+    tile_dense(ws_stream, in, o, nullptr, false);
+    in = o;
+  }
+  in = x0;
+  for (int l = 0; l < L; ++l) {
+    float* o = hid[(L - 1 - l) % 2];
+    tile_dense(ws_stream, in, o, nullptr, false);
+    in = o;
+  }
+  tile_dense(ws_stream, hid[0], slot, nullptr, false);
+  tile_dense(ws_stream, hid[0], sp, nullptr, false);  // [emb; kf]
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < R; r += TILE_THREADS / 32) {
+    const int row = row0 + r;
+    if (row >= N) continue;
+    PulseState s;
+    const float v =
+        warp_pulse_row_logp(logits + r, x0 + p.D * R + r, slot + r, sp + r, p, phi[row], kv[row], s, lane);
+    if (lane == 0) out[row] = v;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3p: the same forward keeping every activation, the row's value, then the
+// backward.
+// ---------------------------------------------------------------------------
+
 size_t bwd_smem_bytes(const MnleParams& p) {
   return sizeof(float) * ((size_t)TILE_STAGES * TILE_WBUF +
                           (size_t)TILE_ROWS * (p.D + p.C + (2 * p.n_layers - 1) * p.H + 2 * p.F + p.C + p.NS +
@@ -489,11 +479,11 @@ size_t bwd_smem_bytes(const MnleParams& p) {
 __global__ void __launch_bounds__(TILE_THREADS, 2) mnle_pulse_bwd_kernel(
     const __grid_constant__ MnleParams p, const float* __restrict__ phi, const float* __restrict__ oh,
     const float* __restrict__ ctx, const float* __restrict__ kf, const float* __restrict__ kv,
-    const float* __restrict__ g, float* __restrict__ dphi, float* __restrict__ dctx, float* __restrict__ dkf,
-    int N) {
+    const float* __restrict__ g, float* __restrict__ out, float* __restrict__ dphi, float* __restrict__ dctx,
+    float* __restrict__ dkf, int N) {
   extern __shared__ float4 smem4[];
   constexpr int R = TILE_ROWS;
-  const int DC = p.D + p.C, H = p.H, L = p.n_layers, K = p.K, S = 3 * p.K + 1;
+  const int DC = p.D + p.C, H = p.H, L = p.n_layers, S = 3 * p.K + 1;
   // Every array is k-major: element (k, r) at a[k * R + r].
   float* ws = reinterpret_cast<float*>(smem4);   // TILE_STAGES x TILE_WBUF weight staging
   float* x0 = ws + TILE_STAGES * TILE_WBUF;      // DC x R: [ctx | onehot]
@@ -509,16 +499,8 @@ __global__ void __launch_bounds__(TILE_THREADS, 2) mnle_pulse_bwd_kernel(
   float* emb = trunk_act + (L - 1) * H * R;
   const int row0 = blockIdx.x * R;
   WeightStream<K3pProducts> ws_stream(K3pProducts{p}, ws);  // starts loading the first products' weights
-  for (int idx = threadIdx.x; idx < R * DC; idx += TILE_THREADS) {
-    const int r = idx / DC, k = idx % DC, row = row0 + r;
-    float v = 0.0f;
-    if (row < N) v = k < p.D ? ctx[(size_t)row * p.D + k] : oh[(size_t)row * p.C + (k - p.D)];
-    x0[k * R + r] = v;
-  }
-  for (int idx = threadIdx.x; idx < R * p.F; idx += TILE_THREADS) {
-    const int r = idx / p.F, f = idx % p.F, row = row0 + r;
-    kf_s[f * R + r] = row < N ? kf[(size_t)row * p.F + f] : 0.0f;
-  }
+  load_tile_rows(ctx, p.D, oh, p.C, x0, row0, N);
+  load_tile_features(kf, kf_s, row0, N, p.F);
 
   // Forward, keeping every activation.
   const float* in = x0;
@@ -537,44 +519,35 @@ __global__ void __launch_bounds__(TILE_THREADS, 2) mnle_pulse_bwd_kernel(
   tile_dense(ws_stream, emb, sp, nullptr, false);  // [emb; kf]
   __syncthreads();
 
-  // Per row, one warp: d logits (in place), d slot logits (in place), the
-  // flow backward (d head output in place, dphi to global memory) and d kf.
-  // Lane i holds bin i of each spline, and lane j keeps transform j's bin,
-  // input and rotation between the forward recompute and the backward; the
-  // chain over the transforms stays serial. Censored rows take the branch
-  // that zeroes their slot and spline gradients.
+  // Per row, one warp: the value (as K2p writes it), then d logits (in
+  // place), d slot logits (in place), the flow backward (d head output in
+  // place, dphi to global memory) and d kf. Lane i holds bin i of each
+  // spline, and lane j keeps transform j's bin, input and rotation between
+  // the forward and the backward; the chain over the transforms stays
+  // serial. Censored rows take the branch that zeroes their slot and spline
+  // gradients.
   const int lane = threadIdx.x & 31;
   for (int r = threadIdx.x >> 5; r < R; r += TILE_THREADS / 32) {
     const int row = row0 + r;
-    const float gr = row < N ? g[row] : 0.0f;
     const float* ohr = x0 + p.D * R + r;
-    if (lane == 0) cat_grad_strided(logits + r, ohr, R, p.C, gr);
     float* spr = sp + r;
-    const float keep = p.censored_col >= 0 ? 1.0f - ohr[p.censored_col * R] : 1.0f;
+    PulseState s;
+    if (row < N) {
+      const float lp = warp_pulse_row_logp(logits + r, ohr, slot + r, spr, p, phi[row], kv[row], s, lane);
+      if (lane == 0) out[row] = lp;
+    }
+    __syncwarp();  // every lane has read the slot logits the backward overwrites
+    const float gr = row < N ? g[row] : 0.0f;
+    if (lane == 0) cat_grad_strided(logits + r, ohr, R, p.C, gr);
+    const float keep = keep_factor(ohr, p);
     float dz = 0.0f;
     if (keep > 0.0f && row < N) {
       const float gm = gr * keep;
-      warp_slot_grad(slot + r, R, p.NS, kv[row], gm, lane);
-      Bin mine{};  // transform `lane`'s bin ...
-      float mine_x = 0.0f, mine_rot = 0.0f;  // ... input and rotation
-      float z = phi[row];
-      for (int i = 0; i < p.T; ++i) {
-        float* P = spr + i * S * R;
-        const float rot = sigmoid(P[3 * K * R]);
-        float m, zc;
-        circular_phase(z, rot, &m, &zc);
-        const Bin b = warp_circular_bin(P, R, p, zc, lane);
-        if (lane == i) {
-          mine = b;
-          mine_x = z;
-          mine_rot = rot;
-        }
-        z = circular_y(b, zc);
-      }
+      warp_slot_grad(slot + r, R, p.NS, kv[row], gm, s, lane);
       // Uniform base: the last z carries no gradient; each log-det gets gm.
       for (int i = p.T - 1; i >= 0; --i) {
-        const Bin b = shfl_bin(mine, i);
-        const float x = __shfl_sync(kFull, mine_x, i), rot = __shfl_sync(kFull, mine_rot, i);
+        const Bin b = shfl_bin(s.mine, i);
+        const float x = __shfl_sync(kFull, s.mine_x, i), rot = __shfl_sync(kFull, s.mine_rot, i);
         dz = warp_circular_bwd(spr + i * S * R, R, p, b, rot, x, dz, gm, lane);
       }
       __syncwarp();  // every lane's d sp written
@@ -620,13 +593,12 @@ __global__ void __launch_bounds__(TILE_THREADS, 2) mnle_pulse_bwd_kernel(
   }
 }
 
-size_t fwd_smem_bytes(const MnleParams& p) {
-  return sizeof(float) * (size_t)ROWS * (p.D + p.C + 2 * p.H + p.H + p.F + p.C + p.NS + p.HO);
-}
-
+// One bin per lane of a warp; kf's columns in registers (warp_dkf); the
+// padded head copies.
 bool params_ok(const MnleParams* p) {
-  return p->T <= MAX_TRANSFORMS && p->n_layers >= 1 && p->n_layers <= MAX_LAYERS && p->K >= 1 &&
-         p->NS >= 1 && p->F >= 0 && p->HO == p->T * (3 * p->K + 1);
+  return p->T <= MAX_TRANSFORMS && p->n_layers >= 1 && p->n_layers <= MAX_LAYERS && p->K >= 1 && p->K <= 32 &&
+         p->NS >= 1 && p->F >= 1 && p->F <= kMaxF && p->HO == p->T * (3 * p->K + 1) && p->head_ld >= p->HO &&
+         p->head_ld % 4 == 0 && p->head_t_ld >= p->H + p->F;
 }
 
 }  // namespace
@@ -643,27 +615,23 @@ int sdm_mnle_pulse_fwd(const MnleParams* p, const float* phi, const float* oh, c
   cudaError_t err = cudaFuncSetAttribute(mnle_pulse_fwd_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (N + ROWS - 1) / ROWS;
-  mnle_pulse_fwd_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(*p, phi, oh, ctx, kf, kv,
-                                                                         out, N);
+  const int blocks = (N + TILE_ROWS - 1) / TILE_ROWS;
+  mnle_pulse_fwd_kernel<<<blocks, TILE_THREADS, smem, (cudaStream_t)stream>>>(*p, phi, oh, ctx, kf, kv, out, N);
   return (int)cudaGetLastError();
 }
 
 int sdm_mnle_pulse_bwd(const MnleParams* p, const float* phi, const float* oh, const float* ctx,
-                       const float* kf, const float* kv, const float* g, float* dphi, float* dctx,
+                       const float* kf, const float* kv, const float* g, float* out, float* dphi, float* dctx,
                        float* dkf, int N, void* stream) {
   if (N <= 0) return 0;
-  // One bin per lane of a warp; kf's columns and the padded head copies.
-  if (!params_ok(p) || p->K > 32 || p->F < 1 || p->F > kMaxF || p->head_ld < p->HO || p->head_t_ld < p->H + p->F ||
-      p->head_ld % 4 != 0)
-    return (int)cudaErrorInvalidValue;
+  if (!params_ok(p)) return (int)cudaErrorInvalidValue;
   const size_t smem = bwd_smem_bytes(*p);
   cudaError_t err = cudaFuncSetAttribute(mnle_pulse_bwd_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (N + TILE_ROWS - 1) / TILE_ROWS;
-  mnle_pulse_bwd_kernel<<<blocks, TILE_THREADS, smem, (cudaStream_t)stream>>>(*p, phi, oh, ctx, kf, kv, g, dphi,
-                                                                              dctx, dkf, N);
+  mnle_pulse_bwd_kernel<<<blocks, TILE_THREADS, smem, (cudaStream_t)stream>>>(*p, phi, oh, ctx, kf, kv, g, out,
+                                                                              dphi, dctx, dkf, N);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,8 @@
-// Register-tiled FP32 tile product for the fused MNLE kernels (used by K3,
-// mnle_logprob.cu). A block of TILE_THREADS threads owns a tile of
-// TILE_ROWS rows; the tile's activations live in shared memory k-major:
-// element (k, r) at a[k * TILE_ROWS + r], so one 16-byte load gives four
-// rows of one input k.
+// Register-tiled FP32 tile product for the fused MNLE kernels (K2 and K3 in
+// mnle_logprob.cu, K2p and K3p in mnle_pulse.cu). A block of TILE_THREADS
+// threads owns a tile of TILE_ROWS rows; the tile's activations live in
+// shared memory k-major: element (k, r) at a[k * TILE_ROWS + r], so one
+// 16-byte load gives four rows of one input k.
 //
 // out[(j, r)] (+)= act(b[j] + sum_k in[(k, r)] W[k, j]) for the tile's rows.
 // W is row-major in global memory with leading dimension w_ld. A kernel
@@ -18,13 +18,8 @@
 // one k are one shared-memory wavefront each; a narrower chunk (the
 // categorical logits, the d ctx products, the head's last columns) spreads
 // its TILE_ROWS x cols outputs over all threads, consecutive threads on
-// consecutive rows, so no more than a warp idles.
-//
-// The summation order is that of `dense` (mnle_common.cuh), so both give
-// the same bits: per output, k ascending, fmaf into a partial sum of
-// TILE_KC = SUM_BLOCK terms, each partial added to the bias-initialised
-// accumulator. All arithmetic is FP32, no tensor cores (the JAX kernel
-// computes at Precision.HIGHEST).
+// consecutive rows, so no more than a warp idles. All arithmetic is FP32,
+// no tensor cores (the JAX kernel computes at Precision.HIGHEST).
 
 #pragma once
 
@@ -36,6 +31,11 @@
 // flagship's widths, so two blocks fit on an SM; 16-row tiles were slower
 // on the H100 at 1,200 and at 115,200 rows (ROADMAP.md, open questions).
 #define TILE_ROWS 8
+// Blocks an SM the forward kernels K2 and K2p are built for (their
+// __launch_bounds__): with two hidden buffers instead of every activation
+// they take 66,656 B and 69,888 B of shared memory at the flagship's and
+// the pulse model's widths, so three fit, at 80 registers a thread or fewer.
+#define FWD_BLOCKS_PER_SM 3
 #define TILE_KC 32
 #define TILE_NC 128
 #define TILE_WBUF (TILE_KC * TILE_NC)  // floats in one staging buffer
@@ -153,8 +153,9 @@ struct WeightStream {
   }
 };
 
-// act(acc) with the optional ReLU mask and accumulation, as `dense` applies
-// them, for out[col * TILE_ROWS + r].
+// act(acc) with the optional ReLU mask (the output is 0 where mask <= 0)
+// and accumulation (the output is added to what out holds), for
+// out[col * TILE_ROWS + r].
 __device__ __forceinline__ float epilogue(float acc, bool relu, const float* mask, const float* out, int col, int r,
                                           bool accumulate) {
   float v = relu ? fmaxf(acc, 0.0f) : acc;
@@ -165,9 +166,16 @@ __device__ __forceinline__ float epilogue(float acc, bool relu, const float* mas
 
 // The stream's next product (see the header), with its bias and ReLU, on
 // inputs `in` into `out`, with the ReLU mask `mask` (optional) and the
-// accumulation as `dense` takes them; every array k-major with stride
-// TILE_ROWS. The inputs must be written before the call; the outputs are
-// visible to other threads after the next __syncthreads().
+// accumulation of `epilogue`; every array k-major with stride TILE_ROWS.
+// The inputs must be written before the call; the outputs are visible to
+// other threads after the next __syncthreads().
+//
+// The summation order is fixed, so every kernel that runs a product gets
+// the same bits from it (K3's forward recompute and K2's forward, K3p's and
+// K2p's): per output, k ascending, fmaf into a partial sum of TILE_KC = 32
+// terms, each partial added to the bias-initialised accumulator. (One
+// running sum over all 128 inputs of a hidden layer rounds about four times
+// worse.)
 template <class Stream>
 __device__ void tile_dense(Stream& s, const float* in, float* out, const float* mask, bool accumulate) {
   constexpr int R = TILE_ROWS;
@@ -256,6 +264,20 @@ __device__ void tile_dense(Stream& s, const float* in, float* out, const float* 
         }
       }
     }
+  }
+}
+
+// Loads [ctx | onehot] of the tile's rows k-major into x0 ((D + C) x
+// TILE_ROWS, zeros past the last row); visible to other threads after the
+// next __syncthreads().
+__device__ __forceinline__ void load_tile_rows(const float* __restrict__ ctx, int D, const float* __restrict__ oh,
+                                               int C, float* x0, int row0, int N) {
+  const int DC = D + C;
+  for (int idx = threadIdx.x; idx < TILE_ROWS * DC; idx += TILE_THREADS) {
+    const int r = idx / DC, k = idx % DC, row = row0 + r;
+    float v = 0.0f;
+    if (row < N) v = k < D ? ctx[(size_t)row * D + k] : oh[(size_t)row * C + (k - D)];
+    x0[k * TILE_ROWS + r] = v;
   }
 }
 

@@ -250,17 +250,17 @@ class MCMCPosterior:
         theta = self.bij.forward(samples_u)
         pooled = theta.transpose(0, 1).reshape(-1, theta.shape[-1])
         out = pooled[:num_samples]
-        if self.verbose and "diverging" in info:
+        if self.verbose and self.method == "nuts" and "diverging" in info:
             ap = float(info["accept_prob"].mean())
             dv = int(info["diverging"].sum())
             print(
                 f"[mcmc] nuts: chains={self.num_chains} draws/chain={per_chain} "
                 f"mean_accept={ap:.3f} divergences={dv}"
             )
-        if self.num_chains >= 2 and per_chain >= 10:
+        if self.verbose and self.num_chains >= 2 and per_chain >= 10:
             from .diagnostics import summarize_chains
 
-            self._last_diagnostics = summarize_chains(theta, verbose=self.verbose)
+            self._last_diagnostics = summarize_chains(theta, verbose=True)
         return out
 
     @property

@@ -440,7 +440,8 @@ def run_inference_mcmc(
     (POSTERIOR_SAMPLES, theta_dim) on ``device`` (default: the estimator's).
     With ``return_info=True`` also the sampler's info dict (per-chain accept
     probabilities, tree sizes and divergences of every rung, step sizes,
-    swap acceptance) with the cold chains' ``diagnostics`` (ESS, R-hat).
+    swap acceptance) with the cold chains' ``diagnostics`` (ESS, R-hat;
+    None unless ``verbose``, as in the JAX package).
 
     The potential is log prior(theta) + sum_i log p(x_i | theta, s_i) / T,
     sampled in the unconstrained space of ``mcmc_transform(prior)`` by

@@ -6,28 +6,32 @@ categorical MLP and its log-softmax, the flow trunk, one head matmul to all
 spline parameters (plus the affine (mu, log sigma) pair), the conditional
 affine layer, the RQ spline chain and the normal base, with the censored
 mask. K2 (``csrc/mnle_logprob.cu``, ``mnle_logprob_fwd_kernel``) returns the
-row log-probs; K3 (``mnle_logprob_bwd_kernel``) recomputes the forward and
-returns the cotangent-weighted gradients w.r.t. the standardized RT ``t``
-and the context ``ctx``, never w.r.t. the weights (training keeps the plain
-autodiff path). ``FusedRowsLogProb`` binds them as a
-``torch.autograd.Function``; ``make_fused_logprob`` wraps the outer
-transforms around it, as the JAX ``make_fused_logprob`` does.
+row log-probs; K3 (``mnle_logprob_bwd_kernel``) recomputes the forward,
+returns the same values (the same bits as K2's) and the cotangent-weighted
+gradients w.r.t. the standardized RT ``t`` and the context ``ctx``, never
+w.r.t. the weights (training keeps the plain autodiff path).
+``FusedRowsLogProb`` binds them as a ``torch.autograd.Function``;
+``make_fused_logprob`` wraps the outer transforms around it, as the JAX
+``make_fused_logprob`` does.
 
 Beside the kernels stand their plain versions: ``rows_logp_plain`` (the
 counterpart of the JAX ``_rows_logp``) and ``rows_logp_vjp_plain``
-(``torch.autograd.grad`` of it). The wrappers ``rows_logp`` and
-``rows_logp_vjp`` launch the kernels for CUDA tensors and take the plain
-versions for CPU tensors only.
+(``torch.autograd.grad`` of it). The wrappers ``rows_logp`` (K2),
+``rows_logp_and_vjp`` (K3: value and gradients) and ``rows_logp_vjp`` (K3,
+gradients only) launch the kernels for CUDA tensors and take the plain
+versions for CPU tensors only. A caller that needs a value and its gradient
+calls ``rows_logp_and_vjp``: one launch.
 
 The pulse-grid representation (absolute anchor) has its own pair, K2p
 (``csrc/mnle_pulse.cu``, ``mnle_pulse_fwd_kernel``) and K3p
 (``mnle_pulse_bwd_kernel``), the counterparts of the same Pallas kernels run
 with the JAX row function ``_rows_logp_pulse``: the rows carry the phase
 phi, the flow-head features kf and the slot index kv, and K3p returns the
-gradients w.r.t. phi, ctx and kf. Their plain versions are
+values and the gradients w.r.t. phi, ctx and kf. Their plain versions are
 ``rows_logp_pulse_plain`` and ``rows_logp_pulse_vjp_plain``, their wrappers
-``rows_logp_pulse`` and ``rows_logp_pulse_vjp``, their
-``autograd.Function`` ``FusedPulseRowsLogProb``.
+``rows_logp_pulse``, ``rows_logp_pulse_and_vjp`` and
+``rows_logp_pulse_vjp``, their ``autograd.Function``
+``FusedPulseRowsLogProb``.
 """
 
 from __future__ import annotations
@@ -58,11 +62,13 @@ __all__ = [
     "rows_logp_plain",
     "rows_logp_vjp_plain",
     "rows_logp",
+    "rows_logp_and_vjp",
     "rows_logp_vjp",
     "FusedRowsLogProb",
     "rows_logp_pulse_plain",
     "rows_logp_pulse_vjp_plain",
     "rows_logp_pulse",
+    "rows_logp_pulse_and_vjp",
     "rows_logp_pulse_vjp",
     "FusedPulseRowsLogProb",
     "make_fused_logprob",
@@ -110,18 +116,17 @@ class _Params(ctypes.Structure):
         ("slot_b", ctypes.c_void_p),
         ("NS", ctypes.c_int),
         ("F", ctypes.c_int),
-        ("head_w_pad", ctypes.c_void_p),
         ("head_ld", ctypes.c_int),
         ("head_t_ld", ctypes.c_int),
     ]
 
 
 _ARGS_FWD = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
-_ARGS_BWD = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
+_ARGS_BWD = [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p]
 K2 = CudaKernel("mnle_logprob_fwd", "mnle_logprob.cu", "sdm_mnle_logprob_fwd", _ARGS_FWD)
 K3 = CudaKernel("mnle_logprob_bwd", "mnle_logprob.cu", "sdm_mnle_logprob_bwd", _ARGS_BWD)
 _ARGS_PULSE_FWD = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
-_ARGS_PULSE_BWD = [ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p]
+_ARGS_PULSE_BWD = [ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_void_p]
 K2P = CudaKernel("mnle_pulse_fwd", "mnle_pulse.cu", "sdm_mnle_pulse_fwd", _ARGS_PULSE_FWD)
 K3P = CudaKernel("mnle_pulse_bwd", "mnle_pulse.cu", "sdm_mnle_pulse_bwd", _ARGS_PULSE_BWD)
 
@@ -135,8 +140,8 @@ class MNLEWeights:
     (H [+ F], T*S [+2]) and ``head_b`` the concatenated spline heads (and
     the affine head last, when cond_affine) — the JAX ``pack_mnle_weights``
     order. ``*_t`` are (out, in) copies read by the backward kernels, so
-    their transposed products read weights coalesced; K3p reads the head's
-    copies from ``padded_head``.
+    their transposed products read weights coalesced; K2p and K3p read the
+    head and its transpose from ``padded_head``.
     """
 
     cat: list
@@ -185,7 +190,7 @@ class MNLEWeights:
         return out + [self.head_w, self.head_b]
 
     def padded_head(self) -> tuple:
-        """K3p's copies of the head weights: head_w (H + F, HO) and its
+        """K2p's and K3p's copies of the head weights: head_w (H + F, HO) and its
         transpose (HO, H + F), each with zero columns appended up to a
         multiple of 4 floats (16 bytes), so the tile product stages every
         row by 16-byte copies. The padding is never read into an output."""
@@ -213,12 +218,12 @@ class MNLEWeights:
                     getattr(p, f"{name}_w")[i] = Wc.data_ptr()
                     getattr(p, f"{name}_wt")[i] = Wt.data_ptr()
                     getattr(p, f"{name}_b")[i] = bc.data_ptr()
-            hw, hb = self.head_w.contiguous(), self.head_b.contiguous()
-            # The pulse rep's transposed head is read by K3p only, padded; K2p reads head_w as it is.
-            hwp, hwt = self.padded_head() if self.pulse else (hw, self.head_w.t().contiguous())
-            keep += [hw, hwp, hwt, hb]
+            # The pulse rep's head and its transpose are padded (16-byte rows), the others' kept as they are.
+            hw, hwt = self.padded_head() if self.pulse else (self.head_w.contiguous(), self.head_w.t().contiguous())
+            hb = self.head_b.contiguous()
+            keep += [hw, hwt, hb]
             p.head_w, p.head_wt, p.head_b = hw.data_ptr(), hwt.data_ptr(), hb.data_ptr()
-            p.head_w_pad, p.head_ld, p.head_t_ld = hwp.data_ptr(), hwp.shape[1], hwt.shape[1]
+            p.head_ld, p.head_t_ld = hw.shape[1], hwt.shape[1]
             if self.pulse:
                 sw, swt, sb = self.slot[0].contiguous(), self.slot[0].t().contiguous(), self.slot[1].contiguous()
                 keep += [sw, swt, sb]
@@ -373,6 +378,8 @@ def rows_logp_pulse_vjp_plain(phi, oh, ctx, kf, kv, w: MNLEWeights, g):
 def _check_rows(t, oh, ctx, w: MNLEWeights):
     N = t.shape[0]
     p = w.struct()
+    if p.K > 32:
+        raise ValueError(f"the fused kernels hold one spline bin per lane of a warp: num_bins={p.K} > 32")
     check_cuda_tensor("t", t, (N,))
     check_cuda_tensor("onehot", oh, (N, p.C))
     check_cuda_tensor("ctx", ctx, (N, p.D))
@@ -392,19 +399,28 @@ def rows_logp(t, oh, ctx, w: MNLEWeights):
     return out
 
 
-def rows_logp_vjp(t, oh, ctx, w: MNLEWeights, g):
-    """K3 for CUDA tensors, ``rows_logp_vjp_plain`` for CPU tensors."""
+def rows_logp_and_vjp(t, oh, ctx, w: MNLEWeights, g):
+    """(value (N,), dt (N,), dctx (N, D)): K3 alone for CUDA tensors (its
+    value has K2's bits), ``rows_logp_plain`` and ``rows_logp_vjp_plain``
+    for CPU tensors."""
     if not t.is_cuda:
-        return rows_logp_vjp_plain(t, oh, ctx, w, g)
+        return (rows_logp_plain(t, oh, ctx, w), *rows_logp_vjp_plain(t, oh, ctx, w, g))
     N, p = _check_rows(t, oh, ctx, w)
-    if p.K > 32:
-        raise ValueError(f"K3 holds one spline bin per lane of a warp: num_bins={p.K} > 32")
     check_cuda_tensor("g", g, (N,))
+    out = torch.empty((N,), dtype=torch.float32, device=t.device)
     dt = torch.empty((N,), dtype=torch.float32, device=t.device)
     dctx = torch.empty((N, p.D), dtype=torch.float32, device=t.device)
-    K3(ctypes.byref(p), t.data_ptr(), oh.data_ptr(), ctx.data_ptr(), g.data_ptr(),
+    K3(ctypes.byref(p), t.data_ptr(), oh.data_ptr(), ctx.data_ptr(), g.data_ptr(), out.data_ptr(),
        dt.data_ptr(), dctx.data_ptr(), N, stream_handle(t.device))
-    return dt, dctx
+    return out, dt, dctx
+
+
+def rows_logp_vjp(t, oh, ctx, w: MNLEWeights, g):
+    """(dt, dctx): K3 for CUDA tensors, ``rows_logp_vjp_plain`` for CPU
+    tensors."""
+    if not t.is_cuda:
+        return rows_logp_vjp_plain(t, oh, ctx, w, g)
+    return rows_logp_and_vjp(t, oh, ctx, w, g)[1:]
 
 
 class FusedRowsLogProb(torch.autograd.Function):
@@ -447,21 +463,30 @@ def rows_logp_pulse(phi, oh, ctx, kf, kv, w: MNLEWeights):
     return out
 
 
-def rows_logp_pulse_vjp(phi, oh, ctx, kf, kv, w: MNLEWeights, g):
-    """K3p for CUDA tensors, ``rows_logp_pulse_vjp_plain`` for CPU tensors:
-    (dphi (N,), dctx (N, D), dkf (N, F))."""
+def rows_logp_pulse_and_vjp(phi, oh, ctx, kf, kv, w: MNLEWeights, g):
+    """(value (N,), dphi (N,), dctx (N, D), dkf (N, F)): K3p alone for CUDA
+    tensors (its value has K2p's bits), ``rows_logp_pulse_plain`` and
+    ``rows_logp_pulse_vjp_plain`` for CPU tensors."""
     if not phi.is_cuda:
-        return rows_logp_pulse_vjp_plain(phi, oh, ctx, kf, kv, w, g)
+        return (rows_logp_pulse_plain(phi, oh, ctx, kf, kv, w), *rows_logp_pulse_vjp_plain(phi, oh, ctx, kf, kv, w, g))
     N, p = _check_pulse_rows(phi, oh, ctx, kf, kv, w)
-    if p.K > 32:
-        raise ValueError(f"K3p holds one spline bin per lane of a warp: num_bins={p.K} > 32")
     check_cuda_tensor("g", g, (N,))
+    out = torch.empty((N,), dtype=torch.float32, device=phi.device)
     dphi = torch.empty((N,), dtype=torch.float32, device=phi.device)
     dctx = torch.empty((N, p.D), dtype=torch.float32, device=phi.device)
     dkf = torch.empty((N, p.F), dtype=torch.float32, device=phi.device)
     K3P(ctypes.byref(p), phi.data_ptr(), oh.data_ptr(), ctx.data_ptr(), kf.data_ptr(), kv.data_ptr(),
-        g.data_ptr(), dphi.data_ptr(), dctx.data_ptr(), dkf.data_ptr(), N, stream_handle(phi.device))
-    return dphi, dctx, dkf
+        g.data_ptr(), out.data_ptr(), dphi.data_ptr(), dctx.data_ptr(), dkf.data_ptr(), N,
+        stream_handle(phi.device))
+    return out, dphi, dctx, dkf
+
+
+def rows_logp_pulse_vjp(phi, oh, ctx, kf, kv, w: MNLEWeights, g):
+    """(dphi (N,), dctx (N, D), dkf (N, F)): K3p for CUDA tensors,
+    ``rows_logp_pulse_vjp_plain`` for CPU tensors."""
+    if not phi.is_cuda:
+        return rows_logp_pulse_vjp_plain(phi, oh, ctx, kf, kv, w, g)
+    return rows_logp_pulse_and_vjp(phi, oh, ctx, kf, kv, w, g)[1:]
 
 
 class FusedPulseRowsLogProb(torch.autograd.Function):

@@ -4,13 +4,15 @@ log-likelihood and the theta-only posterior potential.
 Counterpart of ``sbi_for_diffusion_models_tpu/potentials.py``. Where the JAX
 package ``vmap``s the per-theta sum over trials, the port builds the (N*T)
 rows of all thetas and trials at once, so one batched call of the log-prob
-(one K2 launch forward, one K3 launch backward) serves every chain.
+serves every chain.
 
 ``log_lik_fn`` differentiates by autograd (through the fused
 ``autograd.Function`` or the plain network). ``log_lik_and_grad`` computes
-the same value and its theta-gradient in closed form around K2/K3 (K2p/K3p
-for the pulse rep); the sampler uses it at every leapfrog step, where
-autograd's per-operation host cost was most of the step's time on the card.
+the same value and its theta-gradient in closed form around one K3 launch
+(K3p for the pulse rep), which writes the rows' values and their
+gradients; a call without the gradient launches K2 (K2p). The sampler uses
+it at every leapfrog step, where autograd's per-operation host cost was most
+of the step's time on the card.
 """
 
 from __future__ import annotations
@@ -107,8 +109,9 @@ class ConditionedMNLELogLikelihood:
 
     def log_lik_and_grad(self, x, theta, need_grad: bool = True):
         """``(ll (N,), d ll / d theta (N, D) or None)`` for x (T, 2) and theta
-        (N, D) on the fused path: one K2 (K2p) launch for the values and one
-        K3 (K3p) launch for the gradient over all N*T rows, with the outer
+        (N, D) on the fused path: one K3 (K3p) launch for the values and
+        the gradient over all N*T rows (one K2 (K2p) launch for the values
+        alone when ``need_grad`` is False), with the outer
         transforms (condition log/z-score, shifted-log RT, its log-det and
         barrier, the pulse rep's t_nd phase features, the censored mask)
         differentiated in closed form instead of by autograd. The same
@@ -156,12 +159,11 @@ class ConditionedMNLELogLikelihood:
         weights = self._lp_fused.weights
         t_rows = t.reshape(N * T)
         oh_rows = sess["onehot"].repeat(N, 1)
-        ll = (mnle_cuda.rows_logp(t_rows, oh_rows, ctx, weights).reshape(N, T) + extra).sum(-1)
         if not need_grad:
-            return ll, None
+            return (mnle_cuda.rows_logp(t_rows, oh_rows, ctx, weights).reshape(N, T) + extra).sum(-1), None
 
-        ones = torch.ones_like(t_rows)
-        d_t, d_ctx = mnle_cuda.rows_logp_vjp(t_rows, oh_rows, ctx, weights, ones)
+        lp, d_t, d_ctx = mnle_cuda.rows_logp_and_vjp(t_rows, oh_rows, ctx, weights, torch.ones_like(t_rows))
+        ll = (lp.reshape(N, T) + extra).sum(-1)
         grad = d_ctx.reshape(N, T, -1)[:, :, :D].sum(1) * dc_th
         if cfg.rt_rep == "shifted_log":
             # d t_raw / d t_nd = -1/gap above the floor; barrier slope -50 below it.
@@ -176,8 +178,9 @@ class ConditionedMNLELogLikelihood:
 
     def _pulse_lik_and_grad(self, sess, theta, ctx, dc_th, need_grad: bool):
         """The pulse rep's part of ``log_lik_and_grad`` (absolute anchor):
-        K2p/K3p on the rows, and t_nd's gradient through the features
-        kf = [k_norm, sin ang, cos ang], ang = 2 pi ((t_nd / Delta) mod 1):
+        K3p on the rows (K2p without the gradient), and t_nd's gradient
+        through the features kf = [k_norm, sin ang, cos ang],
+        ang = 2 pi ((t_nd / Delta) mod 1):
         d kf / d t_nd = (0, cos ang, -sin ang) 2 pi / Delta. There is no
         barrier to differentiate."""
         cfg = self.estimator.cfg
@@ -188,10 +191,10 @@ class ConditionedMNLELogLikelihood:
         rows = (sess["phi"].repeat(N), sess["onehot"].repeat(N, 1), ctx, kf.reshape(N * T, -1), sess["kv"].repeat(N))
         weights = self._lp_fused.weights
         # extra = -log Delta on the rows that are not censored (made per session).
-        ll = (mnle_cuda.rows_logp_pulse(*rows, weights).reshape(N, T) + sess["extra"]).sum(-1)
         if not need_grad:
-            return ll, None
-        _, d_ctx, d_kf = mnle_cuda.rows_logp_pulse_vjp(*rows, weights, torch.ones_like(rows[0]))
+            return (mnle_cuda.rows_logp_pulse(*rows, weights).reshape(N, T) + sess["extra"]).sum(-1), None
+        lp, _, d_ctx, d_kf = mnle_cuda.rows_logp_pulse_and_vjp(*rows, weights, torch.ones_like(rows[0]))
+        ll = (lp.reshape(N, T) + sess["extra"]).sum(-1)
         grad = d_ctx.reshape(N, T, -1)[:, :, :D].sum(1) * dc_th
         d_kf = d_kf.reshape(N, T, -1).sum(1)
         scale = 2.0 * math.pi / cfg.pulse_interval

@@ -1,7 +1,7 @@
 """PyTorch port: the CUDA kernels K1, K2, K3, K2p, K3p and K4 against their
-plain versions on the card. Without a CUDA device (or without nvcc to build the kernels)
-every test here is skipped; ``chip_smoke.py`` runs the same checks at the
-main path's full sizes.
+plain versions on the card, and the potential's launches. Without a CUDA
+device (or without nvcc to build the kernels) every test here is skipped;
+``chip_smoke.py`` runs the same checks at the main path's full sizes.
 """
 
 import functools
@@ -95,7 +95,7 @@ def _small_estimator(**kw):
 @pytest.mark.parametrize("variant", [{}, dict(censor_rt=True, cond_affine=True)], ids=["log", "censor_affine"])
 def test_k2_k3_match_their_plain_versions(variant, n):
     """K2 and K3 against the plain version in float64 at row counts on
-    either side of K3's 8-row tiles and K2's 16-row tiles."""
+    either side of their 8-row tiles; K3's value is K2's, bit for bit."""
     est = _small_estimator(**variant)
     w = mc.pack_mnle_weights(est)
     gen = torch.Generator(DEV).manual_seed(0)
@@ -111,9 +111,10 @@ def test_k2_k3_match_their_plain_versions(variant, n):
     ref = mc.rows_logp_plain(*args64)
     assert float(((val - ref).abs() / ref.abs().clamp(min=1.0)).max()) <= 1e-4
     dt_ref, dctx_ref = mc.rows_logp_vjp_plain(*args64, g.double())
-    before = mc.K3.launches
-    dt, dctx = mc.rows_logp_vjp(t, oh, ctx, w, g)
-    assert mc.K3.launches == before + 1
+    before = (mc.K2.launches, mc.K3.launches)
+    val3, dt, dctx = mc.rows_logp_and_vjp(t, oh, ctx, w, g)
+    assert (mc.K2.launches, mc.K3.launches) == (before[0], before[1] + 1)
+    assert torch.equal(val3, val.float())
     for got, want in ((dt, dt_ref), (dctx, dctx_ref)):
         # A censored single row has dt == 0 exactly, in the kernel too.
         assert float((got.double() - want).abs().max() / want.abs().max().clamp(min=1e-30)) <= 1e-3
@@ -151,8 +152,8 @@ def _pulse_rows(n, seed=1):
 def test_k2p_k3p_match_their_plain_versions(n):
     """K2p/K3p on a small pulse-grid model against the plain version in
     float64 on the same float32 inputs and weights, at row counts on either
-    side of K3p's 8-row tiles and K2p's 16-row tiles, with censored rows,
-    phases at the clip edges and slot indices outside the slots."""
+    side of their 8-row tiles, with censored rows, phases at the clip edges
+    and slot indices outside the slots."""
     est = _small_estimator(rt_rep="pulse", censor_rt=True)
     assert est.device.type == "cuda" and est.cfg.censored_category == 2
     w = mc.pack_mnle_weights(est)
@@ -185,15 +186,58 @@ def test_k2p_k3p_match_their_plain_versions(n):
 
 
 def test_k3p_rejects_more_than_32_bins():
-    """K3p holds a spline's bins on the lanes of one warp: 33 bins raise,
-    with no fallback to the plain version."""
+    """K2p and K3p hold a spline's bins on the lanes of one warp: 33 bins
+    raise, with no fallback to the plain version."""
     est = _small_estimator(rt_rep="pulse", censor_rt=True, num_bins=33)
     w = mc.pack_mnle_weights(est)
     rows, g = _pulse_rows(16)
-    before = mc.K3P.launches
+    before = (mc.K2P.launches, mc.K3P.launches)
     with pytest.raises(ValueError, match="num_bins=33"):
         mc.rows_logp_pulse_vjp(*rows, w, g)
-    assert mc.K3P.launches == before
+    with pytest.raises(ValueError, match="num_bins=33"):
+        mc.rows_logp_pulse(*rows, w)
+    assert (mc.K2P.launches, mc.K3P.launches) == before
+
+
+def _flagship_like_rows(n, seed=0):
+    gen = torch.Generator(DEV).manual_seed(seed)
+    t = 2.0 * torch.randn((n,), generator=gen, device=DEV)
+    ctx = torch.randn((n, 9), generator=gen, device=DEV)
+    oh = torch.nn.functional.one_hot(torch.randint(0, 3, (n,), generator=gen, device=DEV), 3).float()
+    g = torch.randn((n,), generator=gen, device=DEV)
+    return (t, oh, ctx), g
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 1199, 1200, 1201])
+@pytest.mark.parametrize("rep", ["censor_affine", "pulse"])
+def test_forward_kernel_value_row_by_row_and_backward_value_bit_equal(rep, n):
+    """K2 (K2p) on a small censored model against the plain version in
+    float64, row by row (``ops/rowcheck.py``: 1e-4 x max(1, |ref|) plus
+    twice the row's float32 spread on steep rows, on all but 0.1 % of the
+    rows, the worst row within its limit), at counts on either side of the
+    8-row tiles; the value K3 (K3p) writes beside its gradients has K2's
+    (K2p's) bits on every row."""
+    if rep == "pulse":
+        est = _small_estimator(rt_rep="pulse", censor_rt=True)
+        rows, g = _pulse_rows(n)
+        fwd, both, plain, K_fwd, K_bwd = mc.rows_logp_pulse, mc.rows_logp_pulse_and_vjp, mc.rows_logp_pulse_plain, \
+            mc.K2P, mc.K3P
+        continuous = (2, 3)
+    else:
+        est = _small_estimator(censor_rt=True, cond_affine=True)
+        rows, g = _flagship_like_rows(n)
+        fwd, both, plain, K_fwd, K_bwd = mc.rows_logp, mc.rows_logp_and_vjp, mc.rows_logp_plain, mc.K2, mc.K3
+        continuous = (2,)
+    w = mc.pack_mnle_weights(est)
+    w64 = w.astype(torch.float64)
+    before = (K_fwd.launches, K_bwd.launches)
+    val = fwd(*rows, w)
+    val_bwd = both(*rows, w, g)[0]
+    assert (K_fwd.launches, K_bwd.launches) == (before[0] + 1, before[1] + 1)
+    assert val.shape == (n,) and torch.equal(val_bwd, val)
+    (ref,), (spread,) = reference(lambda *a: (plain(*a[:-1], w64),), rows, g, continuous)
+    c = row_check(val, plain(*rows, w), ref, spread, value=True)
+    assert c.ok, c
 
 
 # Written and held to JAX on the CPU by tests/test_torch_mnle.py.
@@ -238,6 +282,65 @@ def test_k3p_matches_jax_vjp_at_ragged_row_counts(n):
         err = np.abs(got - want[:n]).reshape(n, -1).max(1)
         allow = 1e-4 * np.maximum(1.0, np.abs(want[:n]).reshape(n, -1).max(1)) + 2.0 * spread[:n]
         assert (err <= allow).all(), f"{what}: worst row {int((err / allow).argmax())} at {float((err / allow).max()):.3f}"
+
+
+# The JAX row function's value on the rows of K3P_JAX_REFERENCE; written and
+# held to JAX on the CPU by tests/test_torch_mnle.py.
+K2P_JAX_VALUE = Path(__file__).with_name("data") / "k2p_pulse_jax_value.npz"
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 17, 1000, 1201])
+def test_k2p_and_k3p_values_match_jax_at_ragged_row_counts(n):
+    """K2p's value, and the value K3p writes beside its gradients, against
+    the JAX row function ``_rows_logp_pulse``'s value on the rows of
+    ``K3P_JAX_REFERENCE`` (censored rows, phases at the clip edges, slot
+    indices outside the slots): row by row to 1e-4 of max(1, |ref|) plus
+    twice the row's float32 spread (the allowance rule of
+    ``ops/rowcheck.py``), and K3p's value is K2p's bit for bit."""
+    w, rows, _, _ = _k3p_jax_reference()
+    rows = [a[:n].contiguous() for a in rows]
+    with np.load(K2P_JAX_VALUE) as data:
+        want = data["jax:value"][:n].astype(np.float64)
+    w64 = w.astype(torch.float64)
+    (_,), (spread,) = reference(lambda *a: (mc.rows_logp_pulse_plain(*a[:-1], w64),), rows[:5], rows[5], (2, 3))
+    val = mc.rows_logp_pulse(*rows[:5], w)
+    val_bwd = mc.rows_logp_pulse_and_vjp(*rows[:5], w, rows[5])[0]
+    assert torch.equal(val_bwd, val)
+    got = val.cpu().numpy().astype(np.float64)
+    err = np.abs(got - want)
+    allow = 1e-4 * np.maximum(1.0, np.abs(want)) + 2.0 * spread.cpu().numpy()
+    assert (err <= allow).all(), f"worst row {int((err / allow).argmax())} at {float((err / allow).max()):.3f}"
+
+
+@pytest.mark.parametrize("model", ["mnle_10m_shifted_logt_affine.npz", "mnle_1m_pulseabs.npz"])
+def test_potential_gradient_call_launches_the_backward_kernel_alone(model, monkeypatch):
+    """``log_lik_and_grad`` on the card with a committed model: a gradient
+    call launches K3 (K3p) once and K2 (K2p) never, a value-only call K2
+    (K2p) once and K3 (K3p) never, and both give the same log-likelihood."""
+    from sbi_for_diffusion_models_tpu_torch.pipeline import build_prior_theta
+    from sbi_for_diffusion_models_tpu_torch.potentials import ConditionedMNLELogLikelihood
+
+    monkeypatch.setenv("MODEL_DIR", str(Path(__file__).resolve().parents[1] / "artifacts" / "models"))
+    est = load_model(model, device=DEV)
+    fwd, bwd = (mc.K2P, mc.K3P) if est.cfg.rt_rep == "pulse" else (mc.K2, mc.K3)
+    gen = make_generator(4, DEV)
+    rng = np.random.default_rng(4)
+    pulses = torch.as_tensor(np.where(rng.random((50, 80)) < 0.5, 1.0, -1.0), dtype=torch.float32, device=DEV)
+    x = torch.as_tensor(np.stack([0.15 + rng.gamma(2.0, 0.4, 50), rng.integers(0, 3, 50)], -1),
+                        dtype=torch.float32, device=DEV)
+    theta = build_prior_theta().sample(gen, (24,))
+    lik = ConditionedMNLELogLikelihood(est, pulses, logprob_kernel="pallas")
+    for need_grad in (True, False):
+        before = (fwd.launches, bwd.launches)
+        ll, g = lik.log_lik_and_grad(x, theta, need_grad=need_grad)
+        torch.cuda.synchronize()
+        assert (fwd.launches - before[0], bwd.launches - before[1]) == ((0, 1) if need_grad else (1, 0))
+        assert ll.shape == (24,) and bool(torch.isfinite(ll).all())
+        assert (g is not None) == need_grad
+        if need_grad:
+            ll_grad = ll
+            assert g.shape == (24, 5) and bool(torch.isfinite(g).all())
+    torch.testing.assert_close(ll, ll_grad, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("kind", ["fma", "transcendental"])

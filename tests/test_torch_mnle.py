@@ -247,8 +247,9 @@ def test_unported_options_raise():
 @functools.lru_cache(maxsize=None)
 def _ragged_rows_and_jax_vjp(n_max=1201):
     """n_max rows of the "cond_affine" estimator (censored and affine) with
-    a cotangent, and ``jax.vjp`` of the JAX row function ``_rows_logp`` on
-    them; rows are independent, so the first n rows' VJP is its first n."""
+    a cotangent, and the JAX row function ``_rows_logp`` on them: its value
+    and ``jax.vjp``'s dt and dctx; rows are independent, so the first n
+    rows' results are its first n."""
     jest = _jax_est_cached("cond_affine")
     cfg = jest.cfg
     rng = np.random.default_rng(6)
@@ -259,8 +260,9 @@ def _ragged_rows_and_jax_vjp(n_max=1201):
     kw = dict(n_layers=cfg.trunk_depth + 1, num_transforms=cfg.num_transforms, num_bins=cfg.num_bins,
               tail_bound=cfg.tail_bound, censored_col=cfg.censored_category, cond_affine=True)
     jw = jpallas.pack_mnle_weights(jest)
-    _, vjp = jax.vjp(lambda a, b: jpallas._rows_logp(a, jnp.asarray(oh), b, jw, **kw), jnp.asarray(t), jnp.asarray(ctx))
-    return (t, oh, ctx, g) + tuple(np.asarray(a) for a in vjp(jnp.asarray(g)))
+    val, vjp = jax.vjp(lambda a, b: jpallas._rows_logp(a, jnp.asarray(oh), b, jw, **kw), jnp.asarray(t),
+                       jnp.asarray(ctx))
+    return (t, oh, ctx, g) + tuple(np.asarray(a) for a in vjp(jnp.asarray(g))) + (np.asarray(val),)
 
 
 @pytest.mark.parametrize("n", [1, 7, 8, 9, 15, 16, 17, 1199, 1201])
@@ -269,7 +271,7 @@ def test_k3_wrapper_matches_jax_at_ragged_row_counts(n):
     (and K2's 16-row tiles): it takes the plain version without a launch,
     and that matches ``jax.vjp`` of the JAX row function ``_rows_logp`` on
     the same packed weights, censored and affine rows included."""
-    t, oh, ctx, g, ref_dt, ref_dc = (a[:n] for a in _ragged_rows_and_jax_vjp())
+    t, oh, ctx, g, ref_dt, ref_dc, _ = (a[:n] for a in _ragged_rows_and_jax_vjp())
     w = tk.pack_mnle_weights(_port(_jax_est_cached("cond_affine")))
     before = {k: v.launches for k, v in _cuda.KERNELS.items()}
     dt, dc = tk.rows_logp_vjp(*map(torch.from_numpy, (t, oh, ctx)), w, torch.from_numpy(g))
@@ -285,11 +287,11 @@ def test_k3_wrapper_matches_jax_at_ragged_row_counts(n):
 
 @functools.lru_cache(maxsize=None)
 def _ragged_pulse_rows_and_jax_vjp(n_max=1201):
-    """n_max rows of the "pulse_abs" estimator with a cotangent, and
-    ``jax.vjp`` of the JAX row function ``_rows_logp_pulse`` on them (w.r.t.
-    phi, ctx and kf). Row i is special by i % 5: the phase at either clip
-    edge, the slot index past the last slot or below the first, or a
-    censored choice."""
+    """n_max rows of the "pulse_abs" estimator with a cotangent, and the
+    JAX row function ``_rows_logp_pulse`` on them: ``jax.vjp``'s gradients
+    (w.r.t. phi, ctx and kf) and its value. Row i is special by i % 5: the
+    phase at either clip edge, the slot index past the last slot or below
+    the first, or a censored choice."""
     jest = _jax_est_cached("pulse_abs")
     cfg = jest.cfg
     NS = cfg.num_pulse_slots
@@ -308,14 +310,17 @@ def _ragged_pulse_rows_and_jax_vjp(n_max=1201):
               num_slots=NS, censored_col=cfg.censored_category)
     jw = jpallas.pack_mnle_weights(jest)
     f = lambda a, b, c: jpallas._rows_logp_pulse(a, jnp.asarray(oh), b, c, jnp.asarray(kv), jw, **kw)  # noqa: E731
-    _, vjp = jax.vjp(f, *map(jnp.asarray, (phi, ctx, kf)))
+    val, vjp = jax.vjp(f, *map(jnp.asarray, (phi, ctx, kf)))
     # Each row's float32 conditioning: how far the exact gradients move under
     # an input change of a few ulps (ops/rowcheck.py, the plain version in float64).
     w64 = tk.pack_mnle_weights(_port(jest)).astype(torch.float64)
     rows = tuple(map(torch.from_numpy, (phi, oh, ctx, kf, kv)))
-    _, spread = reference(lambda *a: tk.rows_logp_pulse_vjp_plain(*a[:-1], w64, a[-1]), rows,
-                          torch.from_numpy(g), (2, 3))
-    return (phi, oh, ctx, kf, kv, g), [np.asarray(a) for a in vjp(jnp.asarray(g))], [a.numpy() for a in spread]
+    _, spread = reference(lambda *a: (tk.rows_logp_pulse_plain(*a[:-1], w64),
+                                      *tk.rows_logp_pulse_vjp_plain(*a[:-1], w64, a[-1])),
+                          rows, torch.from_numpy(g), (2, 3))
+    # refs: dphi, dctx, dkf, value; spreads: value, dphi, dctx, dkf.
+    return ((phi, oh, ctx, kf, kv, g), [np.asarray(a) for a in vjp(jnp.asarray(g))] + [np.asarray(val)],
+            [a.numpy() for a in spread])
 
 
 @pytest.mark.parametrize("n", [1, 7, 8, 9, 17, 1000, 1201])
@@ -339,9 +344,54 @@ def test_k3p_wrapper_matches_jax_at_ragged_row_counts(n):
     # Row by row to 1e-4 of max(1, the row's largest |ref|), plus twice the
     # row's spread on steep rows, where the two float32 versions round apart
     # (the allowance rule of ops/rowcheck.py).
-    for got, want, spread, what in zip(grads, refs, spreads, ("dphi", "dctx", "dkf")):
+    for got, want, spread, what in zip(grads, refs, spreads[1:], ("dphi", "dctx", "dkf")):
         err = np.abs(got.numpy().astype(np.float64) - want).reshape(n, -1).max(1)
         allow = 1e-4 * np.maximum(1.0, np.abs(want).reshape(n, -1).max(1)) + 2.0 * spread
+        assert (err <= allow).all(), f"{what}: worst row {int((err / allow).argmax())} at {float((err / allow).max()):.3f}"
+
+
+@pytest.mark.parametrize("n", [1, 8, 9, 1201])
+def test_value_and_vjp_wrapper_matches_plain_and_jax(n):
+    """``rows_logp_and_vjp`` (one K3 launch on the card) on CPU rows of the
+    "cond_affine" estimator: no launch, the plain value and VJP bit for bit,
+    and the JAX row function ``_rows_logp``'s value and ``jax.vjp`` to 1e-4
+    of max(1, largest |ref|) (the scale rule of ops/rowcheck.py)."""
+    t, oh, ctx, g, ref_dt, ref_dc, ref_v = (a[:n] for a in _ragged_rows_and_jax_vjp())
+    w = tk.pack_mnle_weights(_port(_jax_est_cached("cond_affine")))
+    rows = tuple(map(torch.from_numpy, (t, oh, ctx)))
+    before = {k: v.launches for k, v in _cuda.KERNELS.items()}
+    got = tk.rows_logp_and_vjp(*rows, w, torch.from_numpy(g))
+    assert {k: v.launches for k, v in _cuda.KERNELS.items()} == before
+    want = (tk.rows_logp_plain(*rows, w), *tk.rows_logp_vjp_plain(*rows, w, torch.from_numpy(g)))
+    assert [tuple(a.shape) for a in got] == [(n,), (n,), (n, 9)]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for a, ref, what in zip(got, (ref_v, ref_dt, ref_dc), ("value", "dt", "dctx")):
+        err = float(np.abs(a.numpy().astype(np.float64) - ref).max())
+        assert err <= 1e-4 * max(1.0, float(np.abs(ref).max())), f"{what}: max abs error {err:.3e}"
+
+
+@pytest.mark.parametrize("n", [1, 8, 9, 1201])
+def test_pulse_value_and_vjp_wrapper_matches_plain_and_jax(n):
+    """``rows_logp_pulse_and_vjp`` (one K3p launch on the card) on CPU rows
+    of the "pulse_abs" estimator, censored rows, phases at the clip edges and
+    slot indices outside the slots included: no launch, the plain value and
+    VJP bit for bit, and the JAX row function ``_rows_logp_pulse``'s value
+    and ``jax.vjp`` row by row to 1e-4 of max(1, the row's largest |ref|)
+    plus twice the row's float32 spread (ops/rowcheck.py)."""
+    rows, refs, spreads = ([a[:n] for a in part] for part in _ragged_pulse_rows_and_jax_vjp())
+    w = tk.pack_mnle_weights(_port(_jax_est_cached("pulse_abs")))
+    trows = tuple(map(torch.from_numpy, rows))
+    before = {k: v.launches for k, v in _cuda.KERNELS.items()}
+    got = tk.rows_logp_pulse_and_vjp(*trows[:5], w, trows[5])
+    assert {k: v.launches for k, v in _cuda.KERNELS.items()} == before
+    want = (tk.rows_logp_pulse_plain(*trows[:5], w), *tk.rows_logp_pulse_vjp_plain(*trows[:5], w, trows[5]))
+    assert [tuple(a.shape) for a in got] == [(n,), (n,), (n, 9), (n, 3)]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for a, ref, spread, what in zip(got, refs[3:] + refs[:3], spreads, ("value", "dphi", "dctx", "dkf")):
+        err = np.abs(a.numpy().astype(np.float64) - ref).reshape(n, -1).max(1)
+        allow = 1e-4 * np.maximum(1.0, np.abs(ref).reshape(n, -1).max(1)) + 2.0 * spread
         assert (err <= allow).all(), f"{what}: worst row {int((err / allow).argmax())} at {float((err / allow).max()):.3f}"
 
 
@@ -356,6 +406,7 @@ K3P_GRADS = ("dphi", "dctx", "dkf")
 
 def write_k3p_jax_reference(path=K3P_JAX_REFERENCE):
     rows, refs, _ = _ragged_pulse_rows_and_jax_vjp()
+    refs = refs[:3]
     with tempfile.TemporaryDirectory() as d:
         os.environ["MODEL_DIR"] = d
         with np.load(tmnle.save_model(_port(_jax_est_cached("pulse_abs")), None, "model.npz")) as m:
@@ -380,7 +431,7 @@ def test_k3p_jax_reference_file_is_what_jax_gives_now():
     with np.load(K3P_JAX_REFERENCE) as data:
         for name, a in zip(K3P_ROWS, rows):
             np.testing.assert_array_equal(data[f"row:{name}"], a)
-        for name, want, spread in zip(K3P_GRADS, refs, spreads):
+        for name, want, spread in zip(K3P_GRADS, refs, spreads[1:]):
             got = data[f"jax:{name}"]
             assert got.shape == want.shape and got.dtype == np.float32
             err = np.abs(got.astype(np.float64) - want).reshape(len(got), -1).max(1)
@@ -388,10 +439,41 @@ def test_k3p_jax_reference_file_is_what_jax_gives_now():
             assert (err <= allow).all(), f"{name}: worst row {int((err / allow).argmax())}"
 
 
+# The JAX row function's value on the rows of ``K3P_JAX_REFERENCE`` (the same
+# small "pulse_abs" estimator): the card test of K2p and K3p's values reads
+# it from here. Rewritten by running this file as a script.
+K2P_JAX_VALUE = Path(__file__).with_name("data") / "k2p_pulse_jax_value.npz"
+
+
+def write_k2p_jax_value(path=K2P_JAX_VALUE):
+    _, refs, _ = _ragged_pulse_rows_and_jax_vjp()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **{"jax:value": refs[3]})
+
+
+def test_k2p_jax_value_file_is_what_jax_gives_now():
+    """``K2P_JAX_VALUE`` holds the JAX row function's value on the rows of
+    ``K3P_JAX_REFERENCE`` as JAX gives it now: row by row to 1e-6 of max(1,
+    |ref|) plus the row's float32 spread, for XLA on another CPU may round
+    steep rows apart."""
+    rows, refs, spreads = _ragged_pulse_rows_and_jax_vjp()
+    with np.load(K3P_JAX_REFERENCE) as data:
+        for name, a in zip(K3P_ROWS, rows):
+            np.testing.assert_array_equal(data[f"row:{name}"], a)
+    with np.load(K2P_JAX_VALUE) as data:
+        got = data["jax:value"]
+    want = refs[3]
+    assert got.shape == want.shape == (len(rows[0]),) and got.dtype == np.float32
+    err = np.abs(got.astype(np.float64) - want)
+    allow = 1e-6 * np.maximum(1.0, np.abs(want)) + spreads[0]
+    assert (err <= allow).all(), f"worst row {int((err / allow).argmax())}"
+
+
 @pytest.mark.parametrize("model", ["small", "committed"])
 def test_k3p_padded_head_copies_equal_the_head_with_zero_padding(model, request):
-    """K3p's copies of the head weights (``MNLEWeights.padded_head``): rows
-    padded with zero columns to a multiple of 4 floats, the head (and its
+    """K2p's and K3p's copies of the head weights
+    (``MNLEWeights.padded_head``): rows padded with zero columns to a
+    multiple of 4 floats, the head (and its
     transpose) unchanged in the other columns; the committed pulse model's
     730 and 131 columns become 732 and 132."""
     if model == "small":
@@ -515,6 +597,7 @@ def _hold_committed_model_to_jax(jest, est, kernel):
 
 
 if __name__ == "__main__":
-    # JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_mnle.py rewrites K3P_JAX_REFERENCE.
+    # JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_mnle.py rewrites K3P_JAX_REFERENCE and K2P_JAX_VALUE.
     write_k3p_jax_reference()
-    print(f"wrote {K3P_JAX_REFERENCE}")
+    write_k2p_jax_value()
+    print(f"wrote {K3P_JAX_REFERENCE} and {K2P_JAX_VALUE}")

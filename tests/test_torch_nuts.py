@@ -285,3 +285,38 @@ def _tiny_run_inference_mcmc(pulse: bool):
     assert info["diverging"].shape == (4, 8)  # every rung of every chain
     assert info["potential_calls"] > 0
     assert {k: v.launches for k, v in KERNELS.items()} == {k: 0 for k in KERNELS}
+
+
+@pytest.mark.parametrize("method", ["nuts", "hmc"])
+@pytest.mark.parametrize("verbose", [False, True])
+def test_mcmc_posterior_prints_and_records_diagnostics_as_jax_does(method, verbose, capsys):
+    """The JAX ``MCMCPosterior.sample`` prints its ``[mcmc] nuts:`` line only
+    for ``method="nuts"`` under ``verbose``, and fills ``_last_diagnostics``
+    (printing ``[diagnostics]``) only under ``verbose``; the port does the
+    same, with no other change to the draws."""
+    from sbi_for_diffusion_models_tpu_torch.distributions import Distribution
+
+    class Flat(Distribution):
+        event_shape = (2,)
+
+        def sample(self, generator, sample_shape=()):
+            return torch.randn(tuple(sample_shape) + (2,), generator=generator)
+
+        def supports(self):
+            return [real_support(), real_support()]
+
+    class Pot:
+        def potential_fn(self, theta):
+            return _gauss_logp(theta)
+
+    post = tm.MCMCPosterior(Pot(), Flat(), Bijector(Flat().supports()), method=method, num_chains=2,
+                            warmup_steps=10, max_tree_depth=3, verbose=verbose, device="cpu")
+    s = post.sample((20,), seed=1)
+    out = capsys.readouterr().out
+    assert s.shape == (20, 2)
+    assert ("[mcmc] nuts:" in out) == (verbose and method == "nuts")
+    assert ("[diagnostics]" in out) == verbose
+    if verbose:
+        assert set(post._last_diagnostics) == {"ess", "r_hat"}
+    else:
+        assert post._last_diagnostics is None and out == ""

@@ -216,3 +216,67 @@ def test_pulse_closed_form_gradient_matches_autograd_and_jax(pulse_models):
     val, gu = vg(torch.from_numpy(u), torch.ones(8))
     np.testing.assert_allclose(val.numpy(), np.asarray(uv), rtol=1e-4)
     np.testing.assert_allclose(gu.numpy(), np.asarray(ug), rtol=1e-3, atol=1e-3 * np.abs(np.asarray(ug)).max())
+
+
+def _log_lik_case(rep, models, pulse_models):
+    """The fused likelihood of the committed model of ``rep`` on CPU rows,
+    the session and a batch of theta."""
+    x_o, pulses = _session()
+    if rep == "pulse":
+        est, theta = pulse_models[1], _theta_across_grid_wraps()
+    else:
+        est, theta = models[1], np.asarray(td.mcmc_transform(t_prior()).forward(torch.from_numpy(_u_batch())))
+    lik = tp.ConditionedMNLELogLikelihood(est, pulses, logprob_kernel="pallas")
+    return lik, torch.from_numpy(x_o), torch.from_numpy(theta)
+
+
+@pytest.mark.parametrize("rep", ["shifted_log", "pulse"])
+def test_log_lik_and_grad_has_the_bits_of_the_separate_value_and_vjp(rep, models, pulse_models, monkeypatch):
+    """``log_lik_and_grad`` takes a gradient call's values from the combined
+    wrapper (one K3 / K3p launch on the card); on the CPU its (ll, grad)
+    are bit for bit those of the value wrapper followed by the VJP wrapper,
+    the two launches a gradient call made before, and a value-only call's
+    ll is the same bits too."""
+    from sbi_for_diffusion_models_tpu_torch.ops import mnle_cuda as mc
+
+    lik, x, theta = _log_lik_case(rep, models, pulse_models)
+    ll, g = lik.log_lik_and_grad(x, theta)
+    ll_value_only, none = lik.log_lik_and_grad(x, theta, need_grad=False)
+    assert none is None and torch.equal(ll_value_only, ll)
+    if rep == "pulse":
+        monkeypatch.setattr(mc, "rows_logp_pulse_and_vjp", lambda *a: (mc.rows_logp_pulse(*a[:-1]),
+                                                                       *mc.rows_logp_pulse_vjp(*a)))
+    else:
+        monkeypatch.setattr(mc, "rows_logp_and_vjp", lambda *a: (mc.rows_logp(*a[:-1]), *mc.rows_logp_vjp(*a)))
+    ll_sep, g_sep = lik.log_lik_and_grad(x, theta)
+    assert torch.equal(ll, ll_sep) and torch.equal(g, g_sep)
+    assert bool(torch.isfinite(g).all())
+
+
+@pytest.mark.parametrize("rep", ["shifted_log", "pulse"])
+def test_gradient_call_reaches_only_the_combined_wrapper(rep, models, pulse_models, monkeypatch):
+    """A gradient call of ``log_lik_and_grad`` goes through the combined
+    value-and-VJP wrapper once and through no other kernel wrapper; a
+    value-only call through the value wrapper once (K3 alone, or K2 alone,
+    on the card)."""
+    from sbi_for_diffusion_models_tpu_torch.ops import mnle_cuda as mc
+
+    names = ("rows_logp", "rows_logp_and_vjp", "rows_logp_vjp", "rows_logp_pulse", "rows_logp_pulse_and_vjp",
+             "rows_logp_pulse_vjp")
+    calls = dict.fromkeys(names, 0)
+
+    def counted(name, fn):
+        def wrapper(*args):
+            calls[name] += 1
+            return fn(*args)
+        return wrapper
+
+    for name in names:
+        monkeypatch.setattr(mc, name, counted(name, getattr(mc, name)))
+    lik, x, theta = _log_lik_case(rep, models, pulse_models)
+    suffix = "_pulse" if rep == "pulse" else ""
+    lik.log_lik_and_grad(x, theta)
+    assert calls == {**dict.fromkeys(names, 0), f"rows_logp{suffix}_and_vjp": 1}
+    calls.update(dict.fromkeys(names, 0))
+    lik.log_lik_and_grad(x, theta, need_grad=False)
+    assert calls == {**dict.fromkeys(names, 0), f"rows_logp{suffix}": 1}
