@@ -12,7 +12,9 @@ port's paths once each through their public entry points:
 2. K1 against its plain version at N = 131,072 prior draws: equal outputs
    without noise; with noise a two-sample KS test on RT per choice and a
    chi-square test on the choice counts (p > 1e-3); the same seed twice
-   gives the same output;
+   gives the same output; then against the parent K1's committed outputs
+   (``tests/k1_fixture.py``) bit for bit on every case, from N = 1 to
+   300,000 trials, where groups refill;
 3. K2/K3 against their plain version on the committed flagship model
    (``artifacts/models/mnle_10m_shifted_logt_affine.npz``) at 1,200 rows
    (4 chains x 6 replicas x 50 trials) and 115,200 rows (96 such sessions):
@@ -72,9 +74,10 @@ computes any of these kernels, so ``library_ms`` is null.
 Run from the root of a checkout: ``python3 chip_smoke.py`` (one CUDA card,
 ``nvcc`` under /usr/local/cuda or on PATH). The last line of its output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels with
-their launches, errors, times and bounds (the four fused kernels' also with
-their tile height and ptxas's registers, stack and spills; a spill fails
-the run). Any failed check
+their launches, errors, times and bounds at both sizes (K4: both chain
+lengths), K1 also with its launch shape, the four fused kernels' with their
+tile height, and each with ptxas's registers, stack and spills (K1: of each
+of its eight instances); a spill fails the run. Any failed check
 raises, and the script exits non-zero without that line. There is no CPU fallback: without
 a CUDA card the script exits with status 2.
 """
@@ -257,8 +260,59 @@ def _k1_against_plain(label: str, theta, s, n_max: int, spp: int) -> tuple:
     return kernel, plain, max_abs
 
 
+def _k1_fixture():
+    """``tests/k1_fixture.py`` (the parent K1's outputs and the inputs they
+    were made from), loaded by its path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("k1_fixture", ROOT / "tests" / "k1_fixture.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_k1_fixture(device) -> dict:
+    """K1 against the parent K1's committed outputs (``tests/k1_fixture.py``)
+    on every case, bit for bit: N = 1, 31, 33, 4,096 and 8,192 at a 1,600-step
+    window with and without a collapsing bound, the full 16,000-step window
+    at 4,096, and 300,000 trials, where groups refill. K1's noise depends
+    only on (seed, trial, step), so a K1 that keeps its stream, step and
+    window gives these bits at every launch shape."""
+    from sbi_for_diffusion_models_tpu_torch.ops.ddm_cuda import ddm_rt_choice_cuda
+
+    fixture = _k1_fixture()
+    want = fixture.load()
+    differing = {}
+    for name, case in fixture.CASES.items():
+        got = fixture.run(ddm_rt_choice_cuda, case, device).cpu().numpy()
+        differing[name] = int((got != want[name]).any(1).sum())
+        _log(f"[K1 fixture] {name} n={case['n']}: rows differing from the parent K1 "
+             f"({want['parent_commit'][:12]}) = {differing[name]}")
+    bad = {k: v for k, v in differing.items() if v}
+    if bad:
+        raise AssertionError(f"K1 differs from the parent K1's outputs: {bad}")
+    return differing
+
+
+def k1_launch_shapes(device, sizes) -> dict:
+    """The launch shape ``ops/ddm_cuda.k1_launch_shape`` picks at each N of
+    ``sizes`` (the main path's window, no collapsing bound) on this card."""
+    from sbi_for_diffusion_models_tpu_torch.models.rt_choice_model import pulse_schedule
+    from sbi_for_diffusion_models_tpu_torch.ops.ddm_cuda import K1_THREADS, _card_capacity, k1_launch_shape
+
+    sm, resident = _card_capacity(device, False)
+    shapes = {}
+    for n in sizes:
+        G, blocks = k1_launch_shape(n, pulse_schedule()[1], sm, resident)
+        shapes[str(n)] = {"G": G, "blocks": blocks, "resident_groups": blocks * K1_THREADS // G,
+                          "resident_blocks_per_sm": resident[G], "sm_count": sm}
+    _log(f"[K1] launch shapes: {json.dumps(shapes)}")
+    return shapes
+
+
 def phase_k1(device, n: int, seed: int = 7) -> dict:
-    """K1 against its plain version at ``n`` prior draws, then its times."""
+    """K1 against its plain version at ``n`` prior draws, against the
+    parent K1's committed outputs, then its times."""
     from sbi_for_diffusion_models_tpu_torch.models.rt_choice_model import (
         generate_pulse_matrix,
         n_pulses_max_from_schedule,
@@ -272,6 +326,14 @@ def phase_k1(device, n: int, seed: int = 7) -> dict:
     theta = build_prior_theta().sample(gen, (n,))
     s = generate_pulse_matrix(gen, n, n_pulses_max_from_schedule(n_max, spp))
     kernel, plain, max_abs = _k1_against_plain("K1", theta, s, n_max, spp)
+    from sbi_for_diffusion_models_tpu_torch.ops.ddm_cuda import k1_noise_mismatches
+
+    mismatches = k1_noise_mismatches(device)
+    _log(f"[K1] square root and sine/cosine against sqrtf and sincosf on all 2^24 inputs each: "
+         f"{mismatches} results differ in their bits")
+    if mismatches:
+        raise AssertionError(f"K1's noise differs from the math library's on {mismatches} inputs")
+    phase_k1_fixture(device)
 
     # Times at the main path's batch (TRAIN_BATCH_SIZE = 4,096) and at n,
     # with the bound from the steps the timed call's trials executed.
@@ -285,7 +347,8 @@ def phase_k1(device, n: int, seed: int = 7) -> dict:
              f"executed_trial_steps={steps} ({steps / (m * n_max):.4f} of nominal) "
              f"executed_trial_steps_per_s(kernel)={steps / (k_ms * 1e-3):.4g}")
     return {"max_abs_err": max_abs, "ms": times[4096][0], "plain_ms": times[4096][1],
-            "bound_ms": times[4096][2], "bound_by": times[4096][3], "steps": times[4096][4], "times": times}
+            "bound_ms": times[4096][2], "bound_by": times[4096][3], "steps": times[4096][4], "times": times,
+            "launch_shape": k1_launch_shapes(device, (4096, n))}
 
 
 def session_rows(est, prior, device, n_sessions: int, seed: int = 11):
@@ -888,26 +951,32 @@ def phase_train(device, proposal, z, x, warmup: int = 20, draws: int = 20) -> di
     return {"walls": walls, "launches": launches, "train_meta": meta, "check": check}
 
 
-def measured_bounds(kernels: list, k1_steps: int, report: dict) -> None:
-    """Add ``measured_bound_ms`` to every kernel of the line: its operations
-    over the issue rates K4 measured in this run (``roofline.main``'s
-    report) instead of the datasheet's. The fused kernels' FLOP are FMAs, two
-    each, at the fma ceiling; K1's executed steps take their FMA-class
-    operations at the fma ceiling and their special functions at the
-    transcendental-mix ceiling, as ``roofline.py`` states its demand."""
+def measured_bounds(kernels: list, report: dict) -> None:
+    """Add ``measured_bound_ms`` to every kernel of the line, and to its
+    entry at the other size (``large``; K4's ``short_chain``): its
+    operations over the issue rates K4 measured in this run
+    (``roofline.main``'s report) instead of the datasheet's. The fused
+    kernels' FLOP are FMAs, two each, at the fma ceiling; K1's executed steps
+    take their FMA-class operations at the fma ceiling and their special
+    functions at the transcendental-mix ceiling, as ``roofline.py`` states its
+    demand."""
     from sbi_for_diffusion_models_tpu_torch.roofline import K1_FMA_CLASS_OPS, K1_TRANSCENDENTAL_CLASS_OPS
 
     fma, tra = report["issue_fma"]["ops_per_s"], report["issue_transcendental"]["ops_per_s"]
     for k in kernels:
-        if k["name"] == "ddm_rt_choice":
-            k["measured_bound_ms"] = k1_steps * (K1_FMA_CLASS_OPS / fma + K1_TRANSCENDENTAL_CLASS_OPS / tra) * 1e3
-        elif k["bound_by"] == "operations":
-            k["measured_bound_ms"] = k["bound_ms"] * (FP32_OPS_PER_S / 2.0) / fma
-        else:  # bytes: no issue rate enters
-            k["measured_bound_ms"] = k["bound_ms"]
-        _log(f"[ceilings] {k['name']}: kernel_ms={k['ms']:.4f} datasheet_bound_ms={k['bound_ms']:.4g} "
-             f"({k['bound_ms'] / k['ms']:.4f} of the kernel's time) measured_bound_ms={k['measured_bound_ms']:.4g} "
-             f"({k['measured_bound_ms'] / k['ms']:.4f})")
+        for at in (k, k.get("large"), k.get("short_chain")):
+            if at is None:
+                continue
+            if k["name"] == "ddm_rt_choice":
+                at["measured_bound_ms"] = at["steps"] * (K1_FMA_CLASS_OPS / fma + K1_TRANSCENDENTAL_CLASS_OPS / tra) * 1e3
+            elif at["bound_by"] == "operations":
+                at["measured_bound_ms"] = at["bound_ms"] * (FP32_OPS_PER_S / 2.0) / fma
+            else:  # bytes: no issue rate enters
+                at["measured_bound_ms"] = at["bound_ms"]
+            _log(f"[ceilings] {k['name']}{'' if at is k else ' ' + str(at.get('n', at.get('K')))}: "
+                 f"kernel_ms={at['ms']:.4f} datasheet_bound_ms={at['bound_ms']:.4g} "
+                 f"({at['bound_ms'] / at['ms']:.4f} of the kernel's time) "
+                 f"measured_bound_ms={at['measured_bound_ms']:.4g} ({at['measured_bound_ms'] / at['ms']:.4f})")
 
 
 def main() -> int:
@@ -946,11 +1015,16 @@ def main() -> int:
     src = f"{PKG}/csrc"
     jax_ops = "sbi_for_diffusion_models_tpu/ops"
     fused = {**k23[ROWS_MAIN], **k23p[ROWS_MAIN]}
+    fused_large = {**k23[ROWS_SBC], **k23p[ROWS_SBC]}
+    k1_large = k1["times"][N_SIM]
     kernels = [{
         "name": "ddm_rt_choice", "route": "cuda", "source": f"{src}/ddm_rt_choice.cu",
         "replaces": f"{jax_ops}/ddm_pallas.py:60", "launches": main_path["launches"]["ddm_rt_choice"],
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None,
+        "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None, "steps": k1["steps"],
+        "launch_shape": k1["launch_shape"],
+        "large": {"n": N_SIM, "ms": k1_large[0], "plain_ms": k1_large[1], "bound_ms": k1_large[2],
+                  "bound_by": k1_large[3], "steps": k1_large[4]},
     }]
     for kname, label, f, rep, path in (
         ("mnle_logprob_fwd", "K2", "mnle_logprob.cu", "mnle_pallas.py:269", main_path),
@@ -959,30 +1033,46 @@ def main() -> int:
         ("mnle_pulse_bwd", "K3p", "mnle_pulse.cu", "mnle_pallas.py:361", pulse_path),
     ):
         ms, plain_ms, bound_ms, bound_by = fused[label]["times"]
+        large = dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), fused_large[label]["times"]))
         kernels.append({
             "name": kname, "route": "cuda", "source": f"{src}/{f}", "replaces": f"{jax_ops}/{rep}",
             "launches": path["launches"][kname], "max_abs_err": fused[label]["max_abs_err"], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "large": {"n": ROWS_SBC, **large},
         })
     # The fused kernels' tile height, as the source they were built from defines it, and ptxas's report of each
-    # build; a spill fails the run.
+    # build (K1: of each instance, G lanes a trial with or without the collapsing bound); a spill fails the run.
     tile_rows = int(re.search(r"#define TILE_ROWS (\d+)", (ROOT / src / "mnle_tile.cuh").read_text())[1])
     for k in kernels:
-        if k["name"].startswith("mnle_"):
-            found = [v for e, v in ptxas.items() if f"{k['name']}_kernel" in e]
+        found = {e: v for e, v in ptxas.items() if f"{k['name']}_kernel" in e}
+        if k["name"] == "ddm_rt_choice":
+            k["ptxas"] = {}
+            for e, v in found.items():
+                m = re.search(r"ddm_rt_choice_kernelILi(\d+)ELb([01])E", e)
+                k["ptxas"][f"G{m[1]}" + ("_collapse" if m[2] == "1" else "") if m else e] = v
+        elif k["name"].startswith("mnle_"):
             if len(found) != 1:
                 raise AssertionError(f"ptxas reported {len(found)} builds of {k['name']}, expected one: {sorted(ptxas)}")
-            k["rows_per_block"], k["ptxas"] = tile_rows, found[0]
-            if found[0].get("spill_stores", 0) or found[0].get("spill_loads", 0):
-                raise AssertionError(f"{k['name']} spills registers: {found[0]}")
+            k["rows_per_block"], k["ptxas"] = tile_rows, next(iter(found.values()))
+        else:
+            continue
+        for v in found.values():
+            if v.get("spill_stores", 0) or v.get("spill_loads", 0):
+                raise AssertionError(f"{k['name']} spills registers: {found}")
+    if len(kernels[0]["ptxas"]) != 8:
+        raise AssertionError(f"ptxas reported {len(kernels[0]['ptxas'])} K1 instances, expected 8: {sorted(ptxas)}")
+    fma = roof["report"]["issue_fma"]
     kernels.append({
         "name": "issue_ceiling", "route": "cuda", "source": f"{src}/issue_ceiling.cu",
         "replaces": "benchmarks/roofline.py:105", "launches": roof["launches"]["issue_ceiling"],
         "max_abs_err": max(k4["max_abs_err"], roof["max_abs_err"]), "ms": roof["ms"], "plain_ms": roof["plain_ms"],
         "bound_ms": roof["bound_ms"], "bound_by": roof["bound_by"], "library_ms": None,
         "kinds": {kind: roof["report"][f"issue_{kind}"] for kind in ("fma", "transcendental")},
+        "short_chain": {"K": fma["K_lo"], "ms": fma["seconds_lo"] * 1e3,
+                        **dict(zip(("bound_ms", "bound_by"), _bound(2.0 * fma["elements"] * fma["K_lo"],
+                                                                    8 * fma["elements"])))},
     })
-    measured_bounds(kernels, k1["steps"], roof["report"])
+    measured_bounds(kernels, roof["report"])
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time a fused MNLE kernel (K2, K2p, K3 or K3p), or one gradient call of the
-potential, of two checkouts in turns on one CUDA card: the "before" and the
-"after" of a change.
+"""Time a fused MNLE kernel (K2, K2p, K3 or K3p), the simulator kernel K1, or
+one gradient call of the potential, of two checkouts in turns on one CUDA
+card: the "before" and the "after" of a change.
 
 Kernel mode (``--kernel``). The rows are made once, by this checkout
 (``chip_smoke.session_rows`` on the kernel's committed model, at 1,200 and
@@ -16,6 +16,18 @@ package of one name) from its own root: it loads the model through its own
 value; dt and dctx; dphi, dctx and dkf) are compared: the largest difference
 of each, and the row it is on.
 
+K1 mode (``--kernel k1``). The trials are made once, by this checkout:
+``chip_smoke.py``'s prior draws (seed 7) at 4,096 (the main path's launch)
+and 131,072, and the roofline path's 524,288 fixed-theta trials
+(``roofline.simulator_inputs``). Each checkout calls its own
+``ops.ddm_cuda.ddm_rt_choice_cuda`` (seed 1) and times it with CUDA events;
+the report gives the rows whose outputs differ between the two (a redesign
+that keeps K1's random stream gives 0) and the executed trial-steps/s. Each
+side also times the flagship path's simulation of 131,072 training pairs
+(``simulate_training_set_with_conditions``, one K1 launch a batch of
+4,096, on the host's clock after one warm-up call) and gives K1's share of
+it: its launches x its time at 4,096 over the wall.
+
 Call mode (``--call grad`` on the flagship, ``--call grad_pulse`` on the
 pulse-grid model). Each checkout times one synchronized
 ``ConditionedMNLELogLikelihood.log_lik_and_grad(x, theta, need_grad=True)``
@@ -27,7 +39,7 @@ the two sides' (ll, grad) are compared.
 The order is parent, this, this, parent, and each side's time is the mean
 of its two turns. Run from the root of a checkout, on a machine with one
 CUDA card and nvcc: ``python3 compare_k3.py --parent DIR [--kernel
-k2|k2p|k3|k3p | --call grad|grad_pulse]``, where DIR holds a checkout of
+k1|k2|k2p|k3|k3p | --call grad|grad_pulse]``, where DIR holds a checkout of
 the earlier commit (``git archive <commit> | tar -x -C DIR``). The last line
 is one JSON object; the script exits with 2 without a card.
 """
@@ -54,6 +66,9 @@ KERNELS = {
     "k3p": ("rows_logp_pulse_vjp", True, ("dphi", "dctx", "dkf"), True),
 }
 CALLS = {"grad": False, "grad_pulse": True}  # call -> the pulse model?
+K1_SIZES = (4_096, 131_072, 524_288)
+K1_REPS = {4_096: 20, 131_072: 10, 524_288: 5}
+K1_SIM_PAIRS = 131_072
 
 CHILD = """
 import json, sys, torch
@@ -102,6 +117,78 @@ for _ in range(data["reps"]):
 torch.save({data["n"]: [ll.cpu(), g.cpu()]}, sys.argv[2])
 print(json.dumps({data["n"]: total * 1e3 / data["reps"]}))
 """
+
+
+CHILD_K1 = """
+import json, sys, time, torch
+from sbi_for_diffusion_models_tpu_torch.data_simulator import simulate_training_set_with_conditions
+from sbi_for_diffusion_models_tpu_torch.models.rt_choice_model import n_pulses_max_from_schedule, pulse_schedule
+from sbi_for_diffusion_models_tpu_torch.ops import ddm_cuda
+from sbi_for_diffusion_models_tpu_torch.pipeline import build_prior_theta
+from sbi_for_diffusion_models_tpu_torch.proposals import ExtendedProposal, PulseSequenceProposal
+from sbi_for_diffusion_models_tpu_torch.run_config import CALIBRATED_CONFIG
+dev = torch.device("cuda", 0)
+data = torch.load(sys.argv[1])
+outs, ms = {}, {}
+for n, (theta, s, reps) in data["trials"].items():
+    theta, s = theta.to(dev), s.to(dev)
+    run = lambda: ddm_cuda.ddm_rt_choice_cuda(theta, s, 1, n_max=data["n_max"], steps_per_pulse=data["spp"])
+    outs[n] = [run().cpu()]
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    ms[n] = start.elapsed_time(end) / reps
+P = n_pulses_max_from_schedule(*pulse_schedule())
+proposal = ExtendedProposal(build_prior_theta(), PulseSequenceProposal(P, CALIBRATED_CONFIG.P_SUCCESS, device=dev))
+simulate = lambda: simulate_training_set_with_conditions(CALIBRATED_CONFIG, proposal, num_simulations=data["pairs"],
+                                                         device=dev, verbose=False)
+simulate()
+torch.cuda.synchronize()
+before = ddm_cuda.K1.launches
+t0 = time.perf_counter()
+simulate()
+torch.cuda.synchronize()
+ms["simulate"] = (time.perf_counter() - t0) * 1e3
+ms["simulate_k1_launches"] = ddm_cuda.K1.launches - before
+torch.save(outs, sys.argv[2])
+print(json.dumps(ms))
+"""
+
+
+def _k1_trials(path: Path, device) -> None:
+    """K1's trials at every size of K1_SIZES, saved for the children."""
+    import torch
+
+    from sbi_for_diffusion_models_tpu_torch import roofline
+    from sbi_for_diffusion_models_tpu_torch.models.rt_choice_model import (
+        generate_pulse_matrix,
+        n_pulses_max_from_schedule,
+        pulse_schedule,
+    )
+    from sbi_for_diffusion_models_tpu_torch.pipeline import build_prior_theta
+    from sbi_for_diffusion_models_tpu_torch.utils.rng import make_generator
+
+    n_max, spp = pulse_schedule()
+    gen = make_generator(7, device)
+    theta = build_prior_theta().sample(gen, (K1_SIZES[1],))
+    s = generate_pulse_matrix(gen, K1_SIZES[1], n_pulses_max_from_schedule(n_max, spp))
+    rt, rs, _, _ = roofline.simulator_inputs(K1_SIZES[2], device)
+    trials = {K1_SIZES[0]: (theta[:K1_SIZES[0]], s[:K1_SIZES[0]]), K1_SIZES[1]: (theta, s), K1_SIZES[2]: (rt, rs)}
+    torch.save({"n_max": n_max, "spp": spp, "pairs": K1_SIM_PAIRS,
+                "trials": {n: (a.contiguous().cpu(), b.contiguous().cpu(), K1_REPS[n]) for n, (a, b) in trials.items()}},
+               path)
+
+
+def _executed_steps(path: Path, n: int, out) -> int:
+    """The trial-steps K1 executed: (rt - t_nd) / dt a trial (dt 5e-4, t_max 8)."""
+    import torch
+
+    theta = torch.load(path)["trials"][n][0]
+    return int(torch.round((out[:, 0] - theta[:, 4].clamp(0.0, 8.0 - 1e-6)) / 5e-4).clamp(min=0).sum())
 
 
 def _model(pulse: bool) -> str:
@@ -153,14 +240,14 @@ def _run_side(root: Path, child: str, data: Path, outs: Path) -> dict:
                           capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         raise RuntimeError(f"the run of {root} failed (rc {proc.returncode}):\n{proc.stdout}\n{proc.stderr[-4000:]}")
-    return {int(n): ms for n, ms in json.loads(proc.stdout.strip().splitlines()[-1]).items()}
+    return {int(n) if n.isdigit() else n: ms for n, ms in json.loads(proc.stdout.strip().splitlines()[-1]).items()}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, required=True, help="checkout of the commit that is the 'before'")
     mode = ap.add_mutually_exclusive_group()
-    mode.add_argument("--kernel", choices=sorted(KERNELS), default="k3", help="the kernel to time")
+    mode.add_argument("--kernel", choices=sorted(KERNELS) + ["k1"], default="k3", help="the kernel to time")
     mode.add_argument("--call", choices=sorted(CALLS), help="time log_lik_and_grad(need_grad=True) instead")
     args = ap.parse_args(argv)
 
@@ -179,17 +266,25 @@ def main(argv=None) -> int:
         if args.call:
             label, child, names = f"log_lik_and_grad ({args.call})", CHILD_CALL, ("ll", "grad")
             sizes = (_session(data, device, args.call),)
+        elif args.kernel == "k1":
+            label, child, names, sizes = "K1", CHILD_K1, ("rt, choice",), K1_SIZES
+            _k1_trials(data, device)
         else:
             label, child, names = args.kernel.upper().replace("P", "p"), CHILD, KERNELS[args.kernel][2]
             sizes = SIZES
             _rows(data, device, args.kernel)
-        ms = {name: {n: [] for n in sizes} for name in sides}
+        timed = (*sizes, "simulate") if args.kernel == "k1" and not args.call else sizes
+        ms = {name: {n: [] for n in timed} for name in sides}
+        sim_launches = {}
         for turn, name in enumerate(("parent", "this", "this", "parent")):
             got = _run_side(sides[name], child, data, Path(tmp) / f"{name}{turn}.pt")
-            for n in sizes:
+            for n in timed:
                 ms[name][n].append(got[n])
-            print(f"[time] turn {turn} {name}: " + ", ".join(f"n={n} {got[n]:.4f} ms" for n in sizes), flush=True)
+            sim_launches[name] = got.get("simulate_k1_launches")
+            print(f"[time] turn {turn} {name}: " + ", ".join(f"n={n} {got[n]:.4f} ms" for n in timed), flush=True)
         outs = {name: torch.load(Path(tmp) / f"{name}{turn}.pt") for turn, name in ((0, "parent"), (1, "this"))}
+        if label == "K1":
+            steps = {n: _executed_steps(data, n, outs["this"][n][0]) for n in sizes}
     report = {"device": smi, "timed": label, "ms": {}, "speedup": {}, "max_abs_diff": {}}
     for n in sizes:
         mean = {name: sum(ms[name][n]) / len(ms[name][n]) for name in sides}
@@ -200,10 +295,25 @@ def main(argv=None) -> int:
             d = (a - b).abs().reshape(a.shape[0], -1).amax(1)
             diff[what] = {"max": float(d.max()), "row": int(d.argmax())}
         report["max_abs_diff"][str(n)] = diff
-        print(f"[{label}] n={n}: parent {mean['parent']:.4f} ms, this {mean['this']:.4f} ms, "
-              f"{report['speedup'][str(n)]:.3f}x; max |diff| {report['max_abs_diff'][str(n)]}", flush=True)
+        line = (f"[{label}] n={n}: parent {mean['parent']:.4f} ms, this {mean['this']:.4f} ms, "
+                f"{report['speedup'][str(n)]:.3f}x; max |diff| {report['max_abs_diff'][str(n)]}")
+        if label == "K1":
+            differ = int((outs["parent"][n][0] != outs["this"][n][0]).any(1).sum())
+            report.setdefault("rows_differing", {})[str(n)] = differ
+            report.setdefault("executed_trial_steps_per_s", {})[str(n)] = {
+                name: steps[n] / (mean[name] * 1e-3) for name in sides}
+            line += f"; rows differing {differ}; executed trial-steps {steps[n]}"
+        print(line, flush=True)
+    if label == "K1":
+        for name in sides:
+            wall = sum(ms[name]["simulate"]) / 2
+            k1_ms = report["ms"][str(K1_SIZES[0])][name]["mean"]
+            report.setdefault("simulate", {})[name] = {
+                "pairs": K1_SIM_PAIRS, "wall_ms": wall, "turns": ms[name]["simulate"],
+                "k1_launches": sim_launches[name], "k1_share": sim_launches[name] * k1_ms / wall}
+        print(f"[K1] simulate {K1_SIM_PAIRS} pairs: {json.dumps(report['simulate'])}", flush=True)
     print(json.dumps(report))
-    return 0
+    return 1 if any(report.get("rows_differing", {}).values()) else 0
 
 
 if __name__ == "__main__":

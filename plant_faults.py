@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Plant known faults in the fused MNLE kernels (K2/K3, K2p/K3p) and show
-that ``chip_smoke.py``'s kernel checks fail on each of them.
+"""Plant known faults in the fused MNLE kernels (K2/K3, K2p/K3p) and the
+simulator K1, and show that ``chip_smoke.py``'s kernel checks fail on each
+of them.
 
 For the unchanged source and for each fault in FAULTS, the script copies the
 port's package, ``chip_smoke.py`` and the committed models into a temporary
@@ -9,7 +10,9 @@ fault's kernel file, and runs the fault's check there (the copy builds its
 own kernels): ``chip_smoke.phase_k2k3`` for K2/K3 (``csrc/mnle_logprob.cu``,
 with the tile product of ``csrc/mnle_tile.cuh``), ``chip_smoke.phase_k2pk3p``
 for K2p/K3p (``csrc/mnle_pulse.cu``), at 1,200 and at 115,200 rows, each
-size on its own. The unchanged source runs both checks. It prints the checks' lines
+size on its own; ``chip_smoke.phase_k1_fixture`` for K1
+(``csrc/ddm_rt_choice.cu``: every case of the parent K1's committed
+outputs, bit for bit). The unchanged source runs every check. It prints the checks' lines
 for each run, then one JSON object as the last line: per fault and size,
 "passed" or "failed". It exits with 0 only if the unchanged source passes
 every check at both sizes and every fault fails at both.
@@ -29,8 +32,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PKG = "sbi_for_diffusion_models_tpu_torch"
-MODELS = ("artifacts/models/mnle_10m_shifted_logt_affine.npz", "artifacts/models/mnle_1m_pulseabs.npz")
-K3_FILE, K3P_FILE, TILE_FILE = "mnle_logprob.cu", "mnle_pulse.cu", "mnle_tile.cuh"
+DATA = ("artifacts/models/mnle_10m_shifted_logt_affine.npz", "artifacts/models/mnle_1m_pulseabs.npz",
+        "tests/k1_fixture.py", "tests/data/k1_parent_outputs.npz")
+K3_FILE, K3P_FILE, TILE_FILE, K1_FILE = "mnle_logprob.cu", "mnle_pulse.cu", "mnle_tile.cuh", "ddm_rt_choice.cu"
 
 # name -> (file in csrc/, the check's phase, text in the file, its replacement), or None for the unchanged
 # source, which runs every phase.
@@ -68,8 +72,18 @@ FAULTS = {
                                    "(lane == min(k + 1, K - 1) ? g_dk1 : 0.0f)"),
     # K2p and K3p (one circular_phase): the phase's mod is C's fmodf, negative below 0, instead of the floor-mod.
     "k3p_fmodf_phase": (K3P_FILE, "phase_k2pk3p", "*m = a - floorf(a);", "*m = fmodf(a, 1.0f);"),
+    # K1: a group's step takes its noise from the next lane of the group (the same distribution: only the parent's
+    # bits catch it).
+    "k1_noise_from_the_wrong_lane": (K1_FILE, "phase_k1_fixture", "e[k & 3], leader + (k >> 2))",
+                                     "e[k & 3], leader + (((k >> 2) + 1) & (G - 1)))"),
+    # K1: the refill skips one trial index (the first it would hand out), which is never simulated.
+    "k1_refill_skips_a_trial": (K1_FILE, "phase_k1_fixture", "trial = groups + base + ",
+                                "trial = groups + 1u + base + "),
+    # K1: the chunk's kick lands on its second step.
+    "k1_kick_on_the_second_step": (K1_FILE, "phase_k1_fixture", "const int koff = tr.chunk * steps_per_pulse - t;",
+                                   "const int koff = tr.chunk * steps_per_pulse + 1 - t;"),
 }
-PHASES = ("phase_k2k3", "phase_k2pk3p")
+PHASES = ("phase_k2k3", "phase_k2pk3p", "phase_k1_fixture")
 
 CHILD = """
 import json, sys, torch
@@ -77,13 +91,13 @@ import chip_smoke as cs
 torch.backends.cuda.matmul.allow_tf32 = False
 out = {}
 for phase in sys.argv[1:]:
-    for n in (cs.ROWS_MAIN, cs.ROWS_SBC):
+    for n in ((None,) if phase == "phase_k1_fixture" else (cs.ROWS_MAIN, cs.ROWS_SBC)):
         try:
-            getattr(cs, phase)(torch.device("cuda", 0), sizes=(n,))
-            out[f"{phase}@{n}"] = "passed"
+            getattr(cs, phase)(torch.device("cuda", 0), **({} if n is None else {"sizes": (n,)}))
+            out[phase if n is None else f"{phase}@{n}"] = "passed"
         except AssertionError as e:
             print("[check failed]", e, flush=True)
-            out[f"{phase}@{n}"] = "failed"
+            out[phase if n is None else f"{phase}@{n}"] = "failed"
 print(json.dumps(out))
 """
 
@@ -91,9 +105,9 @@ print(json.dumps(out))
 def _copy_with_fault(dst: Path, fault) -> None:
     shutil.copytree(ROOT / PKG, dst / PKG, ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy2(ROOT / "chip_smoke.py", dst / "chip_smoke.py")
-    for model in MODELS:
-        (dst / model).parent.mkdir(parents=True, exist_ok=True)
-        shutil.copy2(ROOT / model, dst / model)
+    for data in DATA:
+        (dst / data).parent.mkdir(parents=True, exist_ok=True)
+        shutil.copy2(ROOT / data, dst / data)
     if fault is not None:
         name, _, old, new = fault
         path = dst / PKG / "csrc" / name

@@ -7,12 +7,18 @@ the plain version, ``ops/ddm_scan.ddm_rt_choice_scan``, which has the same
 semantics but another random stream (as the Pallas kernel's hardware PRNG
 differs from the scan kernel's), so the two agree exactly only without
 noise and in distribution otherwise.
+
+The launch shape, G lanes a trial and the number of blocks, is a function
+of N and the card (``k1_launch_shape``): its SM count and resident blocks
+(``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` of the kernel that
+runs). No argument chooses it, and every shape gives the
+same bits: a trial's noise depends only on (seed, trial index, step).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -22,18 +28,86 @@ from ..utils.rng import as_seed
 from ._cuda import CudaKernel, check_cuda_tensor, stream_handle
 from .ddm_scan import ddm_rt_choice_scan
 
-__all__ = ["ddm_rt_choice_cuda", "K1"]
+__all__ = ["ddm_rt_choice_cuda", "k1_launch_shape", "k1_noise_mismatches", "K1", "K1_GROUP_SIZES", "K1_LANES_PER_SM",
+           "K1_NOISE_CHECK", "K1_THREADS", "K1_TRIALS_PER_GROUP"]
 
 K1 = CudaKernel(
     "ddm_rt_choice",
     "ddm_rt_choice.cu",
     "sdm_ddm_rt_choice",
-    [ctypes.c_void_p] * 3
+    [ctypes.c_void_p] * 4
     + [ctypes.c_int] * 3
     + [ctypes.c_float] * 5
-    + [ctypes.c_uint64, ctypes.c_void_p],
+    + [ctypes.c_uint64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     flags=("--fmad=false",),
 )
+# K1's square root and sine/cosine against sqrtf's and sincosf's bits on every input the noise can give them.
+K1_NOISE_CHECK = CudaKernel("ddm_noise_check", "ddm_rt_choice.cu", "sdm_ddm_noise_check",
+                            [ctypes.c_void_p, ctypes.c_void_p], flags=("--fmad=false",))
+K1_THREADS = 128  # threads a block: csrc/ddm_rt_choice.cu's K1_THREADS
+K1_GROUP_SIZES = (8, 4, 2, 1)  # the kernel's instances: lanes that share a trial
+# Lanes a launch puts on an SM: four blocks, four warps on each scheduler; and the trials a group may run in turn
+# before fewer lanes share a trial. On the H100 (diagnose_k1.py --shapes) more lanes a trial help while each group
+# runs a few trials, and at the main path's 4,096 eight lanes a trial beat four; fewer lanes than trials, refilled,
+# beat a lane for every trial, since the last trials' tail then costs less.
+K1_LANES_PER_SM = 512
+K1_TRIALS_PER_GROUP = 4
+
+
+def k1_launch_shape(n: int, steps_per_pulse: int, sm_count: int,
+                    resident_blocks: Mapping[int, int]) -> tuple[int, int]:
+    """(G, blocks) for a launch of ``n`` trials on a card of ``sm_count``
+    SMs that holds ``resident_blocks[G]`` blocks of K1_THREADS an SM for
+    the kernel of G lanes a trial.
+
+    G is the largest of K1_GROUP_SIZES with G x n within K1_TRIALS_PER_GROUP
+    x sm_count x K1_LANES_PER_SM lanes and 4 G <= ``steps_per_pulse`` (an
+    iteration of 4 G steps holds at most one chunk start); else 1. The grid
+    holds a group for every trial, but no more than K1_LANES_PER_SM lanes an
+    SM, nor more blocks than are resident at once: past that, groups take
+    further trials from the kernel's counter as theirs end."""
+    if n < 1 or sm_count < 1:
+        raise ValueError(f"n={n} and sm_count={sm_count} must be positive")
+    lanes = sm_count * K1_LANES_PER_SM
+    G = next(g for g in K1_GROUP_SIZES
+             if g == 1 or (4 * g <= steps_per_pulse and g * n <= K1_TRIALS_PER_GROUP * lanes))
+    per_sm = min(K1_LANES_PER_SM // K1_THREADS, max(int(resident_blocks[G]), 1))
+    return G, min(-(-n * G // K1_THREADS), sm_count * per_sm)
+
+
+def k1_noise_mismatches(device) -> int:
+    """How many of K1's square roots and sines/cosines differ in their bits
+    from sqrtf's and sincosf's, over all 2^24 values each Box-Muller input
+    can take (K1 evaluates them without the CUDA math library's branches to
+    inputs it never has); 0 means K1's noise has the math library's bits."""
+    device = torch.device(device)
+    mismatches = torch.empty((1,), dtype=torch.int32, device=device)
+    K1_NOISE_CHECK(mismatches.data_ptr(), stream_handle(device))
+    return int(mismatches.item())
+
+
+_RESIDENT: dict[tuple, dict[int, int]] = {}
+
+
+def _card_capacity(device: torch.device, collapse: bool) -> tuple[int, dict[int, int]]:
+    """(SM count, {G: resident blocks an SM}) of the kernels that run for
+    ``collapse``, asked of the card once per device."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = (index, collapse)
+    if key not in _RESIDENT:
+        fn = K1.library.load().sdm_ddm_rt_choice_resident_blocks
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        blocks = {}
+        with torch.cuda.device(index):
+            for g in K1_GROUP_SIZES:
+                b = ctypes.c_int(0)
+                err = fn(g, int(collapse), ctypes.byref(b))
+                if err != 0:
+                    raise RuntimeError(f"ddm_rt_choice: occupancy query failed for G={g}: cudaError {err}")
+                blocks[g] = b.value
+        _RESIDENT[key] = blocks
+    return torch.cuda.get_device_properties(index).multi_processor_count, _RESIDENT[key]
 
 
 def ddm_rt_choice_cuda(
@@ -79,11 +153,16 @@ def ddm_rt_choice_cuda(
     check_cuda_tensor("theta^T", theta_t, (5, N))
     check_cuda_tensor("pulse_sides^T", s_t, (n_chunks, N))
     out = torch.empty((N, 2), dtype=torch.float32, device=theta.device)
+    if N == 0:
+        return out
+    next_trial = torch.empty((1,), dtype=torch.int32, device=theta.device)  # the refill counter, zeroed by K1
+    sm_count, resident = _card_capacity(theta.device, float(np.float32(collapse_rate)) != 0.0)
+    G, blocks = k1_launch_shape(N, steps_per_pulse, sm_count, resident)
     sig = float(np.float32(mu_sensory) * np.sqrt(np.float32(dt)))
     K1(
-        theta_t.data_ptr(), s_t.data_ptr(), out.data_ptr(),
+        theta_t.data_ptr(), s_t.data_ptr(), out.data_ptr(), next_trial.data_ptr(),
         N, n_max, steps_per_pulse,
         float(dt), float(t_max), float(t_max) - 1e-6, sig, float(collapse_rate),
-        as_seed(seed), stream_handle(theta.device),
+        as_seed(seed), G, blocks, stream_handle(theta.device),
     )
     return out

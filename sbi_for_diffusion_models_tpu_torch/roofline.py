@@ -29,7 +29,8 @@ K1's operations per executed trial-step (``K1_FMA_CLASS_OPS``,
 and 2 sums (no contraction), 2 bound compares, and about 6 predicate and
 select operations (active, hit, choice): 13. A quarter of a Philox4x32-10
 call (10 rounds of 2 mulhi, 2 mullo, 4 xor, 2 adds) is 25 integer
-operations. Half a Box-Muller pair outside its special functions (2 shifts,
+operations (the kernel takes each mulhi and mullo pair from one wide
+multiply; both halves are counted). Half a Box-Muller pair outside its special functions (2 shifts,
 2 conversions, 3 for u1 and u2, the -2 and 2 pi scalings, 2 products) is
 5.5. Together 43.5 FMA-class operations, against the 18 counted for the TPU
 kernel: the TPU draws its bits from a hardware generator, here Philox runs

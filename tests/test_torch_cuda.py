@@ -16,11 +16,19 @@ from sbi_for_diffusion_models_tpu_torch.mnle import load_model
 from sbi_for_diffusion_models_tpu_torch.nets.mnle_net import MNLEConfig, mnle_from_flax_params
 from sbi_for_diffusion_models_tpu_torch.ops import mnle_cuda as mc
 from sbi_for_diffusion_models_tpu_torch.ops.ceiling_cuda import FUSED_ULPS, K4, ceiling_chain, ceiling_plain, fma_tolerance
-from sbi_for_diffusion_models_tpu_torch.ops.ddm_cuda import K1, ddm_rt_choice_cuda
+from sbi_for_diffusion_models_tpu_torch.ops.ddm_cuda import (
+    K1,
+    K1_THREADS,
+    ddm_rt_choice_cuda,
+    k1_launch_shape,
+    k1_noise_mismatches,
+)
 from sbi_for_diffusion_models_tpu_torch.ops.ddm_scan import ddm_rt_choice_scan
 from sbi_for_diffusion_models_tpu_torch.ops.rowcheck import reference, row_check
 from sbi_for_diffusion_models_tpu_torch.pipeline import build_prior_theta
 from sbi_for_diffusion_models_tpu_torch.utils.rng import make_generator
+
+import k1_fixture  # tests/k1_fixture.py
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -65,6 +73,71 @@ def test_k1_is_deterministic_per_seed_and_differs_across_seeds():
     assert torch.equal(a, b)
     assert not torch.equal(a, c)
     assert set(a[:, 1].unique().tolist()) <= {0.0, 1.0, 2.0}
+
+
+@functools.lru_cache(maxsize=None)
+def _k1_fixture():
+    return k1_fixture.load()
+
+
+def test_k1_square_root_and_sine_cosine_are_the_math_librarys():
+    """K1 takes sqrtf and sincosf without their branches to inputs it never
+    has; on every input the noise can give them, the bits are the same."""
+    assert k1_noise_mismatches(DEV) == 0
+
+
+@pytest.mark.parametrize("case", sorted(k1_fixture.CASES))
+def test_k1_equals_the_parent_k1_bit_for_bit(case):
+    """The fixture (tests/k1_fixture.py): the parent K1's outputs on inputs
+    rebuilt from seeds, at N = 1, 31, 33, 4,096, 8,192 (with and without a
+    collapsing bound), the full 16,000-step window at 4,096, and 300,000
+    trials, where groups refill."""
+    got = k1_fixture.run(ddm_rt_choice_cuda, k1_fixture.CASES[case], DEV).cpu().numpy()
+    want = _k1_fixture()[case]
+    diff = np.flatnonzero((got != want).any(1))
+    assert diff.size == 0, f"{diff.size} rows differ from the parent K1, first {diff[:5].tolist()}"
+
+
+def _k1_capacity(collapse):
+    from sbi_for_diffusion_models_tpu_torch.ops.ddm_cuda import _card_capacity
+
+    return _card_capacity(DEV, collapse)
+
+
+@pytest.mark.parametrize("case", ["kw_n8192_c0", "kw_n8192_c2"])
+def test_k1_every_launch_shape_gives_the_parent_bits(case):
+    """For every launch shape the rule picks as N grows from 8,192 (on the
+    H100: G = 8 with a group for every trial, then G = 8, 4, 2 and 1 with
+    groups that refill), the smallest N that lands in it: the first 8,192
+    trials equal the fixture's (a trial's output does not depend on N)."""
+    c = k1_fixture.CASES[case]
+    sm, resident = _k1_capacity(c["collapse_rate"] != 0.0)
+    spp = k1_fixture.KW["steps_per_pulse"]
+    first = {}
+    for n in sorted({int(8192 * 1.25**i) for i in range(40)} | {8192}):
+        G, blocks = k1_launch_shape(n, spp, sm, resident)
+        first.setdefault((G, blocks * K1_THREADS // G >= n), n)  # (G, a group for every trial?)
+    assert len(first) >= 3, first
+    want = _k1_fixture()[case]
+    for (G, whole), n in sorted(first.items()):
+        got = k1_fixture.run(ddm_rt_choice_cuda, c, DEV, n=n)[:8192].cpu().numpy()
+        diff = np.flatnonzero((got != want).any(1))
+        assert diff.size == 0, f"N={n} (G={G}, refill={not whole}): {diff.size} rows differ, first {diff[:5].tolist()}"
+
+
+def test_k1_two_launches_in_a_row_give_the_same_bits_when_groups_refill():
+    """The refill counter is zeroed before every launch: a second launch at
+    a refilling N, on the same stream right after the first, repeats it."""
+    c = k1_fixture.CASES["kw_n300000_c0"]
+    sm, resident = _k1_capacity(False)
+    G, blocks = k1_launch_shape(c["n"], k1_fixture.KW["steps_per_pulse"], sm, resident)
+    assert blocks * K1_THREADS // G < c["n"], "300,000 trials no longer refill on this card"
+    before = K1.launches
+    a = k1_fixture.run(ddm_rt_choice_cuda, c, DEV)
+    b = k1_fixture.run(ddm_rt_choice_cuda, c, DEV)
+    assert K1.launches == before + 2
+    assert torch.equal(a, b)
+    np.testing.assert_array_equal(a.cpu().numpy(), _k1_fixture()["kw_n300000_c0"])
 
 
 def _small_estimator(**kw):
