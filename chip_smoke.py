@@ -9,7 +9,8 @@ port's paths once each through their public entry points:
    backward), K2p/K3p (the same for the pulse-grid RT representation) and
    K4 (the issue-ceiling microkernel) with nvcc for sm_90a, one nvcc per
    source, side by side;
-2. K1 against its plain version at N = 131,072 prior draws: equal outputs
+2. K1 against its plain version at N = 131,072 prior draws and at the
+   main path's 4,096 (each launched at its own shape): equal outputs
    without noise; with noise a two-sample KS test on RT per choice and a
    chi-square test on the choice counts (p > 1e-3); the same seed twice
    gives the same output; then against the parent K1's committed outputs
@@ -77,7 +78,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py`` (one CUDA card,
 their launches, errors, times and bounds at both sizes (K4: both chain
 lengths), K1 also with its launch shape, the four fused kernels' with their
 tile height, and each with ptxas's registers, stack and spills (K1: of each
-of its eight instances); a spill fails the run. Any failed check
+of its six instances); a spill fails the run. Any failed check
 raises, and the script exits non-zero without that line. There is no CPU fallback: without
 a CUDA card the script exits with status 2.
 """
@@ -294,22 +295,6 @@ def phase_k1_fixture(device) -> dict:
     return differing
 
 
-def k1_launch_shapes(device, sizes) -> dict:
-    """The launch shape ``ops/ddm_cuda.k1_launch_shape`` picks at each N of
-    ``sizes`` (the main path's window, no collapsing bound) on this card."""
-    from sbi_for_diffusion_models_tpu_torch.models.rt_choice_model import pulse_schedule
-    from sbi_for_diffusion_models_tpu_torch.ops.ddm_cuda import K1_THREADS, _card_capacity, k1_launch_shape
-
-    sm, resident = _card_capacity(device, False)
-    shapes = {}
-    for n in sizes:
-        G, blocks = k1_launch_shape(n, pulse_schedule()[1], sm, resident)
-        shapes[str(n)] = {"G": G, "blocks": blocks, "resident_groups": blocks * K1_THREADS // G,
-                          "resident_blocks_per_sm": resident[G], "sm_count": sm}
-    _log(f"[K1] launch shapes: {json.dumps(shapes)}")
-    return shapes
-
-
 def phase_k1(device, n: int, seed: int = 7) -> dict:
     """K1 against its plain version at ``n`` prior draws, against the
     parent K1's committed outputs, then its times."""
@@ -326,7 +311,14 @@ def phase_k1(device, n: int, seed: int = 7) -> dict:
     theta = build_prior_theta().sample(gen, (n,))
     s = generate_pulse_matrix(gen, n, n_pulses_max_from_schedule(n_max, spp))
     kernel, plain, max_abs = _k1_against_plain("K1", theta, s, n_max, spp)
-    from sbi_for_diffusion_models_tpu_torch.ops.ddm_cuda import k1_noise_mismatches
+    # The main path's launch (TRAIN_BATCH_SIZE) runs another instance of the kernel than n's: hold it as well.
+    max_abs = max(max_abs, _k1_against_plain("K1 n=4096", theta[:4096], s[:4096], n_max, spp)[2])
+    from sbi_for_diffusion_models_tpu_torch.ops.ddm_cuda import (
+        K1_LAST_LAUNCH,
+        K1_THREADS,
+        _card_capacity,
+        k1_noise_mismatches,
+    )
 
     mismatches = k1_noise_mismatches(device)
     _log(f"[K1] square root and sine/cosine against sqrtf and sincosf on all 2^24 inputs each: "
@@ -336,19 +328,27 @@ def phase_k1(device, n: int, seed: int = 7) -> dict:
     phase_k1_fixture(device)
 
     # Times at the main path's batch (TRAIN_BATCH_SIZE = 4,096) and at n,
-    # with the bound from the steps the timed call's trials executed.
-    times = {}
+    # with the bound from the steps the timed call's trials executed and the
+    # launch shape that call ran at.
+    times, shapes = {}, {}
+    sm, resident = _card_capacity(device, False)
     for m in (4096, n):
         k_ms = _time_ms(lambda: kernel(1.0, 3, theta[:m], s[:m]), 5, device)
         p_ms = _time_ms(lambda: plain(1.0, 4, theta[:m], s[:m]), 1, device)
         b_ms, b_by, steps = k1_bound(theta[:m], kernel(1.0, 3, theta[:m], s[:m]), n_max // spp)
+        if K1_LAST_LAUNCH["n"] != m:
+            raise AssertionError(f"K1's last launch was not the timed one at n={m}: {K1_LAST_LAUNCH}")
+        G, blocks = K1_LAST_LAUNCH["G"], K1_LAST_LAUNCH["blocks"]
+        shapes[str(m)] = {"G": G, "blocks": blocks, "resident_groups": blocks * K1_THREADS // G,
+                          "resident_blocks_per_sm": resident[G], "sm_count": sm}
+        _log(f"[K1] launch shape n={m}: {json.dumps(shapes[str(m)])}")
         times[m] = (k_ms, p_ms, b_ms, b_by, steps)
         _log(f"[K1] time n={m}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.4g} ({b_by}) "
              f"executed_trial_steps={steps} ({steps / (m * n_max):.4f} of nominal) "
              f"executed_trial_steps_per_s(kernel)={steps / (k_ms * 1e-3):.4g}")
     return {"max_abs_err": max_abs, "ms": times[4096][0], "plain_ms": times[4096][1],
             "bound_ms": times[4096][2], "bound_by": times[4096][3], "steps": times[4096][4], "times": times,
-            "launch_shape": k1_launch_shapes(device, (4096, n))}
+            "launch_shape": shapes}
 
 
 def session_rows(est, prior, device, n_sessions: int, seed: int = 11):
@@ -1059,8 +1059,8 @@ def main() -> int:
         for v in found.values():
             if v.get("spill_stores", 0) or v.get("spill_loads", 0):
                 raise AssertionError(f"{k['name']} spills registers: {found}")
-    if len(kernels[0]["ptxas"]) != 8:
-        raise AssertionError(f"ptxas reported {len(kernels[0]['ptxas'])} K1 instances, expected 8: {sorted(ptxas)}")
+    if len(kernels[0]["ptxas"]) != 6:
+        raise AssertionError(f"ptxas reported {len(kernels[0]['ptxas'])} K1 instances, expected 6: {sorted(ptxas)}")
     fma = roof["report"]["issue_fma"]
     kernels.append({
         "name": "issue_ceiling", "route": "cuda", "source": f"{src}/issue_ceiling.cu",

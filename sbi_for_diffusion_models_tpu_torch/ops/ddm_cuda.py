@@ -13,6 +13,7 @@ of N and the card (``k1_launch_shape``): its SM count and resident blocks
 (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` of the kernel that
 runs). No argument chooses it, and every shape gives the
 same bits: a trial's noise depends only on (seed, trial index, step).
+``K1_LAST_LAUNCH`` holds the N, G and blocks of the last launch.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from ._cuda import CudaKernel, check_cuda_tensor, stream_handle
 from .ddm_scan import ddm_rt_choice_scan
 
 __all__ = ["ddm_rt_choice_cuda", "k1_launch_shape", "k1_noise_mismatches", "K1", "K1_GROUP_SIZES", "K1_LANES_PER_SM",
-           "K1_NOISE_CHECK", "K1_THREADS", "K1_TRIALS_PER_GROUP"]
+           "K1_LAST_LAUNCH", "K1_THREADS", "K1_TRIALS_PER_GROUP"]
 
 K1 = CudaKernel(
     "ddm_rt_choice",
@@ -41,17 +42,15 @@ K1 = CudaKernel(
     + [ctypes.c_uint64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     flags=("--fmad=false",),
 )
-# K1's square root and sine/cosine against sqrtf's and sincosf's bits on every input the noise can give them.
-K1_NOISE_CHECK = CudaKernel("ddm_noise_check", "ddm_rt_choice.cu", "sdm_ddm_noise_check",
-                            [ctypes.c_void_p, ctypes.c_void_p], flags=("--fmad=false",))
 K1_THREADS = 128  # threads a block: csrc/ddm_rt_choice.cu's K1_THREADS
-K1_GROUP_SIZES = (8, 4, 2, 1)  # the kernel's instances: lanes that share a trial
+K1_GROUP_SIZES = (8, 2, 1)  # the kernel's instances: lanes that share a trial
 # Lanes a launch puts on an SM: four blocks, four warps on each scheduler; and the trials a group may run in turn
-# before fewer lanes share a trial. On the H100 (diagnose_k1.py --shapes) more lanes a trial help while each group
-# runs a few trials, and at the main path's 4,096 eight lanes a trial beat four; fewer lanes than trials, refilled,
-# beat a lane for every trial, since the last trials' tail then costs less.
+# before fewer lanes share a trial. On the H100 (PERF.md) eight lanes a trial beat four at the main path's
+# 4,096, two beat four at 131,072, and fewer lanes than trials, refilled, beat a lane for every trial, since the
+# last trials' tail then costs less.
 K1_LANES_PER_SM = 512
 K1_TRIALS_PER_GROUP = 4
+K1_LAST_LAUNCH = {"n": 0, "G": 0, "blocks": 0}  # the last launch's N and shape, as ddm_rt_choice_cuda launched it
 
 
 def k1_launch_shape(n: int, steps_per_pulse: int, sm_count: int,
@@ -81,8 +80,13 @@ def k1_noise_mismatches(device) -> int:
     can take (K1 evaluates them without the CUDA math library's branches to
     inputs it never has); 0 means K1's noise has the math library's bits."""
     device = torch.device(device)
+    fn = K1.library.load().sdm_ddm_noise_check
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     mismatches = torch.empty((1,), dtype=torch.int32, device=device)
-    K1_NOISE_CHECK(mismatches.data_ptr(), stream_handle(device))
+    err = fn(mismatches.data_ptr(), stream_handle(device))
+    if err != 0:
+        raise RuntimeError(f"ddm_rt_choice: noise check failed to launch: cudaError {err}")
     return int(mismatches.item())
 
 
@@ -165,4 +169,5 @@ def ddm_rt_choice_cuda(
         float(dt), float(t_max), float(t_max) - 1e-6, sig, float(collapse_rate),
         as_seed(seed), G, blocks, stream_handle(theta.device),
     )
+    K1_LAST_LAUNCH.update(n=N, G=G, blocks=blocks)
     return out

@@ -18,6 +18,7 @@ from sbi_for_diffusion_models_tpu_torch.ops import mnle_cuda as mc
 from sbi_for_diffusion_models_tpu_torch.ops.ceiling_cuda import FUSED_ULPS, K4, ceiling_chain, ceiling_plain, fma_tolerance
 from sbi_for_diffusion_models_tpu_torch.ops.ddm_cuda import (
     K1,
+    K1_LAST_LAUNCH,
     K1_THREADS,
     ddm_rt_choice_cuda,
     k1_launch_shape,
@@ -107,20 +108,22 @@ def _k1_capacity(collapse):
 @pytest.mark.parametrize("case", ["kw_n8192_c0", "kw_n8192_c2"])
 def test_k1_every_launch_shape_gives_the_parent_bits(case):
     """For every launch shape the rule picks as N grows from 8,192 (on the
-    H100: G = 8 with a group for every trial, then G = 8, 4, 2 and 1 with
+    H100: G = 8 with a group for every trial, then G = 8, 2 and 1 with
     groups that refill), the smallest N that lands in it: the first 8,192
-    trials equal the fixture's (a trial's output does not depend on N)."""
+    trials equal the fixture's (a trial's output does not depend on N), and
+    the wrapper records the shape it launched."""
     c = k1_fixture.CASES[case]
     sm, resident = _k1_capacity(c["collapse_rate"] != 0.0)
     spp = k1_fixture.KW["steps_per_pulse"]
     first = {}
     for n in sorted({int(8192 * 1.25**i) for i in range(40)} | {8192}):
         G, blocks = k1_launch_shape(n, spp, sm, resident)
-        first.setdefault((G, blocks * K1_THREADS // G >= n), n)  # (G, a group for every trial?)
+        first.setdefault((G, blocks * K1_THREADS // G >= n), (n, blocks))  # (G, a group for every trial?)
     assert len(first) >= 3, first
     want = _k1_fixture()[case]
-    for (G, whole), n in sorted(first.items()):
+    for (G, whole), (n, blocks) in sorted(first.items()):
         got = k1_fixture.run(ddm_rt_choice_cuda, c, DEV, n=n)[:8192].cpu().numpy()
+        assert K1_LAST_LAUNCH == {"n": n, "G": G, "blocks": blocks}
         diff = np.flatnonzero((got != want).any(1))
         assert diff.size == 0, f"N={n} (G={G}, refill={not whole}): {diff.size} rows differ, first {diff[:5].tolist()}"
 

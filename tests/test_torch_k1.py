@@ -30,8 +30,8 @@ P_MIN = 1e-3  # as chip_smoke.py's K1 distribution tests
 NS = sorted({1, 2, 31, 33, 50, 1000, 2112, 2113, 4096, 8192, 16896, 33000, 131072, 270336, 300000, 524288}
             | {int(1.7**i) for i in range(25)})
 CARDS = {
-    "h100": (132, {8: 12, 4: 14, 2: 16, 1: 16}),
-    "h100_low_occupancy": (132, {8: 4, 4: 5, 2: 6, 1: 8}),
+    "h100": (132, {8: 12, 2: 16, 1: 16}),
+    "h100_low_occupancy": (132, {8: 4, 2: 6, 1: 8}),
     "small": (8, {g: 2 for g in K1_GROUP_SIZES}),
     "no_room": (1, {g: 0 for g in K1_GROUP_SIZES}),
 }
@@ -58,12 +58,15 @@ def test_k1_launch_shape_rule(card, spp):
 
 def test_k1_launch_shape_at_the_main_path_sizes():
     """On the H100 (132 SMs, four blocks an SM: 67,584 lanes): eight lanes
-    a trial at the main path's 4,096 and for a 50-trial session, two at
-    131,072 and one at 524,288, where groups refill."""
+    a trial at the main path's 4,096 and for a 50-trial session, two from
+    33,793 (where eight no longer fit) to 131,072, and one at 524,288,
+    where groups refill."""
     sm, resident = CARDS["h100"]
     assert k1_launch_shape(4096, 200, sm, resident) == (8, 256)
     assert k1_launch_shape(50, 200, sm, resident) == (8, 4)
     assert k1_launch_shape(33792, 200, sm, resident) == (8, 528)
+    assert k1_launch_shape(33793, 200, sm, resident) == (2, 528)
+    assert k1_launch_shape(50000, 200, sm, resident) == (2, 528)
     assert k1_launch_shape(131072, 200, sm, resident) == (2, 528)
     assert k1_launch_shape(524288, 200, sm, resident) == (1, 528)
     assert k1_launch_shape(131072, 200, sm, {g: 2 for g in K1_GROUP_SIZES}) == (2, 264)

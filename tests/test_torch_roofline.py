@@ -186,13 +186,11 @@ _JAX_IMPORT = re.compile(
 
 def test_no_port_source_imports_jax_or_the_jax_package():
     """No module of the port, and none of the scripts that run it on the card
-    (``chip_smoke.py``, ``plant_faults.py``, ``compare_k3.py``,
-    ``diagnose_k1.py`` and the K1 fixture ``tests/k1_fixture.py``, which
-    ``chip_smoke.py`` loads), has an import of jax, flax, optax or the JAX
-    package."""
+    (``chip_smoke.py``, ``plant_faults.py``, ``compare_k3.py`` and the K1
+    fixture ``tests/k1_fixture.py``, which ``chip_smoke.py`` loads), has an
+    import of jax, flax, optax or the JAX package."""
     files = sorted((ROOT / "sbi_for_diffusion_models_tpu_torch").rglob("*.py"))
-    files += [ROOT / f for f in ("chip_smoke.py", "plant_faults.py", "compare_k3.py", "diagnose_k1.py",
-                                 "tests/k1_fixture.py")]
+    files += [ROOT / f for f in ("chip_smoke.py", "plant_faults.py", "compare_k3.py", "tests/k1_fixture.py")]
     assert len(files) >= 30
     bad = {str(f.relative_to(ROOT)): m.group(0).strip() for f in files if (m := _JAX_IMPORT.search(f.read_text()))}
     assert not bad, bad
