@@ -18,7 +18,9 @@ port's paths once each through their public entry points:
    300,000 trials, where groups refill;
 3. K2/K3 against their plain version on the committed flagship model
    (``artifacts/models/mnle_10m_shifted_logt_affine.npz``) at 1,200 rows
-   (4 chains x 6 replicas x 50 trials) and 115,200 rows (96 such sessions):
+   (4 chains x 6 replicas x 50 trials) and 115,200 rows (96 such sessions,
+   all of the calibrated preset's SBC datasets in one launch; the SBC fold
+   launches 9,600, phase 10):
    each row's value to 1e-4 x max(1, |ref|) and its gradients to 1e-3 x
    max(1, the row's largest |ref|) against the plain version in float64,
    with an allowance on rows where float32 cannot resolve the function and
@@ -58,13 +60,31 @@ port's paths once each through their public entry points:
    (only the epochs are cut, to TRAIN_EPOCHS), ``save_model`` into a
    temporary directory, ``load_model`` back (weights bit-equal, the same
    fingerprint), and ``run_inference_mcmc`` with the loaded model on the
-   observed session (warmup 20 / draws 20). The validation loss must be
+   observed session (warmup and draws cut to TRAIN_SERVE_WARMUP and
+   TRAIN_SERVE_DRAWS). The validation loss must be
    finite at every epoch and end at least TRAIN_MIN_DROP below the first
    epoch's; K2 and K3 must have launched, K2 less than 5 % as often as K3.
    Then K2/K3 on the trained model
    against their plain version at 1,200 and 115,200 rows, held as in
    phase 3, and one more epoch under ``torch.profiler`` for the card's busy
-   share of an optimizer step.
+   share of an optimizer step;
+10. the SBC path: ``run_sbc`` on the flagship under ``CALIBRATED_CONFIG``
+   with 8 datasets (one group of the fold: 9,600 rows a potential call),
+   warmup 30, 60 draws (15 a chain: the mixing gate is active), one
+   remediation round of up to 8 datasets. K1 must have launched, K3 at
+   9,600 rows on every call, K2 less than 5 % as often as K3; every
+   artifact written (the plots where matplotlib imports), ranks in [0, 60].
+   Then K2/K3 on the rows of the fold's first gradient call against their
+   plain version and float64 (as in phase 3, and timed there), and that
+   call's values and gradients against one single-session
+   ``log_lik_and_grad`` call per dataset (equal bits expected; the ulps
+   that differ are printed);
+11. the CLI's smoke path, ``pipeline._cli(["--smoke"])`` in this process
+   (simulate -> train -> save -> MCMC -> SBC at ``SMOKE_CONFIG``), into a
+   temporary ``OUTDIR`` and ``MODEL_DIR``: the posterior samples, the SBC
+   artifacts and the five ``metrics.jsonl`` stages must exist, and K1 and
+   K3 must have launched (every potential call of that config wants a
+   gradient, so K2 launches only if NUTS falls back to slice).
 
 Each kernel's bound is the larger of its FP32 operations over 67 TFLOP/s
 and its bytes (inputs read once, outputs written once) over 3.35 TB/s, the
@@ -77,8 +97,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py`` (one CUDA card,
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels with
 their launches, errors, times and bounds at both sizes (K4: both chain
 lengths), K1 also with its launch shape, the four fused kernels' with their
-tile height, and each with ptxas's registers, stack and spills (K1: of each
-of its six instances); a spill fails the run. Any failed check
+tile height, K2's and K3's also at the SBC fold's 9,600 rows (``fold``),
+each kernel's launches on every path (``launches_by_path``), and each with
+ptxas's registers, stack and spills (K1: of each of its six instances); a
+spill fails the run. Any failed check
 raises, and the script exits non-zero without that line. There is no CPU fallback: without
 a CUDA card the script exits with status 2.
 """
@@ -105,15 +127,20 @@ HBM_BYTES_PER_S = 3.35e12
 
 N_SIM = 131_072  # K1 check size and the main path's training-set size
 ROWS_MAIN = 1_200  # 4 chains x 6 replicas x 50 trials
-ROWS_SBC = 115_200  # 96 sessions of the above
+ROWS_SBC = 115_200  # 96 sessions of the above: all of the calibrated preset's SBC datasets in one launch
+ROWS_FOLD = 9_600  # one launch of the SBC fold: 8 datasets (run_sbc's group_size) x 4 chains x 6 replicas x 50 trials
 P_MIN = 1e-3  # K1 distribution tests
 TRAIN_EPOCHS = 10  # the training path's cut of TRAIN_MAX_EPOCHS (and of the patience)
 TRAIN_MIN_DROP = 0.5  # nats the last validation loss must lie below the first epoch's
 K4_SHAPE = (64, 256, 128)  # the roofline path's K4 input: 2,097,152 float32 elements
 SLICE_WARMUP, SLICE_DRAWS = 20, 240  # the slice path's cut (24 chains: 10 draws each)
-# The flagship and pulse paths' cut: the whole script took 767.1 s on the H100 at warmup 50 / draws 100 on a host
-# at 3.6 ms a batched call; this keeps it near half its 1200 s limit there.
-SERVE_WARMUP, SERVE_DRAWS = 30, 60
+# The serving and training paths' cut: the whole script took 767.1 s on the H100 at warmup 50 / draws 100 on a
+# host at 3.6 ms a batched call, and 374.4 to 452.5 s at 30 / 60 on hosts at 2.2 to 2.7 ms. The SBC phase (121,844
+# calls) and the CLI's smoke path took about 480 s more at 2.4 to 3.2 ms (780.3 s in all, with both serving paths at
+# 20 / 40), so the serving paths run at 16 / 32 and the training path's sampler at 10 / 20. Draws are a multiple of
+# the 4 chains (``_sample_posterior`` splits them back into chains).
+SERVE_WARMUP, SERVE_DRAWS = 16, 32
+TRAIN_SERVE_WARMUP, TRAIN_SERVE_DRAWS = 10, 20
 
 
 def _log(*args) -> None:
@@ -409,62 +436,73 @@ def _check_against_reference(label, names, kern, plain, ref, spread, n) -> None:
 def _phase_fused(device, model_file, fwd, bwd, sizes, model_dir=MODEL_DIR) -> dict:
     """A fused forward/backward pair against its plain versions on the
     model ``model_dir/model_file`` (default: the committed models), at each
-    row count of ``sizes``. ``fwd``/``bwd`` are (label, kernel wrapper,
-    plain version); the backward's wrapper returns the value and the
-    gradients, its plain version the gradients. The backward kernel's value
-    must equal the forward kernel's on every row, and each is held to
-    float64 as the gradients are."""
+    row count of ``sizes`` (``_hold_fused``)."""
     import torch
 
     from sbi_for_diffusion_models_tpu_torch.mnle import load_model
     from sbi_for_diffusion_models_tpu_torch.ops import mnle_cuda as mc
-    from sbi_for_diffusion_models_tpu_torch.ops.rowcheck import reference
     from sbi_for_diffusion_models_tpu_torch.pipeline import build_prior_theta
 
     os.environ["MODEL_DIR"] = str(model_dir)
     est = load_model(model_file, device=device)
     w32 = mc.pack_mnle_weights(est)
-    w64 = w32.astype(torch.float64)
     prior = build_prior_theta()
-    (f_label, f_kernel, f_plain), (b_label, b_kernel, b_plain) = fwd, bwd
-    grad_names = ("dphi", "dctx", "dkf") if w32.pulse else ("dt", "dctx")
     out = {}
     for n in sizes:
         rows = tuple(a[:n].contiguous() for a in session_rows(est, prior, device, -(-n // ROWS_MAIN)))
         g = torch.randn(rows[0].shape, generator=torch.Generator(device).manual_seed(5), device=device)
-        kern = (f_kernel(*rows, w32), *b_kernel(*rows, w32, g))
-        value = f_plain(*rows, w32)
-        plain = (value, value, *b_plain(*rows, w32, g))
-        n_equal = int((kern[1] == kern[0]).sum())
-        _log(f"[{f_label}/{b_label}] n={n}: {b_label}'s value has {f_label}'s bits on {n_equal} of {n} rows")
-        if n_equal != n:
-            raise AssertionError(f"{b_label}'s value differs from {f_label}'s on {n - n_equal} of {n} rows")
-
-        def run64(*a):
-            v = f_plain(*a[:-1], w64)
-            return (v, v, *b_plain(*a[:-1], w64, a[-1]))
-
-        continuous = (2, 3) if w32.pulse else (2,)  # ctx (and kf); never the one-hot or the slot index
-        ref, spread = reference(run64, rows, g, continuous)
-        _check_against_reference(f"{f_label}/{b_label}", (f"value ({f_label})", f"value ({b_label})") + grad_names,
-                                 kern, plain, ref, spread, n)
-        reps = 20 if n <= ROWS_MAIN else 5
-        times = {
-            f_label: (_time_ms(lambda: f_kernel(*rows, w32), reps, device),
-                      _time_ms(lambda: f_plain(*rows, w32), reps, device), *mnle_bound(w32, n, False)),
-            b_label: (_time_ms(lambda: b_kernel(*rows, w32, g), reps, device),
-                      _time_ms(lambda: (f_plain(*rows, w32), b_plain(*rows, w32, g)), reps, device),
-                      *mnle_bound(w32, n, True)),
-        }
-        for name, (k_ms, p_ms, b_ms, b_by) in times.items():
-            _log(f"[{name}] time n={n}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.4g} ({b_by}, "
-                 f"{b_ms / k_ms:.3f} of it) rows_per_s(kernel)={n / (k_ms * 1e-3):.4g}")
-        out[n] = {
-            f_label: {"max_abs_err": float((kern[0] - plain[0]).abs().max()), "times": times[f_label]},
-            b_label: {"max_abs_err": max(float((k - pl).abs().max()) for k, pl in zip(kern[1:], plain[1:])),
-                      "times": times[b_label]},
-        }
+        out[n] = _hold_fused(device, w32, fwd, bwd, rows, g)
     return out
+
+
+def _hold_fused(device, w32, fwd, bwd, rows, g) -> dict:
+    """A fused forward/backward pair against its plain versions on the
+    kernels' row inputs ``rows`` with the cotangent ``g``, then their times.
+    ``fwd``/``bwd`` are (label, kernel wrapper, plain version); the
+    backward's wrapper returns the value and the gradients, its plain
+    version the gradients. The backward kernel's value must equal the
+    forward kernel's on every row, and each is held to float64 as the
+    gradients are."""
+    import torch
+
+    from sbi_for_diffusion_models_tpu_torch.ops.rowcheck import reference
+
+    w64 = w32.astype(torch.float64)
+    (f_label, f_kernel, f_plain), (b_label, b_kernel, b_plain) = fwd, bwd
+    grad_names = ("dphi", "dctx", "dkf") if w32.pulse else ("dt", "dctx")
+    n = rows[0].shape[0]
+    kern = (f_kernel(*rows, w32), *b_kernel(*rows, w32, g))
+    value = f_plain(*rows, w32)
+    plain = (value, value, *b_plain(*rows, w32, g))
+    n_equal = int((kern[1] == kern[0]).sum())
+    _log(f"[{f_label}/{b_label}] n={n}: {b_label}'s value has {f_label}'s bits on {n_equal} of {n} rows")
+    if n_equal != n:
+        raise AssertionError(f"{b_label}'s value differs from {f_label}'s on {n - n_equal} of {n} rows")
+
+    def run64(*a):
+        v = f_plain(*a[:-1], w64)
+        return (v, v, *b_plain(*a[:-1], w64, a[-1]))
+
+    continuous = (2, 3) if w32.pulse else (2,)  # ctx (and kf); never the one-hot or the slot index
+    ref, spread = reference(run64, rows, g, continuous)
+    _check_against_reference(f"{f_label}/{b_label}", (f"value ({f_label})", f"value ({b_label})") + grad_names,
+                             kern, plain, ref, spread, n)
+    reps = 20 if n <= ROWS_FOLD else 5
+    times = {
+        f_label: (_time_ms(lambda: f_kernel(*rows, w32), reps, device),
+                  _time_ms(lambda: f_plain(*rows, w32), reps, device), *mnle_bound(w32, n, False)),
+        b_label: (_time_ms(lambda: b_kernel(*rows, w32, g), reps, device),
+                  _time_ms(lambda: (f_plain(*rows, w32), b_plain(*rows, w32, g)), reps, device),
+                  *mnle_bound(w32, n, True)),
+    }
+    for name, (k_ms, p_ms, b_ms, b_by) in times.items():
+        _log(f"[{name}] time n={n}: kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.4g} ({b_by}, "
+             f"{b_ms / k_ms:.3f} of it) rows_per_s(kernel)={n / (k_ms * 1e-3):.4g}")
+    return {
+        f_label: {"max_abs_err": float((kern[0] - plain[0]).abs().max()), "times": times[f_label]},
+        b_label: {"max_abs_err": max(float((k - pl).abs().max()) for k, pl in zip(kern[1:], plain[1:])),
+                  "times": times[b_label]},
+    }
 
 
 def phase_k2k3(device, sizes=(ROWS_MAIN, ROWS_SBC), model_file=MODEL_FILE, model_dir=MODEL_DIR) -> dict:
@@ -692,6 +730,191 @@ def phase_slice(device, warmup: int = SLICE_WARMUP, draws: int = SLICE_DRAWS) ->
     return {"wall": wall, "launches": launches}
 
 
+SBC_ARTIFACTS = ("sbc_thetas_true.npy", "sbc_ranks.npy", "sbc_samples.npy", "sbc_mixing_diagnostics.npz",
+                 "sbc_ranks.partial.npy", "partial_summary.json")
+SBC_PLOTS = ("sbc_rank_histograms.png", "sbc_ecdf.png")
+
+
+def _matplotlib_imports() -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec("matplotlib") is not None
+
+
+def _check_sbc_outputs(label, outdir: Path, out: dict, datasets: int, post: int) -> None:
+    """``run_sbc``'s return dict and files: every .npy/.npz/.json artifact
+    (the plots too where matplotlib imports), ranks in [0, post], finite
+    draws inside the prior's support, the files equal to the dict."""
+    import numpy as np
+
+    wanted = SBC_ARTIFACTS + (SBC_PLOTS if _matplotlib_imports() else ())
+    missing = [f for f in wanted if not (outdir / f).exists()]
+    if missing:
+        raise AssertionError(f"{label}: artifacts not written: {missing}")
+    ranks, samples = out["ranks"], np.stack(out["all_samples"])
+    if ranks.shape != (datasets, 5) or not ((ranks >= 0) & (ranks <= post)).all():
+        raise AssertionError(f"{label}: ranks of shape {ranks.shape} outside [0, {post}]: {ranks.tolist()}")
+    if samples.shape != (datasets, post, 5) or not np.isfinite(samples).all():
+        raise AssertionError(f"{label}: pooled draws of shape {samples.shape}, or not finite")
+    if not ((samples[..., [0, 4]] > 0) & (samples[..., [0, 4]] < 1)).all() or not (samples[..., 1:4] > 0).all():
+        raise AssertionError(f"{label}: pooled draws outside the prior's support")
+    if not (np.array_equal(np.load(outdir / "sbc_ranks.npy"), ranks)
+            and np.array_equal(np.load(outdir / "sbc_samples.npy"), samples.astype(np.float32))):
+        raise AssertionError(f"{label}: the written ranks or draws differ from the returned ones")
+
+
+def phase_sbc(device, datasets: int = 8, warmup: int = 30, post: int = 60) -> dict:
+    """The SBC path through ``run_sbc`` on the committed flagship under
+    ``CALIBRATED_CONFIG``: ``datasets`` datasets, one group of the fold (8
+    datasets x 4 chains x 6 replicas x 50 trials = 9,600 rows a potential
+    call), warmup and draws cut (60 draws: 15 a chain, so the mixing gate is
+    active), one remediation round of up to 8 datasets. K1 must have
+    launched (the datasets' sessions), K3 at the fold's 9,600 rows and no
+    other count, K2 less than 5 % as often as K3. Then, after the counts are
+    read: K2/K3 against their plain version and float64 on the fold's rows
+    of its first gradient call (``_hold_fused``), and the fold's values and
+    gradients of that call against one single-session
+    ``log_lik_and_grad`` call for each dataset's 24 rows."""
+    import numpy as np
+    import torch
+
+    from sbi_for_diffusion_models_tpu_torch.mnle import load_model, run_sbc
+    from sbi_for_diffusion_models_tpu_torch.ops import mnle_cuda as mc
+    from sbi_for_diffusion_models_tpu_torch.pipeline import build_prior_theta
+    from sbi_for_diffusion_models_tpu_torch.potentials import ConditionedMNLELogLikelihood
+    from sbi_for_diffusion_models_tpu_torch.run_config import CALIBRATED_CONFIG
+
+    cfg = CALIBRATED_CONFIG.replace(SBC_NUM_DATASETS=datasets, WARMUP_STEPS=warmup, SBC_POST_SAMPLES=post,
+                                    SBC_REMEDIATE_ROUNDS=1, SBC_REMEDIATE_MAX=8)
+    os.environ["MODEL_DIR"] = str(MODEL_DIR)
+    est = load_model(MODEL_FILE, device=device)
+    prior = build_prior_theta()
+    fold_rows = min(8, datasets) * cfg.NUM_CHAINS * cfg.MCMC_PT_REPLICAS * cfg.NUM_TRIALS_OBS
+
+    # Record, without launching anything, the row count of every K3 call and
+    # the first gradient call of the fold: its likelihood inputs and
+    # outputs, and the rows it gave K3.
+    rows_seen, first = [], {}
+    k3 = mc.rows_logp_and_vjp
+    lik_and_grad = ConditionedMNLELogLikelihood.log_lik_and_grad
+
+    def k3_recording(t, oh, ctx, w, g):
+        rows_seen.append(t.shape[0])
+        if "rows" not in first:
+            first["rows"], first["g"] = (t.clone(), oh.clone(), ctx.clone()), g.clone()
+        return k3(t, oh, ctx, w, g)
+
+    def lik_recording(self, x, theta, need_grad=True, sessions=None):
+        out = lik_and_grad(self, x, theta, need_grad, sessions)
+        if need_grad and sessions is not None and "theta" not in first:
+            first.update(lik=self, x=x, theta=theta.clone(), sessions=sessions, ll=out[0].clone(),
+                         grad=out[1].clone())
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def run():
+            t0 = time.perf_counter()
+            out = run_sbc(cfg, prior, est, device, outdir=tmp, seed=0)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        mc.rows_logp_and_vjp = k3_recording
+        ConditionedMNLELogLikelihood.log_lik_and_grad = lik_recording
+        try:
+            (out, wall), launches = _launches_on("sbc", ("ddm_rt_choice", "mnle_logprob_bwd"), run)
+        finally:
+            mc.rows_logp_and_vjp = k3
+            ConditionedMNLELogLikelihood.log_lik_and_grad = lik_and_grad
+        _check_sbc_outputs("sbc", Path(tmp), out, datasets, post)
+    _forward_share("sbc", launches, "mnle_logprob_fwd", "mnle_logprob_bwd")
+    if set(rows_seen) != {fold_rows} or len(rows_seen) != launches["mnle_logprob_bwd"]:
+        raise AssertionError(f"sbc: K3 launched at {sorted(set(rows_seen))} rows ({len(rows_seen)} calls), "
+                             f"expected {fold_rows} at each of {launches['mnle_logprob_bwd']}")
+    rem = out["remediation"] or {}
+    calls = out["potential_calls"]
+    _log(f"[sbc] datasets={datasets} rows_per_call={fold_rows} wall_s={wall:.3f} potential_calls={calls} "
+         f"ms_per_call={wall * 1e3 / calls:.3f} flagged={rem.get('flagged', [])} "
+         f"remediation_rounds={len(rem.get('rounds', []))} still_flagged={rem.get('still_flagged', [])} "
+         f"flagged_final={out['flagged_final']}")
+    _log(f"[sbc] rhat_max={[round(float(v), 3) for v in out['rhat_max']]} "
+         f"min_ess={[round(float(v), 1) for v in out['min_ess']]} "
+         f"divergences={out['divergences_per_dataset'].tolist()} swap_accept={out['swap_accept']}")
+    _log(f"[sbc] ranks={out['ranks'].tolist()}")
+
+    # K2/K3 on the fold's own rows, against their plain version and float64.
+    w32 = first["lik"]._lp_fused.weights
+    check = _hold_fused(device, w32, ("K2", mc.rows_logp, mc.rows_logp_plain),
+                        ("K3", mc.rows_logp_and_vjp, mc.rows_logp_vjp_plain), first["rows"], first["g"])
+
+    # The fold's first gradient call against one single-session call per dataset.
+    x_g, theta, sessions = first["x"], first["theta"], first["sessions"]
+    s_g = first["lik"].local_theta
+    # Per-row outputs of a kernel do not depend on the other rows: expect
+    # equal bits; a difference is counted in ulps of the row's scale (|ll|;
+    # the row's largest |grad|) and may not reach the value and gradient
+    # tolerances of the row check.
+    eps = torch.finfo(torch.float32).eps
+    differ, worst = {"ll": 0, "grad": 0}, {"ll": 0.0, "grad": 0.0}
+    for d in range(x_g.shape[0]):
+        idx = torch.nonzero(sessions == d).reshape(-1)
+        single = ConditionedMNLELogLikelihood(est, s_g[d], logprob_kernel=cfg.MNLE_LOGPROB_KERNEL)
+        ll_d, g_d = single.log_lik_and_grad(x_g[d], theta[idx])
+        for name, fold_v, single_v, scale in (
+            ("ll", first["ll"][idx], ll_d, ll_d.abs()),
+            ("grad", first["grad"][idx], g_d, g_d.abs().amax(-1, keepdim=True)),
+        ):
+            differ[name] += int((fold_v != single_v).sum())
+            worst[name] = max(worst[name], float(((fold_v - single_v).abs() / (eps * scale.clamp(min=1.0))).max()))
+    n_vals = {"ll": theta.shape[0], "grad": theta.numel()}
+    _log(f"[sbc] the fold's first gradient call against a single-session log_lik_and_grad per dataset "
+         f"({x_g.shape[0]} datasets x {theta.shape[0] // x_g.shape[0]} rows): values differing "
+         f"ll={differ['ll']}/{n_vals['ll']} grad={differ['grad']}/{n_vals['grad']}; largest difference in "
+         f"float32 ulps of the row's scale: ll={worst['ll']:.3f} grad={worst['grad']:.3f}")
+    if worst["ll"] * eps > 1e-4 or worst["grad"] * eps > 1e-3:
+        raise AssertionError(f"sbc: the fold differs from the single-session calls by {worst} ulps")
+    return {"launches": launches, "wall": wall, "calls": calls, "rows": fold_rows, "check": check,
+            "differ": differ, "worst_ulps": worst}
+
+
+def phase_pipeline(device) -> dict:
+    """The CLI's smoke path, ``pipeline._cli(["--smoke"])`` in this process
+    (simulate -> train -> save -> MCMC -> SBC on the card), with ``OUTDIR``
+    and ``MODEL_DIR`` in a temporary directory. Every artifact and all five
+    ``metrics.jsonl`` stages must exist; K1 and K3 must have launched. K2
+    is not required: under ``SMOKE_CONFIG`` (no tempering, no t_nd slice)
+    every potential call wants a gradient, the grid hop's included, so K2
+    launches only if NUTS falls back to the slice sampler."""
+    import numpy as np
+
+    from sbi_for_diffusion_models_tpu_torch import pipeline
+
+    cfg = pipeline.SMOKE_CONFIG
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir, model_dir = Path(tmp) / "out", Path(tmp) / "models"
+        os.environ["OUTDIR"], os.environ["MODEL_DIR"] = str(out_dir), str(model_dir)
+        t0 = time.perf_counter()
+        result, launches = _launches_on("pipeline", ("ddm_rt_choice", "mnle_logprob_bwd"),
+                                        lambda: pipeline._cli(["--smoke"]))
+        wall = time.perf_counter() - t0
+        records = [json.loads(line) for line in (out_dir / "metrics.jsonl").read_text().splitlines()]
+        stages = {r["stage"] for r in records}
+        if stages != {"simulate", "train", "mcmc", "sbc", "pipeline"}:
+            raise AssertionError(f"pipeline: metrics.jsonl has the stages {sorted(stages)}")
+        wanted = ("posterior_samples_theta.npy",) + (("pairplot_theta.png",) if _matplotlib_imports() else ())
+        missing = [f for f in wanted if not (out_dir / f).exists()]
+        if missing or not (model_dir / "mnle_rt_choice_model.npz").exists():
+            raise AssertionError(f"pipeline: not written: {missing} or the model")
+        samples = np.load(out_dir / "posterior_samples_theta.npy")
+        if samples.shape != (cfg.POSTERIOR_SAMPLES, 5) or not np.isfinite(samples).all():
+            raise AssertionError(f"pipeline: posterior samples of shape {samples.shape}, or not finite")
+        _check_sbc_outputs("pipeline", out_dir, result["sbc"], cfg.SBC_NUM_DATASETS, cfg.SBC_POST_SAMPLES)
+        metrics = {f"{r['stage']}/{r['name']}": round(r["value"], 3) for r in records}
+    _log(f"[pipeline] --smoke wall_s={wall:.3f} metrics={json.dumps(metrics)} "
+         f"sbc_potential_calls={result['sbc']['potential_calls']} "
+         f"train_epochs={result['density_estimator'].train_meta['epochs_run']}")
+    return {"launches": launches, "wall": wall}
+
+
 def phase_k4(device) -> dict:
     """K4, both kinds, against its plain version in float64 at chains of 64
     and 1,024 steps on 32,768 values in [0.25, 1).
@@ -876,7 +1099,7 @@ def _train_epoch_device_time(cfg, proposal, z, x, step_ms: float) -> None:
          f"({step_ms:.3f} ms) = {device_ms / step_ms:.3f}")
 
 
-def phase_train(device, proposal, z, x, warmup: int = 20, draws: int = 20) -> dict:
+def phase_train(device, proposal, z, x, warmup: int = TRAIN_SERVE_WARMUP, draws: int = TRAIN_SERVE_DRAWS) -> dict:
     """The training path at the flagship's full width: ``train_mnle`` on the
     simulated pairs, ``save_model``, ``load_model``, ``run_inference_mcmc``
     with the loaded model, through the public entry points; then K2/K3 on
@@ -964,7 +1187,7 @@ def measured_bounds(kernels: list, report: dict) -> None:
 
     fma, tra = report["issue_fma"]["ops_per_s"], report["issue_transcendental"]["ops_per_s"]
     for k in kernels:
-        for at in (k, k.get("large"), k.get("short_chain")):
+        for at in (k, k.get("large"), k.get("fold"), k.get("short_chain")):
             if at is None:
                 continue
             if k["name"] == "ddm_rt_choice":
@@ -1008,8 +1231,10 @@ def main() -> int:
     roof = phase_roofline(device)
     main_path = phase_main(device)
     pulse_path = phase_pulse(device)
-    phase_slice(device)
-    phase_train(device, main_path["proposal"], main_path["z"], main_path["x"])
+    slice_path = phase_slice(device)
+    train_path = phase_train(device, main_path["proposal"], main_path["z"], main_path["x"])
+    sbc = phase_sbc(device)
+    pipe = phase_pipeline(device)
     _log(f"[time] whole script after start-up: {time.perf_counter() - t_start:.1f} s")
 
     src = f"{PKG}/csrc"
@@ -1033,13 +1258,18 @@ def main() -> int:
         ("mnle_pulse_bwd", "K3p", "mnle_pulse.cu", "mnle_pallas.py:361", pulse_path),
     ):
         ms, plain_ms, bound_ms, bound_by = fused[label]["times"]
-        large = dict(zip(("ms", "plain_ms", "bound_ms", "bound_by"), fused_large[label]["times"]))
+        timed = ("ms", "plain_ms", "bound_ms", "bound_by")
+        large = dict(zip(timed, fused_large[label]["times"]))
         kernels.append({
             "name": kname, "route": "cuda", "source": f"{src}/{f}", "replaces": f"{jax_ops}/{rep}",
             "launches": path["launches"][kname], "max_abs_err": fused[label]["max_abs_err"], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "large": {"n": ROWS_SBC, **large},
         })
+        if label in sbc["check"]:  # the SBC fold's launch shape, on its own rows
+            kernels[-1]["fold"] = {"n": sbc["rows"], "launches": sbc["launches"][kname],
+                                   "max_abs_err": sbc["check"][label]["max_abs_err"],
+                                   **dict(zip(timed, sbc["check"][label]["times"]))}
     # The fused kernels' tile height, as the source they were built from defines it, and ptxas's report of each
     # build (K1: of each instance, G lanes a trial with or without the collapsing bound); a spill fails the run.
     tile_rows = int(re.search(r"#define TILE_ROWS (\d+)", (ROOT / src / "mnle_tile.cuh").read_text())[1])
@@ -1072,6 +1302,10 @@ def main() -> int:
                         **dict(zip(("bound_ms", "bound_by"), _bound(2.0 * fma["elements"] * fma["K_lo"],
                                                                     8 * fma["elements"])))},
     })
+    for k in kernels:
+        k["launches_by_path"] = {name: p["launches"][k["name"]] for name, p in (
+            ("main", main_path), ("pulse", pulse_path), ("roofline", roof), ("slice", slice_path),
+            ("train", train_path), ("sbc", sbc), ("pipeline", pipe))}
     measured_bounds(kernels, roof["report"])
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -18,18 +18,30 @@ Entry points run on the CUDA card unless given another ``device``
 (``utils/device.py``); without a card they raise. The package imports
 ``torch`` and never ``jax``. Submodules are imported where they are used;
 importing the package itself loads nothing else: the names in ``__all__``
-(the training and serving entry points of ``mnle``) are imported from their
-modules when first asked for.
+(the entry points of ``mnle``, ``analysis`` and ``pipeline``) are imported
+from their modules when first asked for.
 """
 
 __version__ = "0.1.0"
 
-__all__ = ["train_mnle", "save_model", "load_model", "build_mnle", "run_inference_mcmc"]
+_EXPORTS = {
+    "train_mnle": "mnle",
+    "save_model": "mnle",
+    "load_model": "mnle",
+    "build_mnle": "mnle",
+    "run_inference_mcmc": "mnle",
+    "run_sbc": "mnle",
+    "pairplot": "analysis",
+    "sbc_uniformity_stats": "analysis",
+    "build_prior_theta": "pipeline",
+    "main": "pipeline",
+}
+__all__ = list(_EXPORTS)
 
 
 def __getattr__(name):
-    if name in __all__:
-        from . import mnle
+    if name in _EXPORTS:
+        import importlib
 
-        return getattr(mnle, name)
+        return getattr(importlib.import_module(f".{_EXPORTS[name]}", __name__), name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

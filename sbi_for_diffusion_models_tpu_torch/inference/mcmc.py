@@ -140,18 +140,10 @@ class MCMCPosterior:
         prior = getattr(pot, "prior", None)
         if not (getattr(lik, "closed_form_grad", False) and getattr(prior, "has_closed_form_grad", lambda: False)()):
             return None
+        from ..potentials import tempered_value_and_grad
 
-        def vg(u, beta, need_grad: bool = True):
-            theta, dtheta, log_det, dlog_det = self.bij.forward_and_grads(u)
-            lp, g_lp = prior.log_prob_and_grad(theta)
-            ll, g_ll = lik.log_lik_and_grad(pot.x_o, theta, need_grad)
-            beta_t = beta / pot.temperature
-            value = lp + log_det + beta_t * ll
-            if not need_grad:
-                return value, None
-            return value, (g_lp + beta_t[:, None] * g_ll) * dtheta + dlog_det
-
-        return vg
+        vg = tempered_value_and_grad(prior, self.bij, lik, pot.temperature)
+        return lambda u, beta, need_grad=True: vg(u, pot.x_o, beta, need_grad)
 
     def _nuts_failed(self, samples_u, info) -> bool:
         """Health check behind the JAX package's NUTS -> slice fallback."""

@@ -6,11 +6,14 @@ index-only validation split, early stopping on the validation loss),
 ``save_model`` and ``load_model`` (the JAX ``.npz`` layout:
 ``param:<keystr>`` leaves, ``stat:*`` arrays and the ``__meta__`` JSON,
 written and read with numpy alone, so a model saved by either package loads
-in the other) and ``run_inference_mcmc``, for the log, shifted-log and
+in the other), ``run_inference_mcmc`` and simulation-based calibration
+(``run_sbc``: datasets folded into the chain axis, the mixing gate and its
+escalating remediation, atomic partials), for the log, shifted-log and
 pulse-grid RT representations. Training differentiates the plain
 ``MNLE.log_prob_fn`` with autograd: the fused kernels K2/K3 return input
-gradients only and serve inference. Training checkpoints, ensembles and SBC
-are not ported yet.
+gradients only and serve inference. Training checkpoints, the sampler's
+segment checkpoints (so SBC's ``nuts_ckpt/``) and ensembles are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -32,6 +35,16 @@ import torch
 
 from .distributions import Distribution, mcmc_transform
 from .inference.mcmc import MCMCPosterior, compose_moves, make_dim_slice, make_grid_hop
+from .inference.nuts import ReplicaExchange, geometric_ladder, run_nuts
+from .inference.slice import run_slice
+from .models.rt_choice_model import (
+    generate_pulse_matrix,
+    n_pulses_max_from_schedule,
+    pack_x_rt_choice,
+    pulse_schedule,
+    rt_choice_model_simulator_torch,
+    simulate_session_data_rt_choice,
+)
 from .nets.mnle_net import (
     MNLE,
     MNLEConfig,
@@ -42,12 +55,14 @@ from .nets.mnle_net import (
     shifted_rt_transform,
     transform_condition,
 )
-from .potentials import ConditionedMNLELogLikelihood, ThetaOnlyPosteriorPotential
+from .potentials import ConditionedMNLELogLikelihood, ThetaOnlyPosteriorPotential, tempered_value_and_grad
 from .run_config import RunConfig
 from .utils.device import resolve_device
 from .utils.rng import as_seed, child_seed, make_generator
 
-__all__ = ["train_mnle", "train_step", "TrainState", "save_model", "load_model", "build_mnle", "run_inference_mcmc"]
+__all__ = [
+    "train_mnle", "train_step", "TrainState", "save_model", "load_model", "build_mnle", "run_inference_mcmc", "run_sbc",
+]
 
 _DEFAULT_MODEL_FILENAME = "mnle_rt_choice_model.npz"
 _KEY_PART = re.compile(r"\['([^']*)'\]")
@@ -424,6 +439,21 @@ def load_model(filename: str = _DEFAULT_MODEL_FILENAME, *, device=None) -> MNLE:
     )
 
 
+def _mode_hop(cfg: RunConfig, bij):
+    """The extra move after every transition that ``cfg`` selects: the
+    pulse-grid hop of t_nd (theta[4], identifiable only up to pulse-grid
+    aliasing), then the within-basin t_nd slice; None for neither."""
+    mode_hop = None
+    if cfg.MCMC_GRID_HOP:
+        from .constants import PULSE_INTERVAL
+
+        mode_hop = make_grid_hop(bij, index=4, delta=PULSE_INTERVAL)
+    if cfg.MCMC_TAU_SLICE:
+        # Hop first (cross-mode), then slice.
+        mode_hop = compose_moves(mode_hop, make_dim_slice(4, width=cfg.MCMC_TAU_SLICE_WIDTH))
+    return mode_hop
+
+
 def run_inference_mcmc(
     cfg: RunConfig,
     prior_theta: Distribution,
@@ -459,15 +489,6 @@ def run_inference_mcmc(
         prior=prior_theta, likelihood=likelihood, x_o=x_o, temperature=cfg.TEMPERATURE
     )
     bij = mcmc_transform(prior_theta)
-    mode_hop = None
-    if cfg.MCMC_GRID_HOP:
-        from .constants import PULSE_INTERVAL
-
-        # t_nd (theta[4]) is identifiable only up to pulse-grid aliasing.
-        mode_hop = make_grid_hop(bij, index=4, delta=PULSE_INTERVAL)
-    if cfg.MCMC_TAU_SLICE:
-        # Within-basin t_nd mixer; hop first (cross-mode), then slice.
-        mode_hop = compose_moves(mode_hop, make_dim_slice(4, width=cfg.MCMC_TAU_SLICE_WIDTH))
     posterior = MCMCPosterior(
         potential_fn=potential,
         proposal=prior_theta,
@@ -479,7 +500,7 @@ def run_inference_mcmc(
         max_tree_depth=cfg.MCMC_MAX_TREE_DEPTH,
         target_accept=cfg.MCMC_TARGET_ACCEPT,
         verbose=verbose,
-        mode_hop=mode_hop,
+        mode_hop=_mode_hop(cfg, bij),
         auto_fallback=cfg.MCMC_AUTO_FALLBACK,
         pt_replicas=cfg.MCMC_PT_REPLICAS,
         pt_beta_min=cfg.MCMC_PT_BETA_MIN,
@@ -490,3 +511,479 @@ def run_inference_mcmc(
     if return_info:
         return samples, dict(posterior.last_info, diagnostics=posterior._last_diagnostics)
     return samples
+
+
+# ---------------------------------------------------------------------------
+# Simulation-based calibration
+# ---------------------------------------------------------------------------
+def _compute_ranks(samples: np.ndarray, theta_true: np.ndarray) -> np.ndarray:
+    """Per-dimension rank of theta_true among posterior samples."""
+    return (np.asarray(samples) < np.asarray(theta_true).reshape(1, -1)).sum(axis=0)
+
+
+def _plot_sbc_rank_histograms(ranks: np.ndarray, num_samples: int, outdir: Path, param_names=None):
+    """Per-parameter rank histograms (``sbc_rank_histograms.png``) and the
+    ECDF-difference companion (``sbc_ecdf.png``). Returns the histograms'
+    path, or None where matplotlib does not import (each plot then prints
+    one line naming the file it did not write)."""
+    from .analysis import _pyplot, sbc_ecdf_plot
+
+    ranks = np.asarray(ranks)
+    d = ranks.shape[1]
+    if param_names is None:
+        param_names = [f"theta_{i}" for i in range(d)]
+    path = Path(outdir) / "sbc_rank_histograms.png"
+    plt = _pyplot(path, "run_sbc")
+    if plt is not None:
+        fig, axes = plt.subplots(1, d, figsize=(3 * d, 3))
+        if d == 1:
+            axes = [axes]
+        n_bins = min(20, max(ranks.shape[0] // 2, 5))
+        expected = ranks.shape[0] / n_bins
+        for i, ax in enumerate(axes):
+            ax.hist(ranks[:, i], bins=n_bins, range=(0, num_samples), color="#4477aa")
+            ax.axhline(expected, color="k", ls="--", lw=1)
+            ax.set_title(param_names[i])
+            ax.set_xlabel("rank")
+        fig.tight_layout()
+        fig.savefig(path, dpi=120)
+        plt.close(fig)
+        print(f"[run_sbc] wrote {path}")
+    # High-power companion diagnostic: histograms hide small systematic bias.
+    sbc_ecdf_plot(ranks, num_samples, Path(outdir) / "sbc_ecdf.png", param_names)
+    return path if plt is not None else None
+
+
+def _pooled(cold: np.ndarray, post_samples: int) -> np.ndarray:
+    """Cold draws (..., C, S, dim) -> chains interleaved (..., C*S, dim) ->
+    the first ``post_samples``: draw k of chain c is row k*C + c."""
+    C, S, dim = cold.shape[-3:]
+    return cold.swapaxes(-3, -2).reshape(*cold.shape[:-3], C * S, dim)[..., :post_samples, :]
+
+
+def _min_rt_tau_init(init_theta: torch.Tensor, x_g: torch.Tensor, reps: int, log_rt: bool,
+                     generator: torch.Generator) -> torch.Tensor:
+    """``init_theta`` (Gl*reps, 5) with its t_nd column replaced by
+    clip(u * min_rt, 1e-3, 0.98), u ~ U(0.05, 0.95) and min_rt the smallest
+    RT of the row's session in ``x_g`` (Gl, T, 2) (exp'd first under
+    ``log_rt``). t_nd < min(rt) by construction (rt = t_nd + hit_step * dt),
+    so hard-onset posteriors sit just below min(rt), and prior draws often
+    start chains in a far basin. Where the chains start does not change the
+    stationary distribution."""
+    rt = x_g[..., 0]
+    if log_rt:
+        rt = torch.exp(rt)
+    min_rt = rt.min(-1).values.repeat_interleave(reps)
+    u01 = 0.05 + 0.9 * torch.rand(min_rt.shape, generator=generator, device=min_rt.device)
+    out = init_theta.clone()
+    out[:, 4] = torch.clamp(u01 * min_rt, 1e-3, 0.98)
+    return out
+
+
+def _fold_density(cfg: RunConfig, prior_theta: Distribution, bij, est: MNLE, x_g, s_g):
+    """The density of the SBC fold, whose chain rows carry ``data`` =
+    (sessions (N,), beta (N,)): each row's dataset among the group's
+    sessions ``x_g`` (Gl, T, 2), ``s_g`` (Gl, T, P), and its inverse
+    temperature. Returns ``(logp, ll, vg)``: ``logp(u, data)`` = log
+    prior(theta) + log_det(u) + beta * ll(u, data) and ``ll(u, data)`` the
+    untempered summed log-likelihood / ``cfg.TEMPERATURE`` (what beta
+    multiplies, for the replica exchange), theta = bij.forward(u); ``vg(u,
+    data, need_grad=True)`` the same density with its gradient in closed
+    form (one K3/K3p launch a gradient call, one K2/K2p a value-only call),
+    or None where the likelihood has no closed form (the sampler then
+    differentiates ``logp`` by autograd). The theta-free session terms are
+    made once, for the group's Gl sessions."""
+    temperature = float(cfg.TEMPERATURE)
+    lik = ConditionedMNLELogLikelihood(est, s_g, logprob_kernel=cfg.MNLE_LOGPROB_KERNEL)
+
+    def ll(u, data):
+        theta = bij.forward(u)
+        if lik.closed_form_grad:
+            return lik.log_lik_and_grad(x_g, theta, False, sessions=data[0])[0] / temperature
+        return lik.log_lik_fn(est.params, x_g, theta, sessions=data[0]) / temperature
+
+    def logp(u, data):
+        theta = bij.forward(u)
+        return prior_theta.log_prob(theta) + bij.forward_log_det(u) + data[1] * ll(u, data)
+
+    if not (lik.closed_form_grad and getattr(prior_theta, "has_closed_form_grad", lambda: False)()):
+        return logp, ll, None
+    vg_t = tempered_value_and_grad(prior_theta, bij, lik, temperature)
+
+    def vg(u, data, need_grad: bool = True):
+        return vg_t(u, x_g, data[1], need_grad, sessions=data[0])
+
+    return logp, ll, vg
+
+
+def _sbc_launch(cfg: RunConfig, prior_theta: Distribution, est: MNLE, x_g, s_g, seed_init: int, seed_run: int,
+                warmup: int, ladder, per_chain: int, mode_hop, tau_init: bool = False) -> tuple:
+    """One sampler launch over the Gl sessions (x_g, s_g) x C chains x R
+    replicas, the rows dataset-major, then chain, then replica (cold rung
+    first), the chains started from prior draws of ``seed_init`` (with
+    ``tau_init`` the t_nd column from ``_min_rt_tau_init``). Returns (cold
+    draws (Gl, C, per_chain, dim) as numpy, per-dataset cold divergence
+    counts or None, mean accept, total divergences or None, swap acceptance
+    or None, batched potential calls)."""
+    device = x_g.device
+    C = cfg.NUM_CHAINS
+    R = len(ladder)
+    Gl = x_g.shape[0]
+    bij = mcmc_transform(prior_theta)
+    init_theta = prior_theta.sample(make_generator(seed_init, device), (Gl * C * R,)).to(torch.float32)
+    if tau_init and init_theta.shape[-1] == 5:
+        init_theta = _min_rt_tau_init(init_theta, x_g, C * R, cfg.LOG_RT_MANUALLY,
+                                      make_generator(child_seed(seed_init, 1), device))
+    init_u = bij.inverse(init_theta)
+    sessions = torch.arange(Gl, device=device).repeat_interleave(C * R)
+    betas = torch.as_tensor(np.asarray(ladder, np.float32), device=device).repeat(Gl * C)
+    data = (sessions, betas)
+    logp, ll, vg = _fold_density(cfg, prior_theta, bij, est, x_g, s_g)
+    if cfg.MCMC_METHOD in ("slice", "slice_np_vectorized"):
+        samples_u, info = run_slice(seed_run, logp, init_u, num_warmup=warmup, num_samples=per_chain,
+                                    thin=cfg.MCMC_THIN, data=data, mode_hop=mode_hop, value_and_grad_fn=vg)
+    else:
+        exchange = None
+        if R > 1:
+            exchange = ReplicaExchange(n_replicas=R, betas=betas, ll_fn=ll, swap_every=cfg.MCMC_PT_SWAP_EVERY)
+        samples_u, info = run_nuts(
+            seed_run, logp, init_u, num_warmup=warmup, num_samples=per_chain,
+            max_depth=cfg.MCMC_MAX_TREE_DEPTH, target_accept=cfg.MCMC_TARGET_ACCEPT, thin=cfg.MCMC_THIN,
+            data=data, mode_hop=mode_hop, exchange=exchange, value_and_grad_fn=vg,
+        )
+    theta_s = bij.forward(samples_u)  # (Gl*C*R, S, dim)
+    # Keep only the cold (beta = 1) rung of each replica group.
+    theta_cold = theta_s.reshape(Gl, C, R, per_chain, -1)[:, :, 0].cpu().numpy()
+    # Per-dataset divergence counts over the cold chains (NUTS only): a
+    # pooled count hides which datasets pile mass against a wall.
+    div_cold, div_total = None, None
+    if "diverging" in info:
+        div = info["diverging"]
+        div_cold = div.reshape(Gl, C, R, -1)[:, :, 0].sum((1, 2)).cpu().numpy()
+        div_total = int(div.sum())
+    return (theta_cold, div_cold, float(info["accept_prob"].mean()), div_total, info.get("swap_accept"),
+            info["potential_calls"])
+
+
+def _run_sbc_batched(
+    cfg: RunConfig,
+    prior_theta: Distribution,
+    density_estimator: MNLE,
+    num_datasets: int,
+    post_samples: int,
+    outdir: Path,
+    seed: int,
+    verbose: bool,
+    device: torch.device,
+    group_size: int = 8,
+) -> dict:
+    """Every SBC dataset x chain x replica folded into the chain axis of one
+    sampler run, ``group_size`` datasets at a time.
+
+    One simulator call (K1) makes every session. Each group's datasets x
+    chains x replicas run as one batch of chains whose rows each carry their
+    dataset's session (``data`` = (session index, beta)), so every potential
+    call is one launch over all of the group's rows: K3 (K3p) for a
+    gradient, K2 (K2p) for a value. The final group is padded by
+    wrap-around, and the padded rows enter no statistic.
+
+    Random streams: ``child_seed(seed, tag)`` with the JAX package's
+    ``fold_in`` tags: 0 theta_true, 1 the stimuli, 2 the simulator's noise,
+    300 + g and 400 + g group g's starts and sampler, 7000 + 131 rnd + rg
+    and 7100 + 131 rnd + rg remediation round rnd's group rg. The streams
+    differ from JAX's, so results agree in distribution only.
+    """
+    from .analysis import sbc_uniformity_stats
+    from .inference.diagnostics import effective_sample_size, split_r_hat
+
+    D, C, T = num_datasets, cfg.NUM_CHAINS, cfg.NUM_TRIALS_OBS
+    est = density_estimator
+    bij = mcmc_transform(prior_theta)
+
+    theta_true = prior_theta.sample(make_generator(child_seed(seed, 0), device), (D,))
+    n_max, spp = pulse_schedule()
+    P = n_pulses_max_from_schedule(n_max, spp)
+    pulses = generate_pulse_matrix(make_generator(child_seed(seed, 1), device), D * T, P, p_success=cfg.P_SUCCESS)
+    x = rt_choice_model_simulator_torch(
+        theta_true.repeat_interleave(T, dim=0), rng=child_seed(seed, 2), mu_sensory=cfg.MU_SENSORY,
+        pulse_sides=pulses,
+    )
+    x = pack_x_rt_choice(x, log_rt=cfg.LOG_RT_MANUALLY)
+    x_d = x.reshape(D, T, 2)
+    s_d = pulses.reshape(D, T, P)
+
+    mode_hop = _mode_hop(cfg, bij)
+    # Parallel tempering: R replicas per (dataset, chain), contiguous, cold
+    # rung first; beta rides in ``data``, so one potential call serves every
+    # rung.
+    R = max(int(cfg.MCMC_PT_REPLICAS), 1)
+    if R > 1 and cfg.MCMC_METHOD in ("slice", "slice_np_vectorized"):
+        raise ValueError(
+            "MCMC_PT_REPLICAS > 1 requires the NUTS sampler "
+            "(parallel tempering is not wired into run_slice)"
+        )
+    ladder = geometric_ladder(R, cfg.MCMC_PT_BETA_MIN)
+
+    per_chain = math.ceil(post_samples / C)
+    G = min(group_size, D)  # datasets per launch
+    n_groups = math.ceil(D / G)
+    pooled_groups, swap_accepts = [], []
+    rhat_per_ds, ess_per_ds, div_per_ds = [], [], []
+    calls = [0]
+
+    # Stale partials from a previous run in the same outdir would read as a
+    # snapshot of this run until the first group lands.
+    for stale in ("sbc_ranks.partial.npy", "partial_summary.json"):
+        (outdir / stale).unlink(missing_ok=True)
+    if verbose:
+        print(f"[run_sbc] batched: {n_groups} groups of {G} datasets x {C} chains, {per_chain} draws/chain",
+              flush=True)
+
+    def _mixing_stats(cold_gi):
+        """(split-R-hat max, min-ESS) over one dataset's cold chains."""
+        if C >= 2 and per_chain >= 10:
+            return float(np.max(split_r_hat(cold_gi))), float(np.min(effective_sample_size(cold_gi)))
+        return float("nan"), float("nan")
+
+    def _launch(idx, seed_init, seed_run, warmup, ladder_arr, tau_init=False):
+        rows = torch.as_tensor(np.asarray(idx), device=device)
+        *out, n_calls = _sbc_launch(cfg, prior_theta, est, x_d[rows], s_d[rows], seed_init, seed_run, warmup,
+                                    ladder_arr, per_chain, mode_hop, tau_init=tau_init)
+        calls[0] += n_calls
+        return out
+
+    tt_np = theta_true.cpu().numpy()
+    for g in range(n_groups):
+        lo = g * G
+        idx = (np.arange(G) + lo) % D  # pad the final group by wrap-around
+        cold_np, div_cold, acc, div_total, swap = _launch(
+            idx, child_seed(seed, 300 + g), child_seed(seed, 400 + g), cfg.WARMUP_STEPS, ladder)
+        pooled_groups.append(_pooled(cold_np, post_samples))
+        # Per-dataset mixing diagnostics over the cold chains: pooled ranks
+        # from unmixed chains bias every uniformity number.
+        for gi in range(G):
+            if lo + gi >= D:
+                break  # wrap-around padding of the final group
+            div_per_ds.append(float(div_cold[gi]) if div_cold is not None else float("nan"))
+            r_, e_ = _mixing_stats(cold_np[gi])
+            rhat_per_ds.append(r_)
+            ess_per_ds.append(e_)
+        swap_accepts.append(swap)
+        if verbose:
+            # Only statistics the sampler produced: slice has no divergences.
+            div_str = "n/a" if div_total is None else str(div_total)
+            sw_str = f" swap_accept={swap:.3f}" if swap is not None else ""
+            print(f"[run_sbc] group {g + 1}/{n_groups}: {G} datasets x {C} chains"
+                  f"{' x ' + str(R) + ' replicas' if R > 1 else ''} "
+                  f"mean_accept={acc:.3f} divergences={div_str}{sw_str}", flush=True)
+        # Partial results after every group, so a run cut short leaves a
+        # readable uniformity readout over the datasets it finished.
+        done = min((g + 1) * G, D)
+        part_ranks = (np.concatenate(pooled_groups, axis=0)[:done] < tt_np[:done, None, :]).sum(axis=1)
+        partial = {
+            "datasets_done": int(done),
+            "datasets_total": int(D),
+            "rhat_max_per_dataset": [float(v) for v in rhat_per_ds[:done]],
+            "min_ess_per_dataset": [float(v) for v in ess_per_ds[:done]],
+            "divergences_per_dataset": [float(v) for v in div_per_ds[:done]],
+        }
+        if done >= 8:  # uniformity tests are meaningless below ~8 datasets
+            try:
+                stats = sbc_uniformity_stats(part_ranks, post_samples)
+                partial.update(ks_pvalues=stats["ks_pvalues"], chi2_pvalues=stats["chi2_pvalues"])
+            except Exception:  # scipy quirks must not kill the run
+                pass
+        # Atomic: a crash mid-write never leaves a truncated snapshot.
+        tmp_npy = outdir / "sbc_ranks.partial.tmp.npy"
+        np.save(tmp_npy, part_ranks)
+        os.replace(tmp_npy, outdir / "sbc_ranks.partial.npy")
+        tmp_js = outdir / "partial_summary.json.tmp"
+        tmp_js.write_text(json.dumps(partial, indent=2))
+        os.replace(tmp_js, outdir / "partial_summary.json")
+
+    samples_np = np.concatenate(pooled_groups, axis=0)[:D]
+    rhat_np = np.asarray(rhat_per_ds[:D], dtype=float)
+    ess_np = np.asarray(ess_per_ds[:D], dtype=float)
+    div_np = np.asarray(div_per_ds[:D], dtype=float)
+
+    # Mixing gate and remediation: rather than pool ranks from unmixed
+    # chains, re-run the flagged datasets with a longer warmup and a hotter
+    # ladder, substitute their draws unconditionally (the remediated run
+    # strictly dominates, so this is no pick between runs) and record the
+    # diagnostics before and after.
+    def _flagged_idx():
+        return np.where(
+            (~np.isfinite(rhat_np)) | (rhat_np > cfg.SBC_RHAT_GATE) | (ess_np < cfg.SBC_MIN_ESS_GATE)
+        )[0]
+
+    gate_active = C >= 2 and per_chain >= 10
+    remediation = None
+    flagged0 = _flagged_idx() if gate_active else np.asarray([], dtype=int)
+    if cfg.SBC_REMEDIATE and flagged0.size:
+        todo0 = flagged0[: int(cfg.SBC_REMEDIATE_MAX)]
+        rhat_before = rhat_np[todo0].tolist()
+        rounds = []
+        warm1, beta1 = None, None
+        todo = todo0
+        for rnd in range(1, max(int(cfg.SBC_REMEDIATE_ROUNDS), 1) + 1):
+            if rnd > 1:
+                # Escalate only the datasets the previous round left dirty.
+                todo = np.intersect1d(_flagged_idx(), todo0)
+                if todo.size == 0:
+                    break
+            warm2 = 2 * rnd * cfg.WARMUP_STEPS
+            beta2 = cfg.MCMC_PT_BETA_MIN / (2.0**rnd) if R > 1 else None
+            hot = geometric_ladder(R, beta2) if R > 1 else ladder
+            if rnd == 1:
+                warm1, beta1 = warm2, beta2
+            if verbose:
+                print(f"[run_sbc] mixing gate round {rnd}: {todo.size}/{D} datasets flagged (R-hat > "
+                      f"{cfg.SBC_RHAT_GATE} or min-ESS < {cfg.SBC_MIN_ESS_GATE}); remediating with warmup {warm2}"
+                      + (f", beta_min {beta2}" if beta2 is not None else ""), flush=True)
+            for rg in range(math.ceil(todo.size / G)):
+                sub = todo[rg * G : (rg + 1) * G]
+                cold_np, div_cold, acc, div_total, swap = _launch(
+                    np.resize(sub, G),  # pad by wrap-around within sub
+                    child_seed(seed, 7000 + 131 * rnd + rg), child_seed(seed, 7100 + 131 * rnd + rg),
+                    warm2, hot, tau_init=cfg.SBC_REMEDIATE_TAU_INIT,
+                )
+                for gi, ds in enumerate(sub.tolist()):
+                    samples_np[ds] = _pooled(cold_np[gi], post_samples)
+                    rhat_np[ds], ess_np[ds] = _mixing_stats(cold_np[gi])
+                    if div_cold is not None:
+                        div_np[ds] = float(div_cold[gi])
+                if swap is not None:
+                    swap_accepts.append(swap)
+                if verbose:
+                    print(f"[run_sbc] remediation round {rnd} group {rg + 1}: datasets {sub.tolist()} "
+                          f"mean_accept={acc:.3f}", flush=True)
+            rounds.append({
+                "round": rnd,
+                "warmup": int(warm2),
+                "beta_min": beta2,
+                "datasets": [int(v) for v in todo],
+                "rhat_after": [float(v) for v in rhat_np[todo]],
+            })
+        still = _flagged_idx()
+        remediation = {
+            "flagged": [int(v) for v in flagged0],
+            "remediated": [int(v) for v in todo0],
+            "warmup": int(warm1),
+            "beta_min": beta1,
+            "rhat_before": rhat_before,
+            "rhat_after": [float(v) for v in rhat_np[todo0]],
+            "still_flagged": [int(v) for v in still],
+            "rounds": rounds,
+        }
+        if verbose:
+            print(f"[run_sbc] remediation: {int(still.size)}/{D} datasets still flagged after "
+                  f"{len(rounds)} round(s)", flush=True)
+
+    ranks = (samples_np < tt_np[:, None, :]).sum(axis=1)
+    if verbose:
+        for i in range(D):
+            print(f"[run_sbc] dataset {i + 1}/{D} ranks={ranks[i].tolist()}")
+
+    np.save(outdir / "sbc_thetas_true.npy", tt_np)
+    np.save(outdir / "sbc_ranks.npy", ranks)
+    # The pooled posterior draws (D, S, dim), for analyses after the run.
+    np.save(outdir / "sbc_samples.npy", samples_np.astype(np.float32))
+    flagged_final = _flagged_idx() if gate_active else np.asarray([], dtype=int)
+    np.savez(outdir / "sbc_mixing_diagnostics.npz", rhat_max=rhat_np, min_ess=ess_np, divergences=div_np,
+             flagged_final=flagged_final)
+    if verbose:
+        print(f"[run_sbc] wrote {outdir / 'sbc_thetas_true.npy'}")
+        print(f"[run_sbc] wrote {outdir / 'sbc_ranks.npy'}")
+        n_bad = int(np.sum(rhat_np > 1.05)) if rhat_np.size else 0
+        print(f"[run_sbc] per-dataset mixing: max split-R-hat="
+              f"{np.nanmax(rhat_np) if rhat_np.size else float('nan'):.3f}, "
+              f"min ESS={np.nanmin(ess_np) if ess_np.size else float('nan'):.0f}, "
+              f"{n_bad}/{D} datasets with R-hat > 1.05")
+    _plot_sbc_rank_histograms(ranks, post_samples, outdir)
+    return {
+        "thetas_true": tt_np,
+        "ranks": ranks,
+        "all_samples": [samples_np[i] for i in range(D)],
+        "rhat_max": rhat_np,
+        "min_ess": ess_np,
+        "divergences_per_dataset": div_np,
+        "swap_accept": [s for s in swap_accepts if s is not None] or None,
+        "remediation": remediation,
+        "flagged_final": [int(v) for v in flagged_final],
+        "potential_calls": calls[0],
+    }
+
+
+def run_sbc(
+    cfg: RunConfig,
+    prior_theta: Distribution,
+    density_estimator: MNLE,
+    device=None,
+    *,
+    num_datasets: Optional[int] = None,
+    num_posterior_samples: Optional[int] = None,
+    outdir: str | Path = "mnle_outputs",
+    seed: int = 0,
+    verbose: bool = True,
+    batched: bool = True,
+    group_size: int = 8,
+    mesh=None,
+) -> dict:
+    """Simulation-based calibration on ``device`` (default: the
+    estimator's). For each dataset: theta_true ~ prior, simulate a session,
+    sample the posterior, rank theta_true among the posterior draws. Returns
+    {"thetas_true", "ranks", "all_samples"} and writes sbc_thetas_true.npy,
+    sbc_ranks.npy, sbc_rank_histograms.png and sbc_ecdf.png into
+    ``outdir``.
+
+    ``batched=True`` (default) folds the datasets into the chain axis
+    (``_run_sbc_batched``: also the mixing gate, its remediation, the
+    per-dataset diagnostics, sbc_samples.npy, sbc_mixing_diagnostics.npz
+    and the partials after every group); ``batched=False`` runs the
+    datasets one after another through ``run_inference_mcmc``. ``mesh``
+    (sharding over several devices) is not ported."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "run_sbc(mesh=...) is not ported to PyTorch yet (multi-device: see ROADMAP.md, Queue 1 item 11)"
+        )
+    device = torch.device(device) if device is not None else density_estimator.device
+    density_estimator.to(device)
+    num_datasets = int(num_datasets or cfg.SBC_NUM_DATASETS)
+    post_samples = int(num_posterior_samples or cfg.SBC_POST_SAMPLES)
+    seed = as_seed(seed)
+    outdir = Path(outdir)
+    outdir.mkdir(parents=True, exist_ok=True)
+
+    if batched and cfg.MCMC_METHOD in ("nuts", "nuts_pyro", "hmc", "slice", "slice_np_vectorized"):
+        return _run_sbc_batched(cfg, prior_theta, density_estimator, num_datasets, post_samples, outdir, seed,
+                                verbose, device, group_size=group_size)
+
+    sbc_cfg = cfg.replace(POSTERIOR_SAMPLES=post_samples)
+    thetas_true, ranks, all_samples = [], [], []
+    for i in range(num_datasets):
+        k = child_seed(seed, i)
+        theta_true = prior_theta.sample(make_generator(child_seed(k, 0), device), (1,))[0]
+        x_o, pulses_o = simulate_session_data_rt_choice(
+            theta_true, cfg.NUM_TRIALS_OBS, rng=child_seed(k, 1), mu_sensory=cfg.MU_SENSORY,
+            p_success=cfg.P_SUCCESS, return_pulse_sides=True,
+        )
+        x_o = pack_x_rt_choice(x_o, log_rt=cfg.LOG_RT_MANUALLY)
+        samples = run_inference_mcmc(sbc_cfg, prior_theta, density_estimator, x_o, pulses_o, device,
+                                     seed=child_seed(k, 2), verbose=False)
+        theta_np, samples_np = theta_true.cpu().numpy(), samples.cpu().numpy()
+        r = _compute_ranks(samples_np, theta_np)
+        thetas_true.append(theta_np)
+        ranks.append(r)
+        all_samples.append(samples_np)
+        if verbose:
+            print(f"[run_sbc] dataset {i + 1}/{num_datasets} ranks={r.tolist()}")
+
+    thetas_true = np.stack(thetas_true)
+    ranks = np.stack(ranks)
+    np.save(outdir / "sbc_thetas_true.npy", thetas_true)
+    np.save(outdir / "sbc_ranks.npy", ranks)
+    if verbose:
+        print(f"[run_sbc] wrote {outdir / 'sbc_thetas_true.npy'}")
+        print(f"[run_sbc] wrote {outdir / 'sbc_ranks.npy'}")
+    _plot_sbc_rank_histograms(ranks, post_samples, outdir)
+    return {"thetas_true": thetas_true, "ranks": ranks, "all_samples": all_samples}

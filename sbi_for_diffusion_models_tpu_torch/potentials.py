@@ -13,6 +13,12 @@ the same value and its theta-gradient in closed form around one K3 launch
 gradients; a call without the gradient launches K2 (K2p). The sampler uses
 it at every leapfrog step, where autograd's per-operation host cost was most
 of the step's time on the card.
+
+The likelihood also holds several sessions at once (SBC folds its datasets
+into the chain axis): ``local_theta`` (G, T, P) and ``x`` (G, T, 2), and
+each call names every theta row's session (``sessions``, (N,)). The
+theta-free session terms are made once, for the G sessions, and every call
+is still one launch over all N*T rows.
 """
 
 from __future__ import annotations
@@ -25,18 +31,31 @@ from .distributions import Distribution
 from .nets.mnle_net import MNLE, slot_features
 from .ops import mnle_cuda
 
-__all__ = ["ConditionedMNLELogLikelihood", "ThetaOnlyPosteriorPotential"]
+__all__ = ["ConditionedMNLELogLikelihood", "ThetaOnlyPosteriorPotential", "tempered_value_and_grad"]
+
+
+def _per_chain(a, sessions, n: int):
+    """The rows of ``a`` for n theta rows: one session's (T, ...) broadcast
+    to (n, T, ...), or each row's own session of the stack (G, T, ...)."""
+    if sessions is None:
+        return a[None].expand(n, *a.shape)
+    return a[sessions]
 
 
 class ConditionedMNLELogLikelihood:
     """``ll(theta) = sum_i log p(x_i | theta, s_i)`` for batches of theta,
-    given the session's stimulus ``local_theta`` (T, P)."""
+    given the session's stimulus ``local_theta`` (T, P), or the stimuli of G
+    sessions (G, T, P); with G sessions every call takes ``x`` (G, T, 2) and
+    ``sessions`` (N,), the session of each theta row."""
 
     def __init__(self, estimator: MNLE, local_theta, *, logprob_kernel: str = "xla"):
         self.estimator = estimator
         self.local_theta = torch.as_tensor(local_theta, dtype=torch.float32).to(estimator.device)
-        if self.local_theta.dim() != 2:
-            raise ValueError(f"local_theta must be (num_trials, P), got {tuple(self.local_theta.shape)}")
+        if self.local_theta.dim() not in (2, 3):
+            raise ValueError(
+                f"local_theta must be (num_trials, P) or (num_sessions, num_trials, P), "
+                f"got {tuple(self.local_theta.shape)}"
+            )
         # "pallas" runs the rows through the fused kernels, which hold the
         # weights packed at construction; "xla" through log_prob_fn(params).
         # The pulse rep's tnd anchor has no fused path: "auto" evaluates it
@@ -51,8 +70,16 @@ class ConditionedMNLELogLikelihood:
     def __call__(self, x, theta):
         return self.forward(x, theta)
 
-    def log_lik_fn(self, params, x, theta):
-        """x (T, 2), theta (N, D) -> (N,) summed log-likelihood."""
+    def _check_sessions(self, sessions) -> None:
+        if (sessions is None) != (self.local_theta.dim() == 2):
+            raise ValueError(
+                "sessions names each theta row's session: give it exactly when local_theta "
+                f"holds several sessions (local_theta {tuple(self.local_theta.shape)})"
+            )
+
+    def log_lik_fn(self, params, x, theta, sessions=None):
+        """x (T, 2), theta (N, D) -> (N,) summed log-likelihood; with G
+        sessions x (G, T, 2) and ``sessions`` (N,)."""
         est = self.estimator
         if self._lp_fused is not None and params is not est.params:
             # The fused path holds the weights packed at construction; a
@@ -61,12 +88,12 @@ class ConditionedMNLELogLikelihood:
                 "fused log-prob path was built for the estimator's current "
                 "params; pass estimator.params or use logprob_kernel='xla'"
             )
-        s = self.local_theta
-        T, N = s.shape[0], theta.shape[0]
-        cond = torch.cat(
-            [theta[:, None, :].expand(N, T, theta.shape[-1]), s[None].expand(N, T, s.shape[-1])], dim=-1
-        ).reshape(N * T, -1)
-        xr = x[None].expand(N, T, x.shape[-1]).reshape(N * T, -1)
+        self._check_sessions(sessions)
+        N = theta.shape[0]
+        s = _per_chain(self.local_theta, sessions, N)
+        T = s.shape[1]
+        cond = torch.cat([theta[:, None, :].expand(N, T, theta.shape[-1]), s], dim=-1).reshape(N * T, -1)
+        xr = _per_chain(x, sessions, N).reshape(N * T, -1)
         lp = self._lp_fused(xr, cond) if self._lp_fused is not None else est.log_prob_fn(params, xr, cond)
         return lp.reshape(N, T).sum(-1)
 
@@ -75,16 +102,37 @@ class ConditionedMNLELogLikelihood:
         """Whether ``log_lik_and_grad`` is available (the fused path)."""
         return self._lp_fused is not None
 
-    def _session(self, x):
-        """The theta-free parts of the rows for session ``x`` (T, 2), made
-        once per session: one-hot choices, censored mask, the standardized
-        stimulus columns of the condition, and the RT terms when they do not
-        depend on theta."""
-        if self._session_cache is not None and self._session_cache[0] is x:
-            return self._session_cache[1]
+    def _session(self, x, sessions, n: int):
+        """The theta-free parts of the rows of n theta rows, each (n, T,
+        ...): one-hot choices, censored mask, the standardized stimulus
+        columns of the condition, and the RT terms when they do not depend
+        on theta. They are made once for ``x`` (one session (T, 2), or G
+        sessions (G, T, 2)); one session's are broadcast to the n rows, and
+        with G sessions each row's are gathered once per ``sessions``
+        tensor, so a sampler's calls (the same ``x`` and ``sessions``
+        every time) compute them once."""
+        if self._session_cache is None or self._session_cache[0] is not x:
+            self._session_cache = (x, self._session_terms(x), None)
+        _, terms, gathered = self._session_cache
+        if gathered is not None and gathered[0] is sessions:
+            return gathered[1]
+        rows = {k: v if k == "log_mask" or v is None else _per_chain(v, sessions, n) for k, v in terms.items()}
+        if sessions is not None:
+            self._session_cache = (x, terms, (sessions, rows))
+        return rows
+
+    def _session_terms(self, x):
+        """The theta-free terms of session ``x`` (T, 2), or of the sessions
+        ``x`` (G, T, 2), each of shape x.shape[:-1] + its own (``log_mask``:
+        which theta columns enter the condition as logs)."""
         est, cfg = self.estimator, self.estimator.cfg
-        theta_dim = cfg.condition_dim - self.local_theta.shape[1]
-        probe = torch.cat([torch.ones((x.shape[0], theta_dim), device=x.device), self.local_theta], dim=-1)
+        P = self.local_theta.shape[-1]
+        theta_dim = cfg.condition_dim - P
+        lead = x.shape[:-1]
+        x = x.reshape(-1, x.shape[-1])
+        probe = torch.cat(
+            [torch.ones((x.shape[0], theta_dim), device=x.device), self.local_theta.reshape(-1, P)], dim=-1
+        )
         if cfg.rt_rep == "pulse":
             # Absolute anchor: k, phi and ds are theta-free; t_nd enters
             # only through the sin/cos features, made per call.
@@ -98,16 +146,16 @@ class ConditionedMNLELogLikelihood:
             "onehot": onehot,
             "c_stim": c[:, theta_dim:],
             "censored": (choice == cfg.censored_category) if cfg.censor_rt else None,
-            "log_mask": None,
         })
+        sess = {k: None if v is None else v.reshape(*lead, *v.shape[1:]) for k, v in sess.items()}
+        sess["log_mask"] = None
         log_dims = [d for d in cfg.log_condition_dims if d < theta_dim]
         if log_dims:
             sess["log_mask"] = torch.zeros((theta_dim,), dtype=torch.bool, device=x.device)
             sess["log_mask"][log_dims] = True
-        self._session_cache = (x, sess)
         return sess
 
-    def log_lik_and_grad(self, x, theta, need_grad: bool = True):
+    def log_lik_and_grad(self, x, theta, need_grad: bool = True, sessions=None):
         """``(ll (N,), d ll / d theta (N, D) or None)`` for x (T, 2) and theta
         (N, D) on the fused path: one K3 (K3p) launch for the values and
         the gradient over all N*T rows (one K2 (K2p) launch for the values
@@ -116,13 +164,16 @@ class ConditionedMNLELogLikelihood:
         barrier, the pulse rep's t_nd phase features, the censored mask)
         differentiated in closed form instead of by autograd. The same
         function as ``log_lik_fn``; the sampler calls this at every leapfrog
-        step, where autograd's per-operation cost dominated."""
+        step, where autograd's per-operation cost dominated. With G
+        sessions, x is (G, T, 2) and ``sessions`` (N,) names each theta
+        row's session; still one launch a call."""
         if self._lp_fused is None:
             raise ValueError("log_lik_and_grad needs the fused path (logprob_kernel != 'xla')")
+        self._check_sessions(sessions)
         est, cfg = self.estimator, self.estimator.cfg
-        sess = self._session(x)
         N, D = theta.shape
-        T = sess["rt"].shape[0]
+        sess = self._session(x, sessions, N)
+        T = sess["rt"].shape[1]
 
         # Condition columns of theta: log dims, then z-scoring.
         c_th = theta
@@ -135,15 +186,13 @@ class ConditionedMNLELogLikelihood:
         if cfg.z_score_theta:
             c_th = (c_th - est.cond_mean[:D]) / est.cond_std[:D]
             dc_th = dc_th / est.cond_std[:D]
-        ctx = torch.cat(
-            [c_th[:, None, :].expand(N, T, D), sess["c_stim"][None].expand(N, T, sess["c_stim"].shape[1])], dim=-1
-        ).reshape(N * T, -1)
+        ctx = torch.cat([c_th[:, None, :].expand(N, T, D), sess["c_stim"]], dim=-1).reshape(N * T, -1)
         if cfg.rt_rep == "pulse":
             return self._pulse_lik_and_grad(sess, theta, ctx, dc_th, need_grad)
 
         # RT coordinate: depends on theta only through t_nd in shifted-log.
         if cfg.rt_rep == "shifted_log":
-            gap = sess["rt"][None, :] - theta[:, cfg.tnd_index, None]
+            gap = sess["rt"] - theta[:, cfg.tnd_index, None]
             gap_c = torch.clamp(gap, min=1e-6)
             t_raw = torch.log(gap_c)
             t = (t_raw - est.x_mean) / est.x_std if cfg.z_score_x else t_raw
@@ -151,14 +200,14 @@ class ConditionedMNLELogLikelihood:
             if cfg.z_score_x:
                 extra = extra - torch.log(est.x_std)
         else:
-            t = sess["t"][None].expand(N, T)
-            extra = sess["extra"][None].expand(N, T)
+            t = sess["t"]
+            extra = sess["extra"]
         if sess["censored"] is not None:
             extra = torch.where(sess["censored"], 0.0, extra)
 
         weights = self._lp_fused.weights
         t_rows = t.reshape(N * T)
-        oh_rows = sess["onehot"].repeat(N, 1)
+        oh_rows = sess["onehot"].reshape(N * T, -1)
         if not need_grad:
             return (mnle_cuda.rows_logp(t_rows, oh_rows, ctx, weights).reshape(N, T) + extra).sum(-1), None
 
@@ -185,10 +234,10 @@ class ConditionedMNLELogLikelihood:
         barrier to differentiate."""
         cfg = self.estimator.cfg
         N, D = theta.shape
-        T = sess["rt"].shape[0]
-        kf = slot_features(cfg, sess["kv"][None].expand(N, T), theta[:, cfg.tnd_index, None].expand(N, T),
-                           theta.dtype)
-        rows = (sess["phi"].repeat(N), sess["onehot"].repeat(N, 1), ctx, kf.reshape(N * T, -1), sess["kv"].repeat(N))
+        T = sess["rt"].shape[1]
+        kf = slot_features(cfg, sess["kv"], theta[:, cfg.tnd_index, None].expand(N, T), theta.dtype)
+        rows = (sess["phi"].reshape(N * T), sess["onehot"].reshape(N * T, -1), ctx, kf.reshape(N * T, -1),
+                sess["kv"].reshape(N * T))
         weights = self._lp_fused.weights
         # extra = -log Delta on the rows that are not censored (made per session).
         if not need_grad:
@@ -217,6 +266,31 @@ class ConditionedMNLELogLikelihood:
                 f"x has {x.shape[0]} trials but local_theta has {self.local_theta.shape[0]}"
             )
         return self.log_lik_fn(self.estimator.params, x, theta)[None, :]
+
+
+def tempered_value_and_grad(prior: Distribution, bij, likelihood: ConditionedMNLELogLikelihood,
+                            temperature: float = 1.0):
+    """``vg(u, x, beta, need_grad=True, sessions=None) -> (value, grad or
+    None)``: the u-space density ``log prior(theta) + log_det(u) + beta *
+    ll(theta) / temperature``, theta = ``bij.forward(u)``, with its gradient
+    in u in closed form (prior, bijector and the likelihood's outer
+    transforms around one K3/K3p launch; a value-only call launches K2/K2p).
+    beta (N,) is each row's inverse temperature (ones for the untempered
+    density); ``x`` and ``sessions`` go to ``likelihood.log_lik_and_grad``.
+    Needs ``likelihood.closed_form_grad`` and a prior with
+    ``log_prob_and_grad``."""
+
+    def vg(u, x, beta, need_grad: bool = True, sessions=None):
+        theta, dtheta, log_det, dlog_det = bij.forward_and_grads(u)
+        lp, g_lp = prior.log_prob_and_grad(theta)
+        ll, g_ll = likelihood.log_lik_and_grad(x, theta, need_grad, sessions=sessions)
+        beta_t = beta / temperature
+        value = lp + log_det + beta_t * ll
+        if not need_grad:
+            return value, None
+        return value, (g_lp + beta_t[:, None] * g_ll) * dtheta + dlog_det
+
+    return vg
 
 
 class ThetaOnlyPosteriorPotential:

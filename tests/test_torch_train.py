@@ -446,7 +446,11 @@ def test_pulse_rep_trains_with_its_warning():
 
 
 def test_package_exports_the_training_entry_points():
-    assert {"train_mnle", "save_model", "build_mnle"} <= set(port.__all__) <= set(tmnle.__all__)
+    from sbi_for_diffusion_models_tpu_torch import analysis, pipeline
+
+    assert {"train_mnle", "save_model", "build_mnle"} <= set(port.__all__)
+    for name in port.__all__:  # each from the module that defines it
+        assert getattr(port, name) is next(getattr(m, name) for m in (tmnle, analysis, pipeline) if name in m.__all__)
     assert port.train_mnle is tmnle.train_mnle and port.build_mnle is build_mnle
     with pytest.raises(AttributeError):
-        port.run_sbc
+        port.train_snpe  # not ported
