@@ -78,13 +78,18 @@ port's paths once each through their public entry points:
    plain version and float64 (as in phase 3, and timed there), and that
    call's values and gradients against one single-session
    ``log_lik_and_grad`` call per dataset (equal bits expected; the ulps
-   that differ are printed);
+   that differ are printed); a window of 300 potential calls of a shorter
+   ``run_sbc`` under ``torch.profiler`` gives the card's busy share of a call;
 11. the CLI's smoke path, ``pipeline._cli(["--smoke"])`` in this process
    (simulate -> train -> save -> MCMC -> SBC at ``SMOKE_CONFIG``), into a
    temporary ``OUTDIR`` and ``MODEL_DIR``: the posterior samples, the SBC
    artifacts and the five ``metrics.jsonl`` stages must exist, and K1 and
    K3 must have launched (every potential call of that config wants a
-   gradient, so K2 launches only if NUTS falls back to slice).
+   gradient, so K2 launches only if NUTS falls back to slice). Then K2/K3 on
+   the model ``--smoke`` trained (log rep, no censoring, no cond-affine
+   head, 64 hidden, 4 transforms), held as in phase 3 on the rows of the
+   path's first K3 call at each row count and at 1,200 rows of prior-draw
+   sessions.
 
 Each kernel's bound is the larger of its FP32 operations over 67 TFLOP/s
 and its bytes (inputs read once, outputs written once) over 3.35 TB/s, the
@@ -97,7 +102,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py`` (one CUDA card,
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels with
 their launches, errors, times and bounds at both sizes (K4: both chain
 lengths), K1 also with its launch shape, the four fused kernels' with their
-tile height, K2's and K3's also at the SBC fold's 9,600 rows (``fold``),
+tile height, K2's and K3's also at the SBC fold's 9,600 rows (``fold``) and
+on the CLI path's model (``pipeline``),
 each kernel's launches on every path (``launches_by_path``), and each with
 ptxas's registers, stack and spills (K1: of each of its six instances); a
 spill fails the run. Any failed check
@@ -107,6 +113,7 @@ a CUDA card the script exits with status 2.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -136,11 +143,11 @@ K4_SHAPE = (64, 256, 128)  # the roofline path's K4 input: 2,097,152 float32 ele
 SLICE_WARMUP, SLICE_DRAWS = 20, 240  # the slice path's cut (24 chains: 10 draws each)
 # The serving and training paths' cut: the whole script took 767.1 s on the H100 at warmup 50 / draws 100 on a
 # host at 3.6 ms a batched call, and 374.4 to 452.5 s at 30 / 60 on hosts at 2.2 to 2.7 ms. The SBC phase (121,844
-# calls) and the CLI's smoke path took about 480 s more at 2.4 to 3.2 ms (780.3 s in all, with both serving paths at
-# 20 / 40), so the serving paths run at 16 / 32 and the training path's sampler at 10 / 20. Draws are a multiple of
-# the 4 chains (``_sample_posterior`` splits them back into chains).
-SERVE_WARMUP, SERVE_DRAWS = 16, 32
-TRAIN_SERVE_WARMUP, TRAIN_SERVE_DRAWS = 10, 20
+# calls) and the CLI's smoke path take about 480 s more at 2.4 to 3.2 ms: 780.3 s in all with both serving paths at
+# 20 / 40 and the training path's sampler at 20 / 20. Should a slow host push the whole past about 900 s, the pulse
+# path's draws are cut first. Draws are a multiple of the 4 chains (``_sample_posterior`` splits them back into chains).
+SERVE_WARMUP, SERVE_DRAWS = 20, 40
+TRAIN_SERVE_WARMUP, TRAIN_SERVE_DRAWS = 20, 20
 
 
 def _log(*args) -> None:
@@ -522,10 +529,7 @@ def phase_k2k3(device, sizes=(ROWS_MAIN, ROWS_SBC), model_file=MODEL_FILE, model
     held on its worst row: a float32 evaluation that lands exactly on a
     knot or a clip bound takes the clip's half gradient there, and the
     float64 reference never lands on it (``ops/rowcheck.py``)."""
-    from sbi_for_diffusion_models_tpu_torch.ops import mnle_cuda as mc
-
-    return _phase_fused(device, model_file, ("K2", mc.rows_logp, mc.rows_logp_plain),
-                        ("K3", mc.rows_logp_and_vjp, mc.rows_logp_vjp_plain), sizes, model_dir)
+    return _phase_fused(device, model_file, *_k2k3_specs(), sizes, model_dir)
 
 
 def phase_k2pk3p(device, sizes=(ROWS_MAIN, ROWS_SBC)) -> dict:
@@ -624,6 +628,36 @@ def _launches_on(label, required, run) -> tuple:
     if missing:
         raise AssertionError(f"kernels not launched on the {label} path: {missing}")
     return result, launches
+
+
+@contextlib.contextmanager
+def _recording_k3():
+    """Record, around K3's wrapper and without launching anything, the row
+    count of every call and the inputs of the first call at each row count,
+    ``{rows: ((t, onehot, ctx), weights, cotangent)}``: the kernel is held on
+    the rows a path gave it after that path's counts are read."""
+    from sbi_for_diffusion_models_tpu_torch.ops import mnle_cuda as mc
+
+    k3, seen, first = mc.rows_logp_and_vjp, [], {}
+
+    def recording(t, oh, ctx, w, g):
+        seen.append(t.shape[0])
+        if t.shape[0] not in first:
+            first[t.shape[0]] = ((t.clone(), oh.clone(), ctx.clone()), w, g.clone())
+        return k3(t, oh, ctx, w, g)
+
+    mc.rows_logp_and_vjp = recording
+    try:
+        yield seen, first
+    finally:
+        mc.rows_logp_and_vjp = k3
+
+
+def _k2k3_specs():
+    """K2's and K3's (label, kernel wrapper, plain version), as ``_hold_fused`` takes them."""
+    from sbi_for_diffusion_models_tpu_torch.ops import mnle_cuda as mc
+
+    return ("K2", mc.rows_logp, mc.rows_logp_plain), ("K3", mc.rows_logp_and_vjp, mc.rows_logp_vjp_plain)
 
 
 def phase_main(device, n_sim: int = N_SIM, warmup: int = SERVE_WARMUP, draws: int = SERVE_DRAWS) -> dict:
@@ -774,12 +808,12 @@ def phase_sbc(device, datasets: int = 8, warmup: int = 30, post: int = 60) -> di
     read: K2/K3 against their plain version and float64 on the fold's rows
     of its first gradient call (``_hold_fused``), and the fold's values and
     gradients of that call against one single-session
-    ``log_lik_and_grad`` call for each dataset's 24 rows."""
+    ``log_lik_and_grad`` call for each dataset's 24 rows. Between the two,
+    the card's busy share of a call (``_sbc_device_time``)."""
     import numpy as np
     import torch
 
     from sbi_for_diffusion_models_tpu_torch.mnle import load_model, run_sbc
-    from sbi_for_diffusion_models_tpu_torch.ops import mnle_cuda as mc
     from sbi_for_diffusion_models_tpu_torch.pipeline import build_prior_theta
     from sbi_for_diffusion_models_tpu_torch.potentials import ConditionedMNLELogLikelihood
     from sbi_for_diffusion_models_tpu_torch.run_config import CALIBRATED_CONFIG
@@ -791,18 +825,10 @@ def phase_sbc(device, datasets: int = 8, warmup: int = 30, post: int = 60) -> di
     prior = build_prior_theta()
     fold_rows = min(8, datasets) * cfg.NUM_CHAINS * cfg.MCMC_PT_REPLICAS * cfg.NUM_TRIALS_OBS
 
-    # Record, without launching anything, the row count of every K3 call and
-    # the first gradient call of the fold: its likelihood inputs and
-    # outputs, and the rows it gave K3.
-    rows_seen, first = [], {}
-    k3 = mc.rows_logp_and_vjp
+    # Record, without launching anything, the first gradient call of the
+    # fold: its likelihood inputs and outputs (and K3's rows, _recording_k3).
+    first = {}
     lik_and_grad = ConditionedMNLELogLikelihood.log_lik_and_grad
-
-    def k3_recording(t, oh, ctx, w, g):
-        rows_seen.append(t.shape[0])
-        if "rows" not in first:
-            first["rows"], first["g"] = (t.clone(), oh.clone(), ctx.clone()), g.clone()
-        return k3(t, oh, ctx, w, g)
 
     def lik_recording(self, x, theta, need_grad=True, sessions=None):
         out = lik_and_grad(self, x, theta, need_grad, sessions)
@@ -818,12 +844,11 @@ def phase_sbc(device, datasets: int = 8, warmup: int = 30, post: int = 60) -> di
             torch.cuda.synchronize()
             return out, time.perf_counter() - t0
 
-        mc.rows_logp_and_vjp = k3_recording
         ConditionedMNLELogLikelihood.log_lik_and_grad = lik_recording
         try:
-            (out, wall), launches = _launches_on("sbc", ("ddm_rt_choice", "mnle_logprob_bwd"), run)
+            with _recording_k3() as (rows_seen, k3_first):
+                (out, wall), launches = _launches_on("sbc", ("ddm_rt_choice", "mnle_logprob_bwd"), run)
         finally:
-            mc.rows_logp_and_vjp = k3
             ConditionedMNLELogLikelihood.log_lik_and_grad = lik_and_grad
         _check_sbc_outputs("sbc", Path(tmp), out, datasets, post)
     _forward_share("sbc", launches, "mnle_logprob_fwd", "mnle_logprob_bwd")
@@ -841,10 +866,11 @@ def phase_sbc(device, datasets: int = 8, warmup: int = 30, post: int = 60) -> di
          f"divergences={out['divergences_per_dataset'].tolist()} swap_accept={out['swap_accept']}")
     _log(f"[sbc] ranks={out['ranks'].tolist()}")
 
+    _sbc_device_time(cfg, prior, est, device, wall * 1e3 / calls)
+
     # K2/K3 on the fold's own rows, against their plain version and float64.
-    w32 = first["lik"]._lp_fused.weights
-    check = _hold_fused(device, w32, ("K2", mc.rows_logp, mc.rows_logp_plain),
-                        ("K3", mc.rows_logp_and_vjp, mc.rows_logp_vjp_plain), first["rows"], first["g"])
+    rows, w32, g = k3_first[fold_rows]
+    check = _hold_fused(device, w32, *_k2k3_specs(), rows, g)
 
     # The fold's first gradient call against one single-session call per dataset.
     x_g, theta, sessions = first["x"], first["theta"], first["sessions"]
@@ -876,6 +902,51 @@ def phase_sbc(device, datasets: int = 8, warmup: int = 30, post: int = 60) -> di
             "differ": differ, "worst_ulps": worst}
 
 
+def _sbc_device_time(cfg, prior, est, device, ms_per_call: float, skip: int = 200, calls: int = 300) -> None:
+    """A window of ``calls`` consecutive potential calls of a shorter
+    ``run_sbc`` (the same fold of 8 datasets; warmup 2, 8 draws, no
+    remediation) under ``torch.profiler``, after ``skip`` calls: the card's
+    time a call, the sampler's own device work between calls included, and
+    its busy share of ``ms_per_call``, the ms a call of the run that was not
+    profiled. Prints; checks nothing."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from sbi_for_diffusion_models_tpu_torch.mnle import run_sbc
+    from sbi_for_diffusion_models_tpu_torch.potentials import ConditionedMNLELogLikelihood
+    from sbi_for_diffusion_models_tpu_torch.utils.metrics import device_time
+
+    lik_and_grad = ConditionedMNLELogLikelihood.log_lik_and_grad
+    start, seen, window = skip + 5, [0], {}
+
+    def ready(p):
+        window.update(calls=seen[0] - start, wall=time.perf_counter() - window["t0"], device=device_time(p))
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   schedule=schedule(wait=skip, warmup=5, active=calls, repeat=1), on_trace_ready=ready)
+
+    def stepping(self, *a, **k):
+        seen[0] += 1
+        prof.step()  # the window records from call ``start`` to call ``start + calls``
+        if seen[0] == start:
+            window["t0"] = time.perf_counter()
+        return lik_and_grad(self, *a, **k)
+
+    short = cfg.replace(WARMUP_STEPS=2, SBC_POST_SAMPLES=8, SBC_REMEDIATE_ROUNDS=0)
+    ConditionedMNLELogLikelihood.log_lik_and_grad = stepping
+    try:
+        with tempfile.TemporaryDirectory() as tmp, prof:
+            run_sbc(short, prior, est, device, outdir=tmp, seed=1)
+    finally:
+        ConditionedMNLELogLikelihood.log_lik_and_grad = lik_and_grad
+    device_ms, kernels = window["device"]
+    n = window["calls"]
+    _log(f"[sbc] {n} potential calls under torch.profiler (after {start} of {seen[0]}): "
+         f"device_ms_per_call={device_ms / n:.4f} device_events_per_call={kernels / n:.1f} "
+         f"ms_per_call(profiled)={window['wall'] * 1e3 / n:.3f}; device busy share of the unprofiled call "
+         f"({ms_per_call:.3f} ms) = {device_ms / n / ms_per_call:.4f}")
+
+
 def phase_pipeline(device) -> dict:
     """The CLI's smoke path, ``pipeline._cli(["--smoke"])`` in this process
     (simulate -> train -> save -> MCMC -> SBC on the card), with ``OUTDIR``
@@ -883,7 +954,12 @@ def phase_pipeline(device) -> dict:
     ``metrics.jsonl`` stages must exist; K1 and K3 must have launched. K2
     is not required: under ``SMOKE_CONFIG`` (no tempering, no t_nd slice)
     every potential call wants a gradient, the grid hop's included, so K2
-    launches only if NUTS falls back to the slice sampler."""
+    launches only if NUTS falls back to the slice sampler. Then, after the
+    counts are read, K2/K3 on the model ``--smoke`` trained (log rep, no
+    censoring, no cond-affine head, 64 hidden, 4 transforms): on the rows of
+    the path's first K3 call at each row count (the MCMC's and the SBC
+    fold's), and at 1,200 rows of prior-draw sessions, held as in
+    ``phase_k2k3``."""
     import numpy as np
 
     from sbi_for_diffusion_models_tpu_torch import pipeline
@@ -893,8 +969,9 @@ def phase_pipeline(device) -> dict:
         out_dir, model_dir = Path(tmp) / "out", Path(tmp) / "models"
         os.environ["OUTDIR"], os.environ["MODEL_DIR"] = str(out_dir), str(model_dir)
         t0 = time.perf_counter()
-        result, launches = _launches_on("pipeline", ("ddm_rt_choice", "mnle_logprob_bwd"),
-                                        lambda: pipeline._cli(["--smoke"]))
+        with _recording_k3() as (rows_seen, k3_first):
+            result, launches = _launches_on("pipeline", ("ddm_rt_choice", "mnle_logprob_bwd"),
+                                            lambda: pipeline._cli(["--smoke"]))
         wall = time.perf_counter() - t0
         records = [json.loads(line) for line in (out_dir / "metrics.jsonl").read_text().splitlines()]
         stages = {r["stage"] for r in records}
@@ -909,10 +986,22 @@ def phase_pipeline(device) -> dict:
             raise AssertionError(f"pipeline: posterior samples of shape {samples.shape}, or not finite")
         _check_sbc_outputs("pipeline", out_dir, result["sbc"], cfg.SBC_NUM_DATASETS, cfg.SBC_POST_SAMPLES)
         metrics = {f"{r['stage']}/{r['name']}": round(r["value"], 3) for r in records}
-    _log(f"[pipeline] --smoke wall_s={wall:.3f} metrics={json.dumps(metrics)} "
-         f"sbc_potential_calls={result['sbc']['potential_calls']} "
-         f"train_epochs={result['density_estimator'].train_meta['epochs_run']}")
-    return {"launches": launches, "wall": wall}
+        _log(f"[pipeline] --smoke wall_s={wall:.3f} metrics={json.dumps(metrics)} "
+             f"sbc_potential_calls={result['sbc']['potential_calls']} "
+             f"train_epochs={result['density_estimator'].train_meta['epochs_run']} "
+             f"K3 calls by rows={json.dumps({n: rows_seen.count(n) for n in sorted(k3_first)})}")
+
+        mc_ = result["density_estimator"].cfg
+        width = (mc_.rt_rep, mc_.censor_rt, mc_.cond_affine, mc_.hidden_features, mc_.num_transforms)
+        if width != ("log", False, False, cfg.MNLE_HIDDEN_FEATURES, cfg.MNLE_NUM_TRANSFORMS):
+            raise AssertionError(f"pipeline: the trained model is not SMOKE_CONFIG's: {width}")
+        checks = []
+        for n in sorted(k3_first):
+            rows, w32, g = k3_first[n]
+            checks.append(("path", n, rows_seen.count(n), _hold_fused(device, w32, *_k2k3_specs(), rows, g)))
+        at = phase_k2k3(device, sizes=(ROWS_MAIN,), model_file="mnle_rt_choice_model.npz", model_dir=model_dir)
+        checks.append(("prior_sessions", ROWS_MAIN, 0, at[ROWS_MAIN]))
+    return {"launches": launches, "wall": wall, "checks": checks}
 
 
 def phase_k4(device) -> dict:
@@ -1078,23 +1167,23 @@ def phase_roofline(device) -> dict:
 
 def _train_epoch_device_time(cfg, proposal, z, x, step_ms: float) -> None:
     """One epoch of ``train_mnle`` (its optimizer steps and one validation
-    pass) under ``torch.profiler``: the card's time and launches per
+    pass) under ``torch.profiler``: the card's time and device events per
     optimizer step, and the card's busy share of ``step_ms``, the ms per
     step of the run that was not profiled. Prints; checks nothing."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     import sbi_for_diffusion_models_tpu_torch as port
+    from sbi_for_diffusion_models_tpu_torch.utils.metrics import device_time
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         meta = port.train_mnle(cfg.replace(TRAIN_MAX_EPOCHS=1), proposal, z, x, seed=0, verbose=False).train_meta
         torch.cuda.synchronize()
-    events = [(e.count, getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)))
-              for e in prof.key_averages()]
+    total_ms, kernels = device_time(prof)
     steps = meta["steps_per_epoch"]
-    device_ms = sum(us for _, us in events) / 1e3 / steps
+    device_ms = total_ms / steps
     _log(f"[train] one epoch under torch.profiler ({steps} steps and a validation pass): "
-         f"device_ms_per_step={device_ms:.3f} device_launches_per_step={sum(c for c, us in events if us > 0) / steps:.0f} "
+         f"device_ms_per_step={device_ms:.3f} device_events_per_step={kernels / steps:.0f} "
          f"ms_per_step(profiled)={meta['step_ms']:.3f}; device busy share of the unprofiled step "
          f"({step_ms:.3f} ms) = {device_ms / step_ms:.3f}")
 
@@ -1187,7 +1276,7 @@ def measured_bounds(kernels: list, report: dict) -> None:
 
     fma, tra = report["issue_fma"]["ops_per_s"], report["issue_transcendental"]["ops_per_s"]
     for k in kernels:
-        for at in (k, k.get("large"), k.get("fold"), k.get("short_chain")):
+        for at in (k, k.get("large"), k.get("fold"), k.get("short_chain"), *k.get("pipeline", ())):
             if at is None:
                 continue
             if k["name"] == "ddm_rt_choice":
@@ -1270,6 +1359,11 @@ def main() -> int:
             kernels[-1]["fold"] = {"n": sbc["rows"], "launches": sbc["launches"][kname],
                                    "max_abs_err": sbc["check"][label]["max_abs_err"],
                                    **dict(zip(timed, sbc["check"][label]["times"]))}
+            # The model --smoke trained: the CLI path's rows (K3's launches at each count) and prior sessions.
+            kernels[-1]["pipeline"] = [
+                {"n": n, "rows": kind, **({"launches": k3_calls} if label == "K3" else {}),
+                 "max_abs_err": c[label]["max_abs_err"], **dict(zip(timed, c[label]["times"]))}
+                for kind, n, k3_calls, c in pipe["checks"]]
     # The fused kernels' tile height, as the source they were built from defines it, and ptxas's report of each
     # build (K1: of each instance, G lanes a trial with or without the collapsing bound); a spill fails the run.
     tile_rows = int(re.search(r"#define TILE_ROWS (\d+)", (ROOT / src / "mnle_tile.cuh").read_text())[1])

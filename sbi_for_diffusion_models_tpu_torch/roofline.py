@@ -60,6 +60,7 @@ import torch
 
 from .ops.ceiling_cuda import KINDS, ceiling_chain
 from .utils.device import resolve_device
+from .utils.metrics import device_time
 
 __all__ = ["issue_ceiling", "ceiling_from_times", "simulator_inputs", "mnle_layer_shapes", "main"]
 
@@ -207,11 +208,10 @@ def _trace(report: dict, run, trace_dir: str, device: torch.device) -> None:
         run()
         torch.cuda.synchronize(device)
     prof.export_chrome_trace(str(out / "roofline_trace.json"))
-    device_us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-                    for e in prof.key_averages())
+    device_ms, _ = device_time(prof)
     report["trace_dir"] = str(out)
-    report["trace_device_ms"] = device_us / 1e3
-    print(f"[roofline] trace -> {out} (device time seen by the profiler: {device_us / 1e3:.3f} ms)")
+    report["trace_device_ms"] = device_ms
+    print(f"[roofline] trace -> {out} (device time seen by the profiler: {device_ms:.3f} ms)")
 
 
 def main(argv=None) -> dict:

@@ -6,7 +6,8 @@ Counterpart of ``sbi_for_diffusion_models_tpu/utils/metrics.py``:
   "name", "value"}`` record per line;
 * ``host_sync`` and ``timed``: wall-clock a device computation, waiting for
   the card with ``torch.cuda.synchronize`` before the clock is read;
-* ``trace``: a ``torch.profiler`` trace around a block.
+* ``trace``: a ``torch.profiler`` trace around a block, and
+  ``device_time``: the card's busy time in a finished profiler run.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-__all__ = ["MetricsLogger", "timed", "trace", "host_sync"]
+__all__ = ["MetricsLogger", "timed", "trace", "host_sync", "device_time"]
 
 
 def _first_leaf(x):
@@ -82,3 +83,24 @@ def trace(logdir: str | Path = "torch_trace"):
     logdir = Path(logdir)
     logdir.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(logdir / "trace.json"))
+
+
+def device_time(prof) -> tuple[float, int]:
+    """The card's busy time in ms and its count of device events (kernels,
+    copies, fills) in a finished ``torch.profiler`` run, summed as the
+    profiler's own table sums them. A host op carries the time of the
+    kernels it launched too, and a ``record_function`` range (a profiler
+    step's among them) has a device-side span over its kernels: a sum over
+    every event counts those kernels two or three times."""
+    from torch.autograd import DeviceType
+
+    us, n = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU:
+            if not e.is_legacy:
+                continue
+        elif getattr(e, "is_user_annotation", False):
+            continue
+        us += getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+        n += e.count
+    return us / 1e3, n
