@@ -47,7 +47,7 @@ port's paths once each through their public entry points:
    K2 less than 5 % as often as K3 (a gradient call launches K3 alone; K2
    serves the value-only calls of the grid hop and the t_nd slice);
 7. the pulse path: the same observed session, the pulse-grid model loaded
-   and sampled by the same sampler at the same cut. K2p and K3p must have
+   and sampled by the same sampler, warmup SERVE_WARMUP and PULSE_DRAWS draws. K2p and K3p must have
    launched during this phase, K2p less than 5 % as often as K3p;
 8. the slice path: the same observed session and the flagship model
    sampled by the slice sampler (``MCMC_METHOD="slice"``, no extra moves,
@@ -67,10 +67,13 @@ port's paths once each through their public entry points:
    Then K2/K3 on the trained model
    against their plain version at 1,200 and 115,200 rows, held as in
    phase 3, and one more epoch under ``torch.profiler`` for the card's busy
-   share of an optimizer step;
+   share of an optimizer step. It trains with ``checkpoint_dir`` every
+   TRAIN_CHECKPOINT_EVERY epochs: the newest checkpoint must be the last
+   epoch's, and the same call again must run no epoch and return the saved
+   weights bit for bit;
 10. the SBC path: ``run_sbc`` on the flagship under ``CALIBRATED_CONFIG``
    with 8 datasets (one group of the fold: 9,600 rows a potential call),
-   warmup 30, 60 draws (15 a chain: the mixing gate is active), one
+   warmup SBC_WARMUP, 60 draws (15 a chain: the mixing gate is active), one
    remediation round of up to 8 datasets. K1 must have launched, K3 at
    9,600 rows on every call, K2 less than 5 % as often as K3; every
    artifact written (the plots where matplotlib imports), ranks in [0, 60].
@@ -79,7 +82,9 @@ port's paths once each through their public entry points:
    call's values and gradients against one single-session
    ``log_lik_and_grad`` call per dataset (equal bits expected; the ulps
    that differ are printed); a window of 300 potential calls of a shorter
-   ``run_sbc`` under ``torch.profiler`` gives the card's busy share of a call;
+   ``run_sbc`` under ``torch.profiler`` gives the card's busy share of a call.
+   The run's ``nuts_ckpt/run_id.txt`` and group 0's segment checkpoint,
+   finished, must be in its ``outdir``;
 11. the CLI's smoke path, ``pipeline._cli(["--smoke"])`` in this process
    (simulate -> train -> save -> MCMC -> SBC at ``SMOKE_CONFIG``), into a
    temporary ``OUTDIR`` and ``MODEL_DIR``: the posterior samples, the SBC
@@ -89,7 +94,20 @@ port's paths once each through their public entry points:
    the model ``--smoke`` trained (log rep, no censoring, no cond-affine
    head, 64 hidden, 4 transforms), held as in phase 3 on the rows of the
    path's first K3 call at each row count and at 1,200 rows of prior-draw
-   sessions.
+   sessions;
+12. the resume path (run after the slice path): the flagship sampler of
+   phase 6 (``run_inference_mcmc``, PT6 x 4 chains, 1,200 rows a K3 call)
+   at warmup RESUME_WARMUP / RESUME_DRAWS draws a chain in segments of
+   RESUME_SEGMENT transitions, trees capped at depth RESUME_TREE_DEPTH: a
+   reference run; the same run with
+   ``checkpoint_dir`` in a child process (``chip_smoke.py --resume-child
+   DIR``), killed with SIGKILL once its checkpoint reaches segment
+   RESUME_CUT_AT; then the same call here, which resumes from it with
+   ``device_retries=1`` and one ``torch.AcceleratorError`` raised by the
+   potential (not a real device loss) in the first segment it runs, which
+   it replays from the host mirror. Draws, accept probabilities, tree
+   sizes, divergences, step sizes and mass matrices must equal the
+   reference run's bit for bit; K2 and K3 must have launched.
 
 Each kernel's bound is the larger of its FP32 operations over 67 TFLOP/s
 and its bytes (inputs read once, outputs written once) over 3.35 TB/s, the
@@ -139,15 +157,25 @@ ROWS_FOLD = 9_600  # one launch of the SBC fold: 8 datasets (run_sbc's group_siz
 P_MIN = 1e-3  # K1 distribution tests
 TRAIN_EPOCHS = 10  # the training path's cut of TRAIN_MAX_EPOCHS (and of the patience)
 TRAIN_MIN_DROP = 0.5  # nats the last validation loss must lie below the first epoch's
+TRAIN_CHECKPOINT_EVERY = 5  # the training path's checkpoint interval, in epochs
 K4_SHAPE = (64, 256, 128)  # the roofline path's K4 input: 2,097,152 float32 elements
 SLICE_WARMUP, SLICE_DRAWS = 20, 240  # the slice path's cut (24 chains: 10 draws each)
 # The serving and training paths' cut: the whole script took 767.1 s on the H100 at warmup 50 / draws 100 on a
 # host at 3.6 ms a batched call, and 374.4 to 452.5 s at 30 / 60 on hosts at 2.2 to 2.7 ms. The SBC phase (121,844
 # calls) and the CLI's smoke path take about 480 s more at 2.4 to 3.2 ms: 780.3 s in all with both serving paths at
-# 20 / 40 and the training path's sampler at 20 / 20. Should a slow host push the whole past about 900 s, the pulse
-# path's draws are cut first. Draws are a multiple of the 4 chains (``_sample_posterior`` splits them back into chains).
+# 20 / 40 and the training path's sampler at 20 / 20. With the resume phase at warmup 10 / 20 draws a chain (150.0 s)
+# the whole took 990.7 s on a host at 3.260 ms an SBC call; with its draws and the pulse path's cut, 1105.4 s on a
+# host at 3.581. So the resume phase's trees are capped at depth 6 (it tests exactness, not mixing), the SBC phase's
+# warmup is 20 and the training path's sampler's 10. Draws are a multiple of the 4 chains (``_sample_posterior``
+# splits them back into chains).
 SERVE_WARMUP, SERVE_DRAWS = 20, 40
-TRAIN_SERVE_WARMUP, TRAIN_SERVE_DRAWS = 20, 20
+PULSE_DRAWS = 20  # the pulse path's draws (its warmup is SERVE_WARMUP)
+TRAIN_SERVE_WARMUP, TRAIN_SERVE_DRAWS = 10, 20
+SBC_WARMUP = 20
+RESUME_WARMUP, RESUME_DRAWS, RESUME_SEGMENT = 10, 20, 5  # 30 transitions, 6 segments; draws a chain
+RESUME_TREE_DEPTH = 6  # the resume phase's cap on NUTS tree depth (CALIBRATED_CONFIG's is 10)
+RESUME_CUT_AT = 3  # the cut child is killed once its checkpoint's next_segment reaches this
+RESUME_FAULT_CALL = 10  # the resumed run's potential call that raises the injected device error
 
 
 def _log(*args) -> None:
@@ -703,7 +731,7 @@ def phase_main(device, n_sim: int = N_SIM, warmup: int = SERVE_WARMUP, draws: in
     return {"walls": walls, "launches": launches, "proposal": proposal, "z": z, "x": x}
 
 
-def phase_pulse(device, warmup: int = SERVE_WARMUP, draws: int = SERVE_DRAWS) -> dict:
+def phase_pulse(device, warmup: int = SERVE_WARMUP, draws: int = PULSE_DRAWS) -> dict:
     """The pulse-grid serving path: the same observed session, the
     committed pulse-grid model loaded and sampled by the same sampler
     (K2p/K3p at every gradient)."""
@@ -764,6 +792,154 @@ def phase_slice(device, warmup: int = SLICE_WARMUP, draws: int = SLICE_DRAWS) ->
     return {"wall": wall, "launches": launches}
 
 
+@contextlib.contextmanager
+def _run_nuts_with(**options):
+    """Give every ``run_nuts`` call of ``MCMCPosterior.sample`` the segment
+    options ``options``; ``fault_call``, where given, makes that call's
+    closed-form potential raise one ``torch.AcceleratorError`` on its
+    ``fault_call``-th call. Yields the list of faults raised."""
+    import torch
+
+    from sbi_for_diffusion_models_tpu_torch.inference import mcmc
+
+    real, faults = mcmc.run_nuts, []
+    fault_call = options.pop("fault_call", None)
+
+    def patched(*args, **kwargs):
+        vg, calls = kwargs["value_and_grad_fn"], [0]
+
+        def faulty(u, beta, need_grad=True):
+            calls[0] += 1
+            if calls[0] == fault_call:
+                faults.append(calls[0])
+                raise torch.AcceleratorError("injected device error (chip_smoke resume phase)")
+            return vg(u, beta, need_grad)
+
+        if fault_call is not None:
+            kwargs["value_and_grad_fn"] = faulty
+        return real(*args, **kwargs, **options)
+
+    mcmc.run_nuts = patched
+    try:
+        yield faults
+    finally:
+        mcmc.run_nuts = real
+
+
+def _resume_run(device, **options) -> dict:
+    """The flagship serving path's sampler (``run_inference_mcmc`` under
+    ``CALIBRATED_CONFIG``: PT6 x 4 chains, grid hop, t_nd slice, 1,200 rows a
+    K3 call) on the observed session, cut to RESUME_WARMUP / RESUME_DRAWS in
+    segments of RESUME_SEGMENT transitions, trees capped at depth
+    RESUME_TREE_DEPTH, with the run_nuts ``options``.
+    Returns the draws, the sampler's info, the wall and what run_nuts
+    printed."""
+    import io
+
+    import torch
+
+    from sbi_for_diffusion_models_tpu_torch.mnle import load_model, run_inference_mcmc
+    from sbi_for_diffusion_models_tpu_torch.run_config import CALIBRATED_CONFIG
+
+    prior, x_o, pulses_o = _observed_session(device)
+    os.environ["MODEL_DIR"] = str(MODEL_DIR)
+    est = load_model(MODEL_FILE, device=device)
+    cfg = CALIBRATED_CONFIG.replace(WARMUP_STEPS=RESUME_WARMUP, MCMC_MAX_TREE_DEPTH=RESUME_TREE_DEPTH,
+                                    POSTERIOR_SAMPLES=RESUME_DRAWS * CALIBRATED_CONFIG.NUM_CHAINS)
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with _run_nuts_with(segment_length=RESUME_SEGMENT, **options) as faults, contextlib.redirect_stdout(printed):
+        samples, info = run_inference_mcmc(cfg, prior, est, x_o, pulses_o, device=device, seed=0, return_info=True,
+                                           verbose=False)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for line in printed.getvalue().splitlines():
+        _log(f"[resume]   {line}")
+    return {"samples": samples, "info": info, "wall": wall, "printed": printed.getvalue(), "faults": faults}
+
+
+def resume_child(ckpt_dir: str) -> int:
+    """The cut run, in a process of its own: the resume phase's run with
+    ``checkpoint_dir``; the parent kills it with SIGKILL partway."""
+    import torch
+
+    _resume_run(torch.device("cuda", 0), checkpoint_dir=ckpt_dir, mirror_every=1)
+    return 0
+
+
+def phase_resume(device) -> dict:
+    """The resume path, on the flagship serving path's sampler (K2 and K3):
+    (1) a reference run without a checkpoint; (2) the same run with
+    ``checkpoint_dir`` in a child process, killed with SIGKILL once its
+    checkpoint's ``next_segment`` reaches RESUME_CUT_AT; (3) the same call
+    here, which resumes from that checkpoint, with ``device_retries=1`` and
+    one ``torch.AcceleratorError`` injected into the first segment it runs
+    (not a real device loss: the potential raises it), which it replays from
+    the mirror. The resumed run's draws, accept probabilities, tree sizes,
+    divergences, step sizes and mass matrices must equal the reference run's
+    bit for bit."""
+    import numpy as np
+    import torch
+
+    n_segments = -(-(RESUME_WARMUP + RESUME_DRAWS) // RESUME_SEGMENT)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_dir = Path(tmp) / "nuts"
+        ckpt_file = ckpt_dir / "nuts_segments.npz"
+
+        def next_segment():
+            with np.load(ckpt_file) as blob:
+                return int(blob["next_segment"])
+
+        def run():
+            ref = _resume_run(device, mirror_every=1)
+            log_path = Path(tmp) / "child.log"
+            t0 = time.perf_counter()
+            with open(log_path, "w") as log:
+                child = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--resume-child", str(ckpt_dir)],
+                                         stdout=log, stderr=subprocess.STDOUT, cwd=ROOT)
+                try:
+                    while not (ckpt_file.exists() and next_segment() >= RESUME_CUT_AT):
+                        if child.poll() is not None or time.perf_counter() - t0 > 600:
+                            raise AssertionError(f"resume: the child ended (status {child.poll()}) or took over 600 s "
+                                                 f"before segment {RESUME_CUT_AT}:\n{log_path.read_text()[-4000:]}")
+                        time.sleep(0.05)
+                    child.kill()
+                finally:
+                    if child.poll() is None:
+                        child.kill()
+                    child.wait()
+            child_wall = time.perf_counter() - t0
+            cut = next_segment()
+            if not RESUME_CUT_AT <= cut < n_segments:
+                raise AssertionError(f"resume: the child was killed at next_segment {cut}, not inside the run")
+            res = _resume_run(device, checkpoint_dir=str(ckpt_dir), mirror_every=1, device_retries=1,
+                              fault_call=RESUME_FAULT_CALL)
+            return ref, res, cut, child_wall
+
+        (ref, res, cut, child_wall), launches = _launches_on("resume", ("mnle_logprob_fwd", "mnle_logprob_bwd"), run)
+        final = next_segment()
+    wanted = (f"[run_nuts] resumed at segment {cut}/{n_segments}",
+              f"[run_nuts] device lost near segment {cut} (AcceleratorError); waiting for recovery, then replaying "
+              f"from segment {cut} (attempt 1/1)")
+    missing = [w for w in wanted if w not in res["printed"]]
+    if missing or res["faults"] != [RESUME_FAULT_CALL] or final != n_segments:
+        raise AssertionError(f"resume: printed {res['printed']!r}, faults {res['faults']}, final checkpoint at "
+                             f"segment {final}/{n_segments}; missing {missing}")
+    differ = [k for k in ("accept_prob", "num_steps", "diverging", "step_size", "inv_mass")
+              if not torch.equal(ref["info"][k], res["info"][k])]
+    if not torch.equal(ref["samples"], res["samples"]) or differ:
+        raise AssertionError(f"resume: the resumed run differs from the reference run in "
+                             f"{(['samples'] if not torch.equal(ref['samples'], res['samples']) else []) + differ}")
+    calls = {"reference": ref["info"]["potential_calls"], "resumed": res["info"]["potential_calls"]}
+    walls = {"reference": ref["wall"], "child_until_killed": child_wall, "resumed": res["wall"]}
+    _log(f"[resume] segments={n_segments} x {RESUME_SEGMENT} transitions; child killed at next_segment={cut}; "
+         f"resumed at segment {cut}, 1 segment replayed after the injected error; "
+         f"walls_s={json.dumps({k: round(v, 3) for k, v in walls.items()})} potential_calls={json.dumps(calls)} "
+         f"ms_per_call(reference)={ref['wall'] * 1e3 / calls['reference']:.3f}; "
+         f"samples, accept_prob, num_steps, diverging, step_size, inv_mass bit-equal to the reference run")
+    return {"launches": launches, "walls": walls, "calls": calls, "cut": cut, "segments": n_segments}
+
+
 SBC_ARTIFACTS = ("sbc_thetas_true.npy", "sbc_ranks.npy", "sbc_samples.npy", "sbc_mixing_diagnostics.npz",
                  "sbc_ranks.partial.npy", "partial_summary.json")
 SBC_PLOTS = ("sbc_rank_histograms.png", "sbc_ecdf.png")
@@ -797,7 +973,7 @@ def _check_sbc_outputs(label, outdir: Path, out: dict, datasets: int, post: int)
         raise AssertionError(f"{label}: the written ranks or draws differ from the returned ones")
 
 
-def phase_sbc(device, datasets: int = 8, warmup: int = 30, post: int = 60) -> dict:
+def phase_sbc(device, datasets: int = 8, warmup: int = SBC_WARMUP, post: int = 60) -> dict:
     """The SBC path through ``run_sbc`` on the committed flagship under
     ``CALIBRATED_CONFIG``: ``datasets`` datasets, one group of the fold (8
     datasets x 4 chains x 6 replicas x 50 trials = 9,600 rows a potential
@@ -813,6 +989,7 @@ def phase_sbc(device, datasets: int = 8, warmup: int = 30, post: int = 60) -> di
     import numpy as np
     import torch
 
+    from sbi_for_diffusion_models_tpu_torch.inference.nuts import run_nuts
     from sbi_for_diffusion_models_tpu_torch.mnle import load_model, run_sbc
     from sbi_for_diffusion_models_tpu_torch.pipeline import build_prior_theta
     from sbi_for_diffusion_models_tpu_torch.potentials import ConditionedMNLELogLikelihood
@@ -851,6 +1028,16 @@ def phase_sbc(device, datasets: int = 8, warmup: int = 30, post: int = 60) -> di
         finally:
             ConditionedMNLELogLikelihood.log_lik_and_grad = lik_and_grad
         _check_sbc_outputs("sbc", Path(tmp), out, datasets, post)
+        # The sampler's segment checkpoints: the run id and group 0's finished checkpoint.
+        ckpt = Path(tmp) / "nuts_ckpt"
+        segments = -(-(warmup + -(-post // cfg.NUM_CHAINS)) // run_nuts.__kwdefaults__["segment_length"])
+        with np.load(ckpt / "group_0" / "nuts_segments.npz") as blob:
+            next_segment = int(blob["next_segment"])
+        if not (ckpt / "run_id.txt").is_file() or next_segment != segments:
+            raise AssertionError(f"sbc: nuts_ckpt/run_id.txt missing, or group 0's checkpoint at segment "
+                                 f"{next_segment}, not {segments}")
+        _log(f"[sbc] nuts_ckpt/run_id.txt={(ckpt / 'run_id.txt').read_text()}; group_0/nuts_segments.npz at "
+             f"segment {next_segment}/{segments}; checkpoints: {sorted(p.name for p in ckpt.iterdir())}")
     _forward_share("sbc", launches, "mnle_logprob_fwd", "mnle_logprob_bwd")
     if set(rows_seen) != {fold_rows} or len(rows_seen) != launches["mnle_logprob_bwd"]:
         raise AssertionError(f"sbc: K3 launched at {sorted(set(rows_seen))} rows ({len(rows_seen)} calls), "
@@ -1199,17 +1386,21 @@ def phase_train(device, proposal, z, x, warmup: int = TRAIN_SERVE_WARMUP, draws:
 
     import sbi_for_diffusion_models_tpu_torch as port
     from sbi_for_diffusion_models_tpu_torch.run_config import CALIBRATED_CONFIG
+    from sbi_for_diffusion_models_tpu_torch.utils.checkpoint import latest_step, restore_train_state
 
     cfg = CALIBRATED_CONFIG.replace(MNLE_COND_AFFINE=True, TRAIN_MAX_EPOCHS=TRAIN_EPOCHS,
                                     TRAIN_STOP_AFTER_EPOCHS=TRAIN_EPOCHS)
     model_file = "mnle_chip_smoke.npz"
 
     with tempfile.TemporaryDirectory() as model_dir:
+        ckpt_dir = Path(model_dir) / "train_ckpt"
+
         def run():
             walls = {}
             t_all = time.perf_counter()
             t0 = time.perf_counter()
-            est = port.train_mnle(cfg, proposal, z, x, seed=0)
+            est = port.train_mnle(cfg, proposal, z, x, seed=0, checkpoint_dir=str(ckpt_dir),
+                                  checkpoint_every=TRAIN_CHECKPOINT_EVERY)
             torch.cuda.synchronize()
             walls["train"] = time.perf_counter() - t0
             meta = est.train_meta
@@ -1229,6 +1420,23 @@ def phase_train(device, proposal, z, x, warmup: int = TRAIN_SERVE_WARMUP, draws:
             if not vl[-1] < vl[0] - TRAIN_MIN_DROP:
                 raise AssertionError(f"train: the validation loss went from {vl[0]:.4f} to {vl[-1]:.4f}, "
                                      f"less than the {TRAIN_MIN_DROP} it must fall")
+
+            # The checkpoints: the last epoch's is the newest, and the same call again resumes after it, runs
+            # no epoch and returns its weights.
+            t0 = time.perf_counter()
+            last = latest_step(ckpt_dir)
+            saved = restore_train_state(ckpt_dir)["params"]
+            again = port.train_mnle(cfg, proposal, z, x, seed=0, checkpoint_dir=str(ckpt_dir),
+                                    checkpoint_every=TRAIN_CHECKPOINT_EVERY, verbose=False)
+            walls["resume"] = time.perf_counter() - t0
+            state = again.net.state_dict()
+            if last != TRAIN_EPOCHS - 1 or again.train_meta["epochs_run"] != 0 or not all(
+                    torch.equal(v.to(device), state[k]) for k, v in saved.items()):
+                raise AssertionError(f"train: newest checkpoint at epoch {last}, the resumed call ran "
+                                     f"{again.train_meta['epochs_run']} epochs, or its weights are not the saved ones")
+            _log(f"[train] checkpoints at epochs {sorted(int(p.name) for p in ckpt_dir.iterdir() if p.name.isdigit())}"
+                 f"; the same call again resumed after epoch {last}, ran no epoch and returned the saved weights "
+                 f"bit for bit ({walls['resume']:.3f} s)")
 
             os.environ["MODEL_DIR"] = model_dir
             t0 = time.perf_counter()
@@ -1303,6 +1511,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--resume-child"]:
+        return resume_child(sys.argv[2])
     device = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -1321,6 +1531,7 @@ def main() -> int:
     main_path = phase_main(device)
     pulse_path = phase_pulse(device)
     slice_path = phase_slice(device)
+    resume = phase_resume(device)
     train_path = phase_train(device, main_path["proposal"], main_path["z"], main_path["x"])
     sbc = phase_sbc(device)
     pipe = phase_pipeline(device)
@@ -1399,7 +1610,7 @@ def main() -> int:
     for k in kernels:
         k["launches_by_path"] = {name: p["launches"][k["name"]] for name, p in (
             ("main", main_path), ("pulse", pulse_path), ("roofline", roof), ("slice", slice_path),
-            ("train", train_path), ("sbc", sbc), ("pipeline", pipe))}
+            ("resume", resume), ("train", train_path), ("sbc", sbc), ("pipeline", pipe))}
     measured_bounds(kernels, roof["report"])
     print(smi)
     print(json.dumps({"kernels": kernels}))

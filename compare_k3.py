@@ -36,10 +36,20 @@ at 1,200 rows (24 prior draws of theta against the 50 trials of
 the host's clock, the mean of REPS_CALL calls after 20 warm-up calls, and
 the two sides' (ll, grad) are compared.
 
+Sampler mode (``--call sampler`` on the flagship, ``--call sampler_pulse``
+on the pulse-grid model). Each checkout samples the posterior of
+``chip_smoke``'s observed session through its own ``run_inference_mcmc``
+under ``CALIBRATED_CONFIG`` (PT6 x 4 chains, grid hop, t_nd slice: 1,200
+rows a call), cut to SAMPLER_WARMUP / SAMPLER_DRAWS draws a chain, after a
+short untimed run that builds and loads its kernels, and gives the wall
+over its potential calls (ms per call, on the host's clock). The two
+sides' draws are not compared: checkouts whose sampler draws from other
+streams take other paths.
+
 The order is parent, this, this, parent, and each side's time is the mean
 of its two turns. Run from the root of a checkout, on a machine with one
 CUDA card and nvcc: ``python3 compare_k3.py --parent DIR [--kernel
-k1|k2|k2p|k3|k3p | --call grad|grad_pulse]``, where DIR holds a checkout of
+k1|k2|k2p|k3|k3p | --call grad|grad_pulse|sampler|sampler_pulse]``, where DIR holds a checkout of
 the earlier commit (``git archive <commit> | tar -x -C DIR``). The last line
 is one JSON object; the script exits with 2 without a card.
 """
@@ -65,7 +75,8 @@ KERNELS = {
     "k3": ("rows_logp_vjp", True, ("dt", "dctx"), False),
     "k3p": ("rows_logp_pulse_vjp", True, ("dphi", "dctx", "dkf"), True),
 }
-CALLS = {"grad": False, "grad_pulse": True}  # call -> the pulse model?
+CALLS = {"grad": False, "grad_pulse": True, "sampler": False, "sampler_pulse": True}  # call -> the pulse model?
+SAMPLER_WARMUP, SAMPLER_DRAWS = 10, 20
 K1_SIZES = (4_096, 131_072, 524_288)
 K1_REPS = {4_096: 20, 131_072: 10, 524_288: 5}
 K1_SIM_PAIRS = 131_072
@@ -116,6 +127,29 @@ for _ in range(data["reps"]):
     total += time.perf_counter() - t0
 torch.save({data["n"]: [ll.cpu(), g.cpu()]}, sys.argv[2])
 print(json.dumps({data["n"]: total * 1e3 / data["reps"]}))
+"""
+
+
+CHILD_SAMPLER = """
+import json, sys, time, torch
+from sbi_for_diffusion_models_tpu_torch.mnle import load_model, run_inference_mcmc
+from sbi_for_diffusion_models_tpu_torch.pipeline import build_prior_theta
+from sbi_for_diffusion_models_tpu_torch.run_config import CALIBRATED_CONFIG
+dev = torch.device("cuda", 0)
+data = torch.load(sys.argv[1])
+est = load_model(data["model"], device=dev)
+x, pulses = data["x"].to(dev), data["pulses"].to(dev)
+def run(warmup, draws):
+    cfg = CALIBRATED_CONFIG.replace(WARMUP_STEPS=warmup, POSTERIOR_SAMPLES=draws * CALIBRATED_CONFIG.NUM_CHAINS)
+    t0 = time.perf_counter()
+    _, info = run_inference_mcmc(cfg, build_prior_theta(), est, x, pulses, device=dev, seed=0, return_info=True,
+                                 verbose=False)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, info["potential_calls"]
+run(1, 2)
+wall, calls = run(data["warmup"], data["draws"])
+torch.save({data["n"]: []}, sys.argv[2])
+print(json.dumps({data["n"]: wall * 1e3 / calls, "calls": calls, "wall_s": wall}))
 """
 
 
@@ -230,7 +264,7 @@ def _session(path: Path, device, call: str) -> int:
     theta = prior.sample(make_generator(17, device), (24,))
     n = theta.shape[0] * x_o.shape[0]
     torch.save({"model": _model(CALLS[call]), "x": x_o.cpu(), "pulses": pulses_o.cpu(), "theta": theta.cpu(),
-                "reps": REPS_CALL, "n": n}, path)
+                "reps": REPS_CALL, "n": n, "warmup": SAMPLER_WARMUP, "draws": SAMPLER_DRAWS}, path)
     return n
 
 
@@ -263,7 +297,10 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     with tempfile.TemporaryDirectory() as tmp:
         data = Path(tmp) / "data.pt"
-        if args.call:
+        if args.call in ("sampler", "sampler_pulse"):
+            label, child, names = f"ms per potential call ({args.call})", CHILD_SAMPLER, ()
+            sizes = (_session(data, device, args.call),)
+        elif args.call:
             label, child, names = f"log_lik_and_grad ({args.call})", CHILD_CALL, ("ll", "grad")
             sizes = (_session(data, device, args.call),)
         elif args.kernel == "k1":
@@ -281,7 +318,9 @@ def main(argv=None) -> int:
             for n in timed:
                 ms[name][n].append(got[n])
             sim_launches[name] = got.get("simulate_k1_launches")
-            print(f"[time] turn {turn} {name}: " + ", ".join(f"n={n} {got[n]:.4f} ms" for n in timed), flush=True)
+            extra = {k: got[k] for k in ("calls", "wall_s") if k in got}
+            print(f"[time] turn {turn} {name}: " + ", ".join(f"n={n} {got[n]:.4f} ms" for n in timed)
+                  + (f" {json.dumps(extra)}" if extra else ""), flush=True)
         outs = {name: torch.load(Path(tmp) / f"{name}{turn}.pt") for turn, name in ((0, "parent"), (1, "this"))}
         if label == "K1":
             steps = {n: _executed_steps(data, n, outs["this"][n][0]) for n in sizes}

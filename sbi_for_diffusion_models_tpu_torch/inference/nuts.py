@@ -19,24 +19,30 @@ Python integers.
 
 ``logp_fn(u)`` (or ``logp_fn(u, data)`` with per-chain ``data``) maps
 positions (C, D) to log-densities (C,) and is differentiable in ``u``; the
-gradient comes from ``torch.autograd``. Random numbers come from one
-``torch.Generator`` on the chains' device, seeded from an integer seed.
+gradient comes from ``torch.autograd``. Random numbers come from
+``torch.Generator``s on the chains' device, seeded from an integer seed:
+one for the step-size search and one for each segment of ``run_nuts``.
 
-Not ported yet: the segment launches, host mirrors, checkpoint/resume and
-device-loss replay of the JAX ``run_nuts``. Their arguments raise if set to
-anything but their defaults.
+``run_nuts`` runs in segments, as the JAX one does, with a host mirror of
+the sampler state, checkpoint/resume on disk (``nuts_segments.npz``) and a
+replay from the mirror after a ``torch.AcceleratorError``.
 """
 
 from __future__ import annotations
 
+import hashlib
 import math
+import os
+import threading
+import time
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..utils.rng import child_seed, make_generator
+from ..utils.rng import as_seed, child_seed, make_generator
 
 __all__ = [
     "run_nuts",
@@ -47,7 +53,6 @@ __all__ = [
 ]
 
 _MAX_DELTA_ENERGY = 1000.0  # divergence threshold (Stan's default)
-_LATER = "is not ported to PyTorch yet (see ROADMAP.md, Queue 1)"
 
 
 def _const(v: float, like: torch.Tensor) -> torch.Tensor:
@@ -466,6 +471,105 @@ def _exchange_sweep(ex: ReplicaExchange, uniforms, sweep_idx: int, u, data):
 # ---------------------------------------------------------------------------
 # Full driver: warmup + sampling for the whole batch of chains
 # ---------------------------------------------------------------------------
+@dataclass
+class _ChainState:
+    """The sampler state carried across segments, for every chain: the
+    JAX package's ``_ChainState`` leaves (``_state_leaves`` gives their
+    order, which is the checkpoint's ``state_{i}``) and ``t``, the global
+    index of the next transition, which sets the DEO sweep's parity. ``t``
+    is not stored: a checkpoint's ``next_segment`` x L gives it."""
+
+    u: torch.Tensor
+    logp: torch.Tensor
+    g: torch.Tensor
+    da: _DAState
+    w: _Welford
+    inv_mass: torch.Tensor
+    eps_final: torch.Tensor
+    t: int = 0
+
+
+_N_STATE_LEAVES = 13  # u, logp, g, the 5 dual-averaging and 3 Welford fields, inv_mass, eps_final
+
+
+def _state_leaves(st: _ChainState) -> list:
+    """The state's tensors in the JAX ``_ChainState``'s leaf order."""
+    return [st.u, st.logp, st.g, *vars(st.da).values(), *vars(st.w).values(), st.inv_mass, st.eps_final]
+
+
+def _state_from_leaves(leaves, t: int, device) -> _ChainState:
+    x = [torch.from_numpy(np.array(a)).to(device) for a in leaves]  # copies: the mirror stays as it was
+    return _ChainState(u=x[0], logp=x[1], g=x[2], da=_DAState(*x[3:8]), w=_Welford(*x[8:11]), inv_mass=x[11],
+                       eps_final=x[12], t=t)
+
+
+def _to_host(tensors) -> list:
+    """The mirror's host copy: every tensor of ``tensors`` as a numpy array,
+    through ONE device-to-host copy of their bytes packed end to end (so one
+    synchronization, whatever the number of leaves), bit for bit."""
+    flat = [t.detach().contiguous().view(-1) for t in tensors]
+    packed = torch.cat([f.view(torch.uint8) for f in flat]).cpu().numpy()
+    out, pos = [], 0
+    for t, f in zip(tensors, flat):
+        n = f.numel() * f.element_size()
+        dtype = np.dtype(str(t.dtype).replace("torch.", ""))
+        out.append(packed[pos : pos + n].view(dtype).reshape(tuple(t.shape)).copy())
+        pos += n
+    return out
+
+
+# Device-loss probe: how long to wait for the card, how often to ask, and how
+# long one probe may hang before it counts as failed.
+_PROBE_MAX_WAIT_S = 600.0
+_PROBE_POLL_S = 30.0
+_PROBE_TIMEOUT_S = 60.0
+
+
+def _probe(device) -> bool:
+    """One health check of ``device``: a small reduction read back."""
+    return float(torch.ones(8, device=device).sum().item()) == 8.0
+
+
+def _wait_for_device(device) -> bool:
+    """Probe ``device`` until it answers or ``_PROBE_MAX_WAIT_S`` passes,
+    each probe in a daemon thread with a timeout: a call into a device that
+    is gone can hang rather than raise, and must not wedge the process."""
+
+    def run(result):
+        try:
+            result.append(_probe(device))
+        except Exception:
+            result.append(False)
+
+    t0 = time.monotonic()
+    while True:
+        result: list = []
+        th = threading.Thread(target=run, args=(result,), daemon=True)
+        th.start()
+        th.join(_PROBE_TIMEOUT_S)
+        if result and result[0]:
+            return True
+        if time.monotonic() - t0 >= _PROBE_MAX_WAIT_S:
+            return False
+        time.sleep(_PROBE_POLL_S)
+
+
+def _run_fingerprint(seed: int, L: int, W: int, S: int, thin: int, max_depth: int, mode_hop, exchange) -> str:
+    """The JAX ``run_nuts``'s run fingerprint, with the integer seed in place
+    of the key's data: a checkpoint whose (chains, D) match but whose seed,
+    segment length, warmup, draws, thinning, depth, extra move or ladder
+    differ is not spliced into this run."""
+    ex_tag = "none"
+    if exchange is not None:
+        betas = np.asarray(exchange.betas.detach().cpu().numpy(), np.float32)
+        ex_tag = (f"R={exchange.n_replicas}/every={exchange.swap_every}/"
+                  + hashlib.sha256(betas.tobytes()).hexdigest()[:8])
+    return hashlib.sha256(
+        np.asarray(seed, np.int64).tobytes()
+        + f"L={L}/W={W}/S={S}/thin={thin}/depth={max_depth}/hop={mode_hop is not None}/ex={ex_tag}".encode()
+    ).hexdigest()[:16]
+
+
 def run_nuts(
     seed: int,
     logp_fn: Callable[..., torch.Tensor],
@@ -499,23 +603,62 @@ def run_nuts(
     JAX package. ``value_and_grad_fn``: optional ``(u[, data], need_grad)
     -> (logp, grad or None)`` of the same density, used in place of
     autograd through ``logp_fn`` (a closed-form gradient).
+
+    Segments. The W + S transitions run in ``ceil((W + S) / L)`` segments of
+    ``L = segment_length``; segment s draws from its own generator,
+    ``child_seed(seed, 1000 + s)``, and its sweeps from ``child_seed(<the
+    exchange stream>, s)``, so any segment can be run again from the state
+    at its start and give the same draws. The warmup flags are per
+    transition, so a segment may hold warmup and sampling.
+
+    Host mirror. The sampler state (JAX's ``_ChainState``: u, logp, g, the
+    dual-averaging and Welford states, inv_mass, eps_final) and the
+    transitions' draws and statistics since the last mirror are copied to
+    host numpy in one device-to-host copy every ``mirror_every`` segments
+    (default 1 with ``checkpoint_dir``, else 8) and after the last one.
+
+    Checkpoint. With ``checkpoint_dir`` each mirror is also written,
+    atomically, to ``<checkpoint_dir>/nuts_segments.npz`` under the JAX
+    package's keys (``run_fingerprint``, ``next_segment``, ``samples`` and
+    the per-transition stats over every transition so far, warmup included,
+    and ``state_{i}``); the two packages' files do not resume each other's
+    runs, since their fingerprints hash a key and a seed. A later call with
+    the same arguments resumes at ``next_segment`` and gives the samples of
+    an uninterrupted run bit for bit; a finished checkpoint replays without
+    one potential call. A checkpoint from other arguments is ignored with a
+    printed line.
+
+    Device-loss replay. A ``torch.AcceleratorError`` (the CUDA error type)
+    raised in a segment or in the mirror's copy is retried up to
+    ``device_retries`` times on the same device: once a probe in a daemon
+    thread sees the device answer, the mirrored state is uploaded again and
+    the run replays from the mirror's segment. Any other error raises at
+    once, and so does this one after the retries or when the probe never
+    succeeds. A sticky CUDA error (an illegal address, a device-side assert)
+    leaves the process's context unusable: the probe fails until it gives up
+    and the error is raised; the recovery is then the disk checkpoint and a
+    new process. There is no fallback to the CPU.
+
+    ``info``: ``accept_prob``, ``num_steps``, ``diverging`` (C, num_samples);
+    ``step_size`` and ``inv_mass`` of the final (or resumed) state;
+    ``swap_accept``, the mean sweep acceptance over the whole run, with
+    ``exchange``; and ``potential_calls``, the batched potential calls this
+    process made (a resumed run counts only its own, and a replay of a
+    finished checkpoint 0).
     """
-    if segment_length != 50 or checkpoint_dir is not None or device_retries != 2 or mirror_every is not None:
-        raise NotImplementedError(
-            f"segment launches, host mirrors, checkpoint/resume and device-loss replay {_LATER}"
-        )
     num_chains, D = init_u.shape
     dev = init_u.device
+    seed = as_seed(seed)
+    L = max(int(segment_length), 1)
     if exchange is not None:
         if num_chains % int(exchange.n_replicas) != 0:
             raise ValueError(f"num_chains={num_chains} not divisible by n_replicas={exchange.n_replicas}")
         if tuple(exchange.betas.shape) != (num_chains,):
             raise ValueError(f"exchange.betas must be ({num_chains},), got {tuple(exchange.betas.shape)}")
-    gen = make_generator(child_seed(seed, 0), dev)
-    gen_ex = make_generator(child_seed(seed, 0x45584348), dev)  # exchange-sweep stream
+    seed_ex = child_seed(seed, 0x45584348)  # exchange-sweep stream
 
     # Per-step warmup flags from the Stan-style schedule.
-    W = int(num_warmup)
+    W, S = int(num_warmup), int(num_samples)
     collect_flags = np.zeros((max(W, 1),), np.bool_)
     update_flags = np.zeros((max(W, 1),), np.bool_)
     pos = 0
@@ -524,6 +667,8 @@ def run_nuts(
         pos += length
         if update_mass:
             update_flags[pos - 1] = True
+    total = W + S
+    n_segments = -(-total // L)
 
     if value_and_grad_fn is None:
         vg_once = value_and_grad(logp_fn, data)
@@ -537,26 +682,62 @@ def run_nuts(
         calls[0] += 1
         return vg_once(u, need_grad)
 
-    u = init_u.to(torch.float32)
-    inv_mass = torch.ones((num_chains, D), device=dev)
-    logp, g = vg_fn(u)
-    eps0 = find_reasonable_step_size(gen, vg_fn, u, inv_mass, logp=logp, g=g)
-    da = _da_init(eps0)
-    w = _welford_init((num_chains, D), dev)
-    eps_final = eps0
+    # Per-transition records, warmup included, on the device; the host holds
+    # those of the transitions up to the last mirror.
+    rec_spec = {"samples": ((D,), torch.float32), "accept_prob": ((), torch.float32),
+                "num_steps": ((), torch.int64), "diverging": ((), torch.bool), "depth": ((), torch.int64)}
+    if exchange is not None:
+        rec_spec["swap_accept"] = ((), torch.float32)  # -1 where no sweep ran
+    rec = {k: torch.zeros((num_chains, total, *shape), dtype=dt, device=dev) for k, (shape, dt) in rec_spec.items()}
+    host = {k: np.zeros(tuple(v.shape), str(v.dtype).replace("torch.", "")) for k, v in rec.items()}
 
-    samples = torch.empty((num_chains, num_samples, D), device=dev)
-    accept_prob = torch.empty((num_chains, num_samples), device=dev)
-    num_steps = torch.empty((num_chains, num_samples), dtype=torch.int64, device=dev)
-    diverging = torch.empty((num_chains, num_samples), dtype=torch.bool, device=dev)
-    swap_accept = []
-    for t in range(W + num_samples):
+    run_fingerprint = _run_fingerprint(seed, L, W, S, thin, max_depth, mode_hop, exchange)
+    ckpt_file = None
+    state = None
+    start_segment = 0
+    if checkpoint_dir is not None:
+        ckpt_dir = Path(checkpoint_dir)
+        ckpt_dir.mkdir(parents=True, exist_ok=True)
+        ckpt_file = ckpt_dir / "nuts_segments.npz"
+        if ckpt_file.exists():
+            with np.load(ckpt_file, allow_pickle=False) as blob:
+                stale_reason = None
+                c_, d_ = blob["samples"].shape[0], blob["samples"].shape[2]
+                if c_ != num_chains or d_ != D:
+                    stale_reason = f"chains/dim {c_}x{d_} != {num_chains}x{D}"
+                elif "run_fingerprint" not in blob or str(blob["run_fingerprint"]) != run_fingerprint:
+                    stale_reason = "run fingerprint mismatch (key/L/warmup/samples/thin)"
+                if stale_reason is not None:
+                    print(f"[run_nuts] ignoring stale checkpoint {ckpt_file} ({stale_reason})")
+                elif int(blob["next_segment"]) > 0:
+                    start_segment = int(blob["next_segment"])
+                    t_done = min(start_segment * L, total)
+                    for k in host:
+                        host[k][:, :t_done] = blob[k]
+                    state = _state_from_leaves([blob[f"state_{i}"] for i in range(_N_STATE_LEAVES)], t_done, dev)
+                    print(f"[run_nuts] resumed at segment {start_segment}/{n_segments}")
+
+    if state is None:
+        gen0 = make_generator(child_seed(seed, 0), dev)
+        u = init_u.to(torch.float32)
+        inv_mass = torch.ones((num_chains, D), device=dev)
+        logp, g = vg_fn(u)
+        eps0 = find_reasonable_step_size(gen0, vg_fn, u, inv_mass, logp=logp, g=g)
+        state = _ChainState(u=u, logp=logp, g=g, da=_da_init(eps0), w=_welford_init((num_chains, D), dev),
+                            inv_mass=inv_mass, eps_final=eps0)
+    state_host = _to_host(_state_leaves(state))
+
+    def transition(st: _ChainState, gen, gen_ex) -> _ChainState:
+        """Transition ``st.t`` (x thin), its move, adaptation and sweep;
+        writes the transition's record."""
+        t = st.t
         warm = t < W
+        u, logp, g = st.u, st.logp, st.g
+        da, w, inv_mass, eps_final = st.da, st.w, st.inv_mass, st.eps_final
         eps = torch.exp(da.log_eps) if warm else eps_final
         for _ in range(thin):
-            u, logp, g, info = nuts_step(
-                gen, u, logp, g, vg_fn=vg_fn, eps=eps, inv_mass=inv_mass, max_depth=max_depth
-            )
+            u, logp, g, info = nuts_step(gen, u, logp, g, vg_fn=vg_fn, eps=eps, inv_mass=inv_mass,
+                                         max_depth=max_depth)
         if mode_hop is not None:
             u, logp, g = mode_hop(gen, u, logp, g, vg_fn)
         if warm:
@@ -570,12 +751,9 @@ def run_nuts(
                 da = _da_init(torch.exp(da.log_eps_avg))
                 w = _welford_init((num_chains, D), dev)
             eps_final = torch.exp(da.log_eps_avg)
-        else:
-            s = t - W
-            samples[:, s] = u
-            accept_prob[:, s] = info["accept_prob"]
-            num_steps[:, s] = info["num_steps"]
-            diverging[:, s] = info["diverging"]
+        rec["samples"][:, t] = u
+        for k in ("accept_prob", "num_steps", "diverging", "depth"):
+            rec[k][:, t] = info[k]
         if exchange is not None:
             swap_every = max(int(exchange.swap_every), 1)
             if t % swap_every == 0:
@@ -584,17 +762,69 @@ def run_nuts(
                 perm, acc = _exchange_sweep(exchange, uni, t // swap_every, u, data)
                 u = u[perm]
                 logp, g = vg_fn(u)
-                swap_accept.append(acc)
+                rec["swap_accept"][:, t] = acc
+            else:
+                rec["swap_accept"][:, t] = -1.0
+        return _ChainState(u=u, logp=logp, g=g, da=da, w=w, inv_mass=inv_mass, eps_final=eps_final, t=t + 1)
+
+    def save_checkpoint(next_segment: int) -> None:
+        t_done = min(next_segment * L, total)
+        tmp = ckpt_file.with_name(ckpt_file.stem + ".tmp.npz")
+        with open(tmp, "wb") as f:  # a file object: np.savez adds no suffix
+            np.savez(f, run_fingerprint=np.asarray(run_fingerprint), next_segment=np.asarray(next_segment),
+                     **{k: v[:, :t_done] for k, v in host.items()},
+                     **{f"state_{i}": leaf for i, leaf in enumerate(state_host)})
+        os.replace(tmp, ckpt_file)
+
+    if mirror_every is None:
+        mirror_every = 1 if checkpoint_dir is not None else 8
+    mirror_every = max(int(mirror_every), 1)
+    mirror_seg = start_segment  # state_host is the state at this segment's start
+    attempts = 0
+    s = start_segment
+    while s < n_segments:
+        try:
+            gen = make_generator(child_seed(seed, 1000 + s), dev)
+            gen_ex = make_generator(child_seed(seed_ex, s), dev) if exchange is not None else None
+            for _ in range(s * L, min((s + 1) * L, total)):
+                state = transition(state, gen, gen_ex)
+            if (s + 1 - start_segment) % mirror_every == 0 or s == n_segments - 1:
+                t0, t1 = min(mirror_seg * L, total), state.t
+                copied = _to_host(_state_leaves(state) + [v[:, t0:t1] for v in rec.values()])
+                state_host = copied[:_N_STATE_LEAVES]
+                for k, v in zip(rec, copied[_N_STATE_LEAVES:]):
+                    host[k][:, t0:t1] = v
+                mirror_seg = s + 1
+                if ckpt_file is not None:
+                    save_checkpoint(mirror_seg)
+            attempts = 0
+            s += 1
+        except torch.AcceleratorError as e:
+            attempts += 1
+            if attempts > device_retries:
+                raise
+            print(f"[run_nuts] device lost near segment {s} ({type(e).__name__}); waiting for recovery, then "
+                  f"replaying from segment {mirror_seg} (attempt {attempts}/{device_retries})", flush=True)
+            if not _wait_for_device(dev):
+                raise
+            # Back to the mirror, on the same device; what ran past it is run again.
+            state = _state_from_leaves(state_host, min(mirror_seg * L, total), dev)
+            s = mirror_seg
+
+    def out(k):
+        return torch.from_numpy(np.ascontiguousarray(host[k][:, W:total])).to(dev)
 
     info = {
-        "accept_prob": accept_prob,
-        "num_steps": num_steps,
-        "diverging": diverging,
-        "step_size": eps_final,
-        "inv_mass": inv_mass,
+        "accept_prob": out("accept_prob"),
+        "num_steps": out("num_steps"),
+        "diverging": out("diverging"),
+        "step_size": state.eps_final,
+        "inv_mass": state.inv_mass,
         "potential_calls": calls[0],
     }
-    if swap_accept:
-        # Mean DEO sweep acceptance over the whole run (warmup included).
-        info["swap_accept"] = float(torch.stack(swap_accept).mean())
-    return samples, info
+    if exchange is not None:
+        # Mean DEO sweep acceptance over the whole run (warmup included; rows
+        # are the same for every chain, -1 marks transitions with no sweep).
+        sa = host["swap_accept"][0]
+        info["swap_accept"] = float(sa[sa >= 0].mean()) if (sa >= 0).any() else 0.0
+    return out("samples"), info

@@ -8,12 +8,12 @@ index-only validation split, early stopping on the validation loss),
 written and read with numpy alone, so a model saved by either package loads
 in the other), ``run_inference_mcmc`` and simulation-based calibration
 (``run_sbc``: datasets folded into the chain axis, the mixing gate and its
-escalating remediation, atomic partials), for the log, shifted-log and
-pulse-grid RT representations. Training differentiates the plain
-``MNLE.log_prob_fn`` with autograd: the fused kernels K2/K3 return input
-gradients only and serve inference. Training checkpoints, the sampler's
-segment checkpoints (so SBC's ``nuts_ckpt/``) and ensembles are not ported
-yet.
+escalating remediation, atomic partials, and the sampler's segment
+checkpoints under ``nuts_ckpt/``, from which a cut run resumes), for the
+log, shifted-log and pulse-grid RT representations. Training differentiates
+the plain ``MNLE.log_prob_fn`` with autograd: the fused kernels K2/K3 return
+input gradients only and serve inference; it checkpoints and resumes with
+``checkpoint_dir``. Ensembles are not ported yet.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import json
 import math
 import os
 import re
+import shutil
 import time
 import warnings
 from pathlib import Path
@@ -57,6 +58,7 @@ from .nets.mnle_net import (
 )
 from .potentials import ConditionedMNLELogLikelihood, ThetaOnlyPosteriorPotential, tempered_value_and_grad
 from .run_config import RunConfig
+from .utils.checkpoint import restore_train_state, save_train_state
 from .utils.device import resolve_device
 from .utils.rng import as_seed, child_seed, make_generator
 
@@ -222,7 +224,16 @@ def train_mnle(
     ``train_meta`` carries the JAX package's four entries and, beside them,
     the per-epoch ``train_losses`` and ``val_losses``, ``steps_per_epoch`` and
     ``step_ms`` (mean wall milliseconds per optimizer step, epoch by epoch
-    read-back included, validation excluded).
+    read-back included, validation excluded), each of the epochs this call
+    ran.
+
+    ``checkpoint_dir``: the weights, Adam's state and the optimizer step are
+    saved there every ``checkpoint_every`` epochs (``utils/checkpoint.py``),
+    and a call with the same config and directory resumes after the newest
+    checkpoint, as the JAX package does: at the learning rate and on the
+    batches an uninterrupted run has there, with the best weights and the
+    patience count starting afresh from the restored weights. A checkpoint
+    written under another config raises ``ValueError``.
     """
     if cfg.Z_SCORE_X not in (None, "none", "independent", "structured"):
         raise ValueError(
@@ -233,11 +244,6 @@ def train_mnle(
         raise ValueError(
             "LOG_RT_MANUALLY and SBI_LOG_TRANSFORM_X are mutually exclusive: "
             "both would log-transform the RT column twice."
-        )
-    if checkpoint_dir is not None:
-        raise NotImplementedError(
-            "train_mnle(checkpoint_dir=...) is not ported to PyTorch yet (it needs "
-            "utils/checkpoint.py; see ROADMAP.md, Queue 1)"
         )
     if device is None and isinstance(z_train, torch.Tensor):
         device = z_train.device
@@ -303,12 +309,21 @@ def train_mnle(
     state = TrainState(net.parameters(), cfg.TRAIN_LEARNING_RATE, n_batches * cfg.TRAIN_MAX_EPOCHS)
 
     train_t0 = time.time()
+    start_epoch = step = 0
+    if checkpoint_dir is not None:
+        restored = restore_train_state(checkpoint_dir, {"params": net.state_dict()}, cfg=cfg)
+        if restored is not None:
+            net.load_state_dict(restored["params"])
+            state.adam.load_state_dict(restored["opt_state"]["adam"])
+            step = int(restored["opt_state"]["step"])
+            start_epoch = int(restored["meta"]["step"]) + 1
+            if verbose:
+                print(f"[train_mnle] resumed from epoch {start_epoch - 1}")
     # PyTorch updates the weights in place, so the best ones are a copy.
     best_weights = copy.deepcopy(net.state_dict())
     best_val = np.inf
     epochs_since_best = 0
     epochs_run = 0
-    step = 0
     step_seconds = 0.0
     train_losses, val_losses = [], []
     # The JAX net's products run at full float32 precision; keep TF32 off
@@ -316,8 +331,8 @@ def train_mnle(
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        for epoch in range(cfg.TRAIN_MAX_EPOCHS):
-            epochs_run = epoch + 1
+        for epoch in range(start_epoch, cfg.TRAIN_MAX_EPOCHS):
+            epochs_run += 1
             t0 = time.perf_counter()
             order = torch.randperm(n_tr, generator=make_generator(child_seed(seed, 100 + epoch), device),
                                    device=device)
@@ -339,6 +354,9 @@ def train_mnle(
                 epochs_since_best += 1
             if verbose and epoch % 10 == 0:
                 print(f"[train_mnle] epoch {epoch}: train={tr_loss:.4f} val={vl:.4f}")
+            if checkpoint_dir is not None and (epoch + 1) % checkpoint_every == 0:
+                save_train_state(checkpoint_dir, epoch, net.state_dict(),
+                                 {"adam": state.adam.state_dict(), "step": step}, seed, cfg=cfg)
             if epochs_since_best >= cfg.TRAIN_STOP_AFTER_EPOCHS:
                 if verbose:
                     print(f"[train_mnle] converged at epoch {epoch} (best val {best_val:.4f})")
@@ -356,7 +374,7 @@ def train_mnle(
         "train_losses": train_losses,
         "val_losses": val_losses,
         "steps_per_epoch": int(n_batches),
-        "step_ms": step_seconds * 1e3 / step if step else None,
+        "step_ms": step_seconds * 1e3 / (epochs_run * n_batches) if epochs_run else None,
     }
     return estimator
 
@@ -617,14 +635,16 @@ def _fold_density(cfg: RunConfig, prior_theta: Distribution, bij, est: MNLE, x_g
 
 
 def _sbc_launch(cfg: RunConfig, prior_theta: Distribution, est: MNLE, x_g, s_g, seed_init: int, seed_run: int,
-                warmup: int, ladder, per_chain: int, mode_hop, tau_init: bool = False) -> tuple:
+                warmup: int, ladder, per_chain: int, mode_hop, tau_init: bool = False,
+                checkpoint_dir: Optional[str] = None) -> tuple:
     """One sampler launch over the Gl sessions (x_g, s_g) x C chains x R
     replicas, the rows dataset-major, then chain, then replica (cold rung
     first), the chains started from prior draws of ``seed_init`` (with
-    ``tau_init`` the t_nd column from ``_min_rt_tau_init``). Returns (cold
-    draws (Gl, C, per_chain, dim) as numpy, per-dataset cold divergence
-    counts or None, mean accept, total divergences or None, swap acceptance
-    or None, batched potential calls)."""
+    ``tau_init`` the t_nd column from ``_min_rt_tau_init``); NUTS keeps its
+    segment checkpoints in ``checkpoint_dir`` (the slice sampler has none).
+    Returns (cold draws (Gl, C, per_chain, dim) as numpy, per-dataset cold
+    divergence counts or None, mean accept, total divergences or None, swap
+    acceptance or None, batched potential calls)."""
     device = x_g.device
     C = cfg.NUM_CHAINS
     R = len(ladder)
@@ -649,7 +669,7 @@ def _sbc_launch(cfg: RunConfig, prior_theta: Distribution, est: MNLE, x_g, s_g, 
         samples_u, info = run_nuts(
             seed_run, logp, init_u, num_warmup=warmup, num_samples=per_chain,
             max_depth=cfg.MCMC_MAX_TREE_DEPTH, target_accept=cfg.MCMC_TARGET_ACCEPT, thin=cfg.MCMC_THIN,
-            data=data, mode_hop=mode_hop, exchange=exchange, value_and_grad_fn=vg,
+            data=data, mode_hop=mode_hop, exchange=exchange, value_and_grad_fn=vg, checkpoint_dir=checkpoint_dir,
         )
     theta_s = bij.forward(samples_u)  # (Gl*C*R, S, dim)
     # Keep only the cold (beta = 1) rung of each replica group.
@@ -692,6 +712,14 @@ def _run_sbc_batched(
     300 + g and 400 + g group g's starts and sampler, 7000 + 131 rnd + rg
     and 7100 + 131 rnd + rg remediation round rnd's group rg. The streams
     differ from JAX's, so results agree in distribution only.
+
+    Resume: each NUTS launch keeps its segment checkpoints in
+    ``outdir/nuts_ckpt/group_{g}`` (remediation: ``remed_{rnd}_{rg}``), under
+    ``nuts_ckpt/run_id.txt``, a hash of the seed and (D, C, WARMUP_STEPS,
+    draws a chain, T, R); a ``nuts_ckpt/`` of another run id is removed
+    first. So the same call again, in the same ``outdir``, replays the
+    finished groups from their checkpoints without a potential call and
+    resumes a cut group at its last segment, to the same ranks.
     """
     from .analysis import sbc_uniformity_stats
     from .inference.diagnostics import effective_sample_size, split_r_hat
@@ -731,6 +759,17 @@ def _run_sbc_batched(
     rhat_per_ds, ess_per_ds, div_per_ds = [], [], []
     calls = [0]
 
+    # Crash-resume guard: segment checkpoints are only valid for the same
+    # (seed, workload shape); clear any stale ones from a different run.
+    run_id = hashlib.sha256(
+        np.asarray(seed, np.int64).tobytes() + f"{D}/{C}/{cfg.WARMUP_STEPS}/{per_chain}/{T}/R={R}".encode()
+    ).hexdigest()[:16]
+    ckpt_root = outdir / "nuts_ckpt"
+    run_id_file = ckpt_root / "run_id.txt"
+    if ckpt_root.exists() and (not run_id_file.exists() or run_id_file.read_text() != run_id):
+        shutil.rmtree(ckpt_root)
+    ckpt_root.mkdir(parents=True, exist_ok=True)
+    run_id_file.write_text(run_id)
     # Stale partials from a previous run in the same outdir would read as a
     # snapshot of this run until the first group lands.
     for stale in ("sbc_ranks.partial.npy", "partial_summary.json"):
@@ -745,10 +784,11 @@ def _run_sbc_batched(
             return float(np.max(split_r_hat(cold_gi))), float(np.min(effective_sample_size(cold_gi)))
         return float("nan"), float("nan")
 
-    def _launch(idx, seed_init, seed_run, warmup, ladder_arr, tau_init=False):
+    def _launch(idx, seed_init, seed_run, warmup, ladder_arr, ckpt_name, tau_init=False):
         rows = torch.as_tensor(np.asarray(idx), device=device)
         *out, n_calls = _sbc_launch(cfg, prior_theta, est, x_d[rows], s_d[rows], seed_init, seed_run, warmup,
-                                    ladder_arr, per_chain, mode_hop, tau_init=tau_init)
+                                    ladder_arr, per_chain, mode_hop, tau_init=tau_init,
+                                    checkpoint_dir=str(ckpt_root / ckpt_name))
         calls[0] += n_calls
         return out
 
@@ -757,7 +797,7 @@ def _run_sbc_batched(
         lo = g * G
         idx = (np.arange(G) + lo) % D  # pad the final group by wrap-around
         cold_np, div_cold, acc, div_total, swap = _launch(
-            idx, child_seed(seed, 300 + g), child_seed(seed, 400 + g), cfg.WARMUP_STEPS, ladder)
+            idx, child_seed(seed, 300 + g), child_seed(seed, 400 + g), cfg.WARMUP_STEPS, ladder, f"group_{g}")
         pooled_groups.append(_pooled(cold_np, post_samples))
         # Per-dataset mixing diagnostics over the cold chains: pooled ranks
         # from unmixed chains bias every uniformity number.
@@ -845,7 +885,7 @@ def _run_sbc_batched(
                 cold_np, div_cold, acc, div_total, swap = _launch(
                     np.resize(sub, G),  # pad by wrap-around within sub
                     child_seed(seed, 7000 + 131 * rnd + rg), child_seed(seed, 7100 + 131 * rnd + rg),
-                    warm2, hot, tau_init=cfg.SBC_REMEDIATE_TAU_INIT,
+                    warm2, hot, f"remed_{rnd}_{rg}", tau_init=cfg.SBC_REMEDIATE_TAU_INIT,
                 )
                 for gi, ds in enumerate(sub.tolist()):
                     samples_np[ds] = _pooled(cold_np[gi], post_samples)

@@ -138,13 +138,6 @@ def test_nuts_step_and_step_size_search_shapes():
     assert torch.all(info["num_steps"] >= 1) and torch.all(info["depth"] <= 4)
 
 
-def test_unported_run_nuts_options_raise():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tn.run_nuts(0, _gauss_logp, torch.zeros(2, 2), num_warmup=1, num_samples=1, checkpoint_dir="ckpt")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tn.run_nuts(0, _gauss_logp, torch.zeros(2, 2), num_warmup=1, num_samples=1, segment_length=10)
-
-
 def test_dim_slice_preserves_the_conditional():
     """Repeated slice updates of coordinate 0 of a batch of chains sample its
     full conditional N(mean_0 + rho*(u_1 - mean_1), var_0|1)."""
@@ -309,8 +302,11 @@ def test_mcmc_posterior_prints_and_records_diagnostics_as_jax_does(method, verbo
         def potential_fn(self, theta):
             return _gauss_logp(theta)
 
+    # No NUTS -> slice fallback: its line prints whatever ``verbose`` says (as
+    # in JAX), and at 2 chains x 10 draws split R-hat passes its 1.5 limit on
+    # about one seed in ten.
     post = tm.MCMCPosterior(Pot(), Flat(), Bijector(Flat().supports()), method=method, num_chains=2,
-                            warmup_steps=10, max_tree_depth=3, verbose=verbose, device="cpu")
+                            warmup_steps=10, max_tree_depth=3, verbose=verbose, auto_fallback=False, device="cpu")
     s = post.sample((20,), seed=1)
     out = capsys.readouterr().out
     assert s.shape == (20, 2)

@@ -322,6 +322,75 @@ def test_run_sbc_with_a_mesh_is_not_ported(tiny_setup, tmp_path):
         tmnle.run_sbc(cfg, prior, est, outdir=tmp_path, seed=0, verbose=False, mesh=object())
 
 
+def test_run_id_guard_clears_another_runs_checkpoints_and_keeps_its_own(tiny_setup, tmp_path):
+    prior, est, cfg = tiny_setup
+    cfg = cfg.replace(SBC_NUM_DATASETS=1, SBC_POST_SAMPLES=10, WARMUP_STEPS=10)
+    stale = tmp_path / "nuts_ckpt" / "group_0"
+    stale.mkdir(parents=True)
+    (tmp_path / "nuts_ckpt" / "run_id.txt").write_text("another run")
+    (stale / "leftover").write_text("")
+    first = tmnle.run_sbc(cfg, prior, est, outdir=tmp_path, seed=0, verbose=False)
+    assert not (stale / "leftover").exists()
+    run_id = (tmp_path / "nuts_ckpt" / "run_id.txt").read_text()
+    ckpt = stale / "nuts_segments.npz"
+    with np.load(ckpt) as blob:
+        assert int(blob["next_segment"]) == 1  # 15 transitions: one segment of 50
+    written = ckpt.read_bytes()
+    # The same arguments: the checkpoint is kept and replayed, without a potential call.
+    again = tmnle.run_sbc(cfg, prior, est, outdir=tmp_path, seed=0, verbose=False)
+    assert (tmp_path / "nuts_ckpt" / "run_id.txt").read_text() == run_id and ckpt.read_bytes() == written
+    assert again["potential_calls"] == 0 and first["potential_calls"] > 0
+    np.testing.assert_array_equal(again["ranks"], first["ranks"])
+    # Another seed is another run: its guard clears the directory.
+    tmnle.run_sbc(cfg, prior, est, outdir=tmp_path, seed=1, verbose=False)
+    assert (tmp_path / "nuts_ckpt" / "run_id.txt").read_text() != run_id
+
+
+class _Cut(Exception):
+    """Stands for the process being killed."""
+
+
+def test_a_cut_run_sbc_resumes_to_the_uninterrupted_ranks(tiny_setup, tmp_path, monkeypatch, capsys):
+    """Two groups of one dataset, each sampler run in segments of 10
+    transitions (35 in all); the run is cut inside the second group and run
+    again in the same ``outdir``: the first group replays from its finished
+    checkpoint, the second resumes at its last segment, and the ranks and
+    draws are the uninterrupted run's."""
+    prior, est, cfg = tiny_setup
+    real, cut_after = tmnle.run_nuts, [None]
+
+    def short_segments(*a, **kw):
+        kw["segment_length"] = 10
+        if cut_after[0] is not None and kw["checkpoint_dir"].endswith("group_1"):
+            vg, n = kw["value_and_grad_fn"], [0]
+
+            def vg_cut(u, data, need_grad=True):
+                n[0] += 1
+                if n[0] > cut_after[0]:
+                    raise _Cut
+                return vg(u, data, need_grad)
+
+            kw["value_and_grad_fn"] = vg_cut
+        return real(*a, **kw)
+
+    monkeypatch.setattr(tmnle, "run_nuts", short_segments)
+    full = tmnle.run_sbc(cfg, prior, est, outdir=tmp_path / "full", seed=3, verbose=False, group_size=1)
+    cut_after[0] = full["potential_calls"] // 4  # about half of the second group's calls
+    with pytest.raises(_Cut):
+        tmnle.run_sbc(cfg, prior, est, outdir=tmp_path / "cut", seed=3, verbose=False, group_size=1)
+    with np.load(tmp_path / "cut" / "nuts_ckpt" / "group_1" / "nuts_segments.npz") as blob:
+        done = int(blob["next_segment"])
+    assert 0 < done < 4
+    cut_after[0] = None
+    capsys.readouterr()
+    resumed = tmnle.run_sbc(cfg, prior, est, outdir=tmp_path / "cut", seed=3, verbose=False, group_size=1)
+    out = capsys.readouterr().out
+    assert "[run_nuts] resumed at segment 4/4" in out and f"[run_nuts] resumed at segment {done}/4" in out
+    np.testing.assert_array_equal(resumed["ranks"], full["ranks"])
+    np.testing.assert_array_equal(np.stack(resumed["all_samples"]), np.stack(full["all_samples"]))
+    assert 0 < resumed["potential_calls"] < full["potential_calls"] // 2
+
+
 def test_torch_run_sbc_batched_with_pulse_rep(tmp_path):
     """SBC with the pulse-grid RT representation: the potential, the
     sampler's closed-form gradients through the phase features, and the

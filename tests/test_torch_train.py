@@ -417,7 +417,6 @@ FLAG_ERRORS = {
                           "MNLE_COND_AFFINE has no effect"),
     "log_dims_outside": (dict(MNLE_LOG_THETA_DIMS=(1, 99)), {}, ValueError, "outside the condition block"),
     "uncensored_shifted_log": (dict(MNLE_RT_REP="shifted_log"), {}, ValueError, "requires censor_rt=True"),
-    "checkpoint_dir": ({}, dict(checkpoint_dir="ckpt"), NotImplementedError, "not ported"),
     "tail_sharp": (dict(MNLE_TAIL_SHARP_K=2.0), {}, NotImplementedError, "not ported"),
     "pulse_embedding": (dict(MNLE_EMBED_DIM=8), {}, NotImplementedError, "not ported"),
 }
