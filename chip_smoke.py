@@ -73,10 +73,10 @@ port's paths once each through their public entry points:
    weights bit for bit;
 10. the SBC path: ``run_sbc`` on the flagship under ``CALIBRATED_CONFIG``
    with 8 datasets (one group of the fold: 9,600 rows a potential call),
-   warmup SBC_WARMUP, 60 draws (15 a chain: the mixing gate is active), one
+   warmup SBC_WARMUP, SBC_DRAWS draws (10 a chain: the mixing gate is active), one
    remediation round of up to 8 datasets. K1 must have launched, K3 at
    9,600 rows on every call, K2 less than 5 % as often as K3; every
-   artifact written (the plots where matplotlib imports), ranks in [0, 60].
+   artifact written (the plots where matplotlib imports), ranks in [0, SBC_DRAWS].
    Then K2/K3 on the rows of the fold's first gradient call against their
    plain version and float64 (as in phase 3, and timed there), and that
    call's values and gradients against one single-session
@@ -107,7 +107,36 @@ port's paths once each through their public entry points:
    potential (not a real device loss) in the first segment it runs, which
    it replays from the host mirror. Draws, accept probabilities, tree
    sizes, divergences, step sizes and mass matrices must equal the
-   reference run's bit for bit; K2 and K3 must have launched.
+   reference run's bit for bit; K2 and K3 must have launched;
+13. the tail-sharp path (after the CLI path): the committed
+   ``mnle_10m_shifted_logt_sharp.npz`` (shifted-log RT, k = 1.5) samples the
+   observed session under ``CALIBRATED_CONFIG`` at warmup NEW_WARMUP /
+   NEW_DRAWS draws a chain, trees capped at NEW_TREE_DEPTH (K2 and K3
+   launched; at this depth the value-only calls of the grid hop and the
+   t_nd slice are a large share of the calls, as on the resume path); then K2/K3 on its rows at 1,200 and 9,600
+   against float64 (as in phase 3), one closed-form ``log_lik_and_grad``
+   against autograd of ``log_lik_fn``, ``sample`` (SAMPLE_CARD draws on the
+   card against SAMPLE_CPU of the plain path on the CPU at the same 64
+   conditions: chi-square on the choices, two-sample KS on the RTs, p >=
+   P_MIN) and ``tail_sharp_inverse``'s round trip on the card's draws;
+14. the ensemble path: ``load_ensemble`` of ENSEMBLE_FILES (three committed
+   full-width models of one config) samples the observed session at the same
+   cut; every potential call launches one kernel per member (K3 three times
+   a gradient call, K2 three times a value-only call, counted against the
+   calls); then the mixture's rows at 1,200 against the float64
+   log-mean-exp of the members' float64 rows, the closed-form gradient
+   against autograd, and ``sample`` against the CPU's plain path;
+15. the embedding path: ``train_mnle`` under ``CALIBRATED_CONFIG`` with
+   MNLE_EMBED_DIM = EMBED_DIM in "append" mode (context width 123) for
+   EMBED_EPOCHS epochs on the pairs of phase 6, ``save_model`` /
+   ``load_model`` bit for bit, the observed session sampled at the same cut,
+   and one value-only call of a "replace"-mode network (context width 43)
+   built by ``train_mnle`` from the same proposal; then K2/K3 at width 123
+   against float64 at 1,200 and 9,600 rows, the replace-mode call against
+   the plain path, and the closed-form gradient against autograd. The
+   flagship and pulse-grid paths (phases 6 and 7) also hold their models'
+   ``sample`` against the CPU's plain path (the pulse model: the slot head
+   and the circular splines' inverse).
 
 Each kernel's bound is the larger of its FP32 operations over 67 TFLOP/s
 and its bytes (inputs read once, outputs written once) over 3.35 TB/s, the
@@ -120,8 +149,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py`` (one CUDA card,
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels with
 their launches, errors, times and bounds at both sizes (K4: both chain
 lengths), K1 also with its launch shape, the four fused kernels' with their
-tile height, K2's and K3's also at the SBC fold's 9,600 rows (``fold``) and
-on the CLI path's model (``pipeline``),
+tile height, K2's and K3's also at the SBC fold's 9,600 rows (``fold``), on
+the CLI path's model (``pipeline``), on the tail-sharp model (``sharp``) and
+on the embedded model at context width 123 (``embed``),
 each kernel's launches on every path (``launches_by_path``), and each with
 ptxas's registers, stack and spills (K1: of each of its six instances); a
 spill fails the run. Any failed check
@@ -133,6 +163,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -166,16 +197,29 @@ SLICE_WARMUP, SLICE_DRAWS = 20, 240  # the slice path's cut (24 chains: 10 draws
 # 20 / 40 and the training path's sampler at 20 / 20. With the resume phase at warmup 10 / 20 draws a chain (150.0 s)
 # the whole took 990.7 s on a host at 3.260 ms an SBC call; with its draws and the pulse path's cut, 1105.4 s on a
 # host at 3.581. So the resume phase's trees are capped at depth 6 (it tests exactness, not mixing), the SBC phase's
-# warmup is 20 and the training path's sampler's 10. Draws are a multiple of the 4 chains (``_sample_posterior``
-# splits them back into chains).
-SERVE_WARMUP, SERVE_DRAWS = 20, 40
+# warmup is 20 and the training path's sampler's 10: 635.6 s (PR 10). With the sharp, ensemble and embedding paths
+# the whole took 1164.1 s on a host at 5.362 ms an SBC call (SBC 488.3 s, flagship 108.5 s, pulse 93.5 s; PR 11), so
+# the new paths' draws went to 10 a chain, then the SBC phase to warmup 10 / 40 draws (10 a chain: the mixing gate
+# stays active) and the two serving paths' warmup to 10: about 840 s predicted on that host. Draws are a multiple of
+# the 4 chains (``_sample_posterior`` splits them back into chains).
+SERVE_WARMUP, SERVE_DRAWS = 10, 40
 PULSE_DRAWS = 20  # the pulse path's draws (its warmup is SERVE_WARMUP)
 TRAIN_SERVE_WARMUP, TRAIN_SERVE_DRAWS = 10, 20
-SBC_WARMUP = 20
+SBC_WARMUP, SBC_DRAWS = 10, 40
 RESUME_WARMUP, RESUME_DRAWS, RESUME_SEGMENT = 10, 20, 5  # 30 transitions, 6 segments; draws a chain
 RESUME_TREE_DEPTH = 6  # the resume phase's cap on NUTS tree depth (CALIBRATED_CONFIG's is 10)
 RESUME_CUT_AT = 3  # the cut child is killed once its checkpoint's next_segment reaches this
 RESUME_FAULT_CALL = 10  # the resumed run's potential call that raises the injected device error
+SHARP_MODEL_FILE = "mnle_10m_shifted_logt_sharp.npz"  # the committed tail-sharp model (k = 1.5)
+ENSEMBLE_FILES = ("mnle_10m.npz", "mnle_calibration.npz", "mnle_large_budget.npz")  # three models of one config
+EMBED_DIM, EMBED_EPOCHS = 32, 2  # the embedding path's MNLE_EMBED_DIM ("append": context 85 + 32 + 6 = 123) and epochs
+# The sharp, ensemble and embedding paths' sampler: the resume phase's cut (warmup 10, 20 draws a chain, trees capped
+# at depth 6), 5.554 s for 2,644 calls on the flagship (PR 10). Predicted before their first run: sharp 15-25 s,
+# ensemble 20-35 s (three K3 launches and three sets of outer terms a call), embed 15-25 s (56 training steps at
+# about 40 ms and the sampler); under 90 s in all. Past 850 s for the whole script, their draws go to 10 first (PR 11,
+# above): 10 draws a chain.
+NEW_WARMUP, NEW_DRAWS, NEW_TREE_DEPTH = 10, 10, 6
+SAMPLE_CARD, SAMPLE_CPU = 131_072, 8_192  # ``sample`` draws on the card and on the CPU's plain path, at 64 conditions
 
 
 def _log(*args) -> None:
@@ -413,30 +457,43 @@ def phase_k1(device, n: int, seed: int = 7) -> dict:
             "launch_shape": shapes}
 
 
-def session_rows(est, prior, device, n_sessions: int, seed: int = 11):
-    """Standardized rows as the posterior potential builds them: per session
+def _session_pairs(prior, device, n_sessions: int, seed: int = 11) -> list:
+    """Per session, the (x, condition) rows the posterior potential builds:
     a prior draw theta_true, its simulated 50-trial session, and 24 thetas
-    (theta_true and 23 prior draws) against every trial. Returns the
-    kernels' row inputs: (t, onehot, ctx), or for the pulse rep (phi,
-    onehot, ctx, kf, kv)."""
+    (theta_true and 23 prior draws) against every trial: (1,200, 2) and
+    (1,200, 85)."""
     import torch
 
     from sbi_for_diffusion_models_tpu_torch.data_simulator import simulate_observed_session
     from sbi_for_diffusion_models_tpu_torch.utils.rng import child_seed, make_generator
 
-    parts = []
+    out = []
     for i in range(n_sessions):
         gen = make_generator(child_seed(seed, i), device)
         theta = prior.sample(gen, (24,))
         x, s = simulate_observed_session(theta[0], 50, seed=child_seed(seed, 1000 + i), device=device)
         cond = torch.cat([theta[:, None, :].expand(24, 50, 5), s[None].expand(24, 50, s.shape[1])], -1)
-        xr, cr = x[None].expand(24, 50, 2).reshape(-1, 2), cond.reshape(-1, cond.shape[-1])
+        out.append((x[None].expand(24, 50, 2).reshape(-1, 2), cond.reshape(-1, cond.shape[-1])))
+    return out
+
+
+def session_rows(est, prior, device, n_sessions: int, seed: int = 11):
+    """Standardized rows as the posterior potential builds them: per session
+    a prior draw theta_true, its simulated 50-trial session, and 24 thetas
+    (theta_true and 23 prior draws) against every trial. Returns the
+    kernels' row inputs: (t, onehot, ctx), or for the pulse rep (phi,
+    onehot, ctx, kf, kv); ctx is the context the heads read (with the pulse
+    embedding, ``make_context``'s)."""
+    import torch
+
+    parts = []
+    for xr, cr in _session_pairs(prior, device, n_sessions, seed):
         if est.cfg.rt_rep == "pulse":
             phi, oh, c, kf, kv, _, _ = est.standardize_pulse(xr, cr)
-            parts.append((phi, oh, c, kf, kv))
+            parts.append((phi, oh, est.net.make_context(c, cr), kf, kv))
         else:
             t, oh, c, _, _, _ = est.standardize(xr, cr)
-            parts.append((t, oh, c))
+            parts.append((t, oh, est.net.make_context(c, cr)))
     return tuple(torch.cat(col).contiguous() for col in zip(*parts))
 
 
@@ -571,10 +628,11 @@ def phase_k2pk3p(device, sizes=(ROWS_MAIN, ROWS_SBC)) -> dict:
 
 
 def _sample_posterior(label, device, model_file, prior, x_o, pulses_o, warmup: int, draws: int,
-                      model_dir=MODEL_DIR) -> dict:
-    """Load ``model_dir/model_file`` and sample the posterior of the session
-    (x_o, pulses_o) with the calibrated sampler (warmup and draws cut),
-    through the public entry points; checks the draws and prints the
+                      model_dir=MODEL_DIR, est=None, max_depth=None) -> dict:
+    """Load ``model_dir/model_file`` (or take the estimator ``est``) and
+    sample the posterior of the session (x_o, pulses_o) with the calibrated
+    sampler (warmup and draws cut, trees capped at ``max_depth`` where
+    given), through the public entry points; checks the draws and prints the
     sampler's numbers."""
     import torch
 
@@ -584,11 +642,14 @@ def _sample_posterior(label, device, model_file, prior, x_o, pulses_o, warmup: i
 
     walls = {}
     t0 = time.perf_counter()
-    os.environ["MODEL_DIR"] = str(model_dir)
-    est = load_model(model_file, device=device)
+    if est is None:
+        os.environ["MODEL_DIR"] = str(model_dir)
+        est = load_model(model_file, device=device)
     walls["load"] = time.perf_counter() - t0
 
     cfg = CALIBRATED_CONFIG.replace(WARMUP_STEPS=warmup, POSTERIOR_SAMPLES=draws)
+    if max_depth is not None:
+        cfg = cfg.replace(MCMC_MAX_TREE_DEPTH=max_depth)
     t0 = time.perf_counter()
     samples, info = run_inference_mcmc(cfg, prior, est, x_o, pulses_o, device=device, seed=0, return_info=True)
     torch.cuda.synchronize()
@@ -692,13 +753,15 @@ def phase_main(device, n_sim: int = N_SIM, warmup: int = SERVE_WARMUP, draws: in
     """The flagship serving path through its public entry points: simulate
     a training set and the observed session (K1), load the flagship model
     and sample its posterior (K2/K3 at every gradient). The simulated pairs
-    are returned for the training path."""
+    are returned for the training path. After the counts are read, the
+    flagship's ``sample`` against the CPU's plain path (``hold_sample``)."""
     import torch
 
     from sbi_for_diffusion_models_tpu_torch.data_simulator import (
         simulate_training_set_with_conditions,
         summarize_trials,
     )
+    from sbi_for_diffusion_models_tpu_torch.mnle import load_model
     from sbi_for_diffusion_models_tpu_torch.models.rt_choice_model import (
         n_pulses_max_from_schedule,
         pulse_schedule,
@@ -728,13 +791,17 @@ def phase_main(device, n_sim: int = N_SIM, warmup: int = SERVE_WARMUP, draws: in
     (walls, proposal, z, x), launches = _launches_on(
         "main", ("ddm_rt_choice", "mnle_logprob_fwd", "mnle_logprob_bwd"), run)
     _forward_share("main", launches, "mnle_logprob_fwd", "mnle_logprob_bwd")
-    return {"walls": walls, "launches": launches, "proposal": proposal, "z": z, "x": x}
+    os.environ["MODEL_DIR"] = str(MODEL_DIR)
+    sample = hold_sample("main", load_model(MODEL_FILE, device=device), load_model(MODEL_FILE, device="cpu"), device)
+    return {"walls": walls, "launches": launches, "proposal": proposal, "z": z, "x": x, "sample_p": sample["p"]}
 
 
 def phase_pulse(device, warmup: int = SERVE_WARMUP, draws: int = PULSE_DRAWS) -> dict:
     """The pulse-grid serving path: the same observed session, the
     committed pulse-grid model loaded and sampled by the same sampler
-    (K2p/K3p at every gradient)."""
+    (K2p/K3p at every gradient); then, after the counts are read, its
+    ``sample`` against the CPU's plain path (``hold_sample``)."""
+    from sbi_for_diffusion_models_tpu_torch.mnle import load_model
 
     def run():
         t_all = time.perf_counter()
@@ -746,7 +813,11 @@ def phase_pulse(device, warmup: int = SERVE_WARMUP, draws: int = PULSE_DRAWS) ->
 
     walls, launches = _launches_on("pulse", ("mnle_pulse_fwd", "mnle_pulse_bwd"), run)
     _forward_share("pulse", launches, "mnle_pulse_fwd", "mnle_pulse_bwd")
-    return {"walls": walls, "launches": launches}
+    # The slot head's draw and the circular splines' inverse.
+    os.environ["MODEL_DIR"] = str(MODEL_DIR)
+    sample = hold_sample("pulse", load_model(PULSE_MODEL_FILE, device=device),
+                         load_model(PULSE_MODEL_FILE, device="cpu"), device)
+    return {"walls": walls, "launches": launches, "sample_p": sample["p"]}
 
 
 def phase_slice(device, warmup: int = SLICE_WARMUP, draws: int = SLICE_DRAWS) -> dict:
@@ -973,12 +1044,12 @@ def _check_sbc_outputs(label, outdir: Path, out: dict, datasets: int, post: int)
         raise AssertionError(f"{label}: the written ranks or draws differ from the returned ones")
 
 
-def phase_sbc(device, datasets: int = 8, warmup: int = SBC_WARMUP, post: int = 60) -> dict:
+def phase_sbc(device, datasets: int = 8, warmup: int = SBC_WARMUP, post: int = SBC_DRAWS) -> dict:
     """The SBC path through ``run_sbc`` on the committed flagship under
     ``CALIBRATED_CONFIG``: ``datasets`` datasets, one group of the fold (8
     datasets x 4 chains x 6 replicas x 50 trials = 9,600 rows a potential
-    call), warmup and draws cut (60 draws: 15 a chain, so the mixing gate is
-    active), one remediation round of up to 8 datasets. K1 must have
+    call), warmup and draws cut (SBC_DRAWS draws: 10 a chain, so the mixing
+    gate is active), one remediation round of up to 8 datasets. K1 must have
     launched (the datasets' sessions), K3 at the fold's 9,600 rows and no
     other count, K2 less than 5 % as often as K3. Then, after the counts are
     read: K2/K3 against their plain version and float64 on the fold's rows
@@ -1470,6 +1541,348 @@ def phase_train(device, proposal, z, x, warmup: int = TRAIN_SERVE_WARMUP, draws:
     _train_epoch_device_time(cfg, proposal, z, x, meta["step_ms"])
     return {"walls": walls, "launches": launches, "train_meta": meta, "check": check}
 
+def _sample_conditions(device, n_cond: int = 64, seed: int = 17):
+    """``n_cond`` conditions (a prior draw of theta and a +-1 stimulus each)
+    on the card, for the sampling checks."""
+    import torch
+
+    from sbi_for_diffusion_models_tpu_torch.models.rt_choice_model import generate_pulse_matrix
+    from sbi_for_diffusion_models_tpu_torch.pipeline import build_prior_theta
+    from sbi_for_diffusion_models_tpu_torch.utils.rng import make_generator
+
+    gen = make_generator(seed, device)
+    return torch.cat([build_prior_theta().sample(gen, (n_cond,)), generate_pulse_matrix(gen, n_cond, 80)], -1)
+
+
+def draws_p_values(a, b, censored) -> dict:
+    """Two samples of (rt, choice) draws: the chi-square test's p on the
+    choice counts, and a two-sample KS test's on the RTs of each choice
+    (not the censored one, a constant) that both have over 20 draws of."""
+    import numpy as np
+    from scipy import stats
+
+    counts = np.array([[np.sum(d[:, 1] == c) for c in range(3)] for d in (a, b)])
+    seen = counts.sum(0) > 0
+    p = {"choice": float(stats.chi2_contingency(counts[:, seen])[1]) if seen.sum() > 1 else 1.0}
+    for c in range(3):
+        if c != censored and counts[:, c].min() > 20:
+            p[f"rt|{c}"] = float(stats.ks_2samp(a[a[:, 1] == c, 0], b[b[:, 1] == c, 0]).pvalue)
+    return p
+
+
+def hold_sample(label, est, est_cpu, device) -> dict:
+    """``sample`` on the card (SAMPLE_CARD draws) against the port's plain
+    path on the CPU (SAMPLE_CPU draws of ``est_cpu``, the same model loaded
+    there) at the same 64 conditions, by ``draws_p_values`` (each p >=
+    P_MIN); every draw finite, censored draws at T_MAX, and the card's
+    draws' log-probs finite. Returns the card's draws, their conditions, the
+    p-values and the card's ms for the draw."""
+    import torch
+
+    from sbi_for_diffusion_models_tpu_torch.constants import T_MAX
+
+    cond = _sample_conditions(device)
+    card_cond = cond.repeat(SAMPLE_CARD // cond.shape[0], 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    draws = est.sample(5, card_cond)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    cpu = est_cpu.sample(6, cond.cpu().repeat(SAMPLE_CPU // cond.shape[0], 1))
+    cfg = est.cfg
+    censored = cfg.censored_category if cfg.censor_rt else None
+    p = draws_p_values(draws.cpu().numpy(), cpu.numpy(), censored)
+    finite = bool(torch.isfinite(draws).all()) and bool(torch.isfinite(est.log_prob(draws, card_cond)).all())
+    at_t_max = censored is None or bool((draws[draws[:, 1] == censored, 0] == T_MAX).all())
+    shares = [round(float((draws[:, 1] == c).double().mean()), 4) for c in range(3)]
+    _log(f"[{label}] sample: {SAMPLE_CARD} draws on the card in {ms:.3f} ms against {SAMPLE_CPU} of the plain path "
+         f"on the CPU at 64 conditions: p={json.dumps({k: round(v, 4) for k, v in p.items()})} (limit {P_MIN}); "
+         f"choice shares (card)={shares}; finite draws and log-probs={finite}; censored at T_MAX={at_t_max}")
+    if min(p.values()) < P_MIN or not finite or not at_t_max:
+        raise AssertionError(f"{label}: the card's draws differ from the plain path's, or are not finite: {p}")
+    return {"draws": draws, "cond": card_cond, "p": p, "ms": ms}
+
+
+def _closed_form_against_autograd(label, est, x_o, pulses_o, prior, device) -> dict:
+    """One ``log_lik_and_grad`` call (K3 per member) at 24 prior thetas on
+    the observed session against autograd of ``log_lik_fn`` through the
+    fused ``autograd.Function`` (K2 forward, K3 backward): the value to
+    1e-4 and each row's gradient to 1e-3 x max(1, its largest |ref|)."""
+    import torch
+
+    from sbi_for_diffusion_models_tpu_torch.potentials import ConditionedMNLELogLikelihood
+    from sbi_for_diffusion_models_tpu_torch.utils.rng import make_generator
+
+    theta = prior.sample(make_generator(19, device), (24,))
+    lik = ConditionedMNLELogLikelihood(est, pulses_o, logprob_kernel="pallas")
+    ll, g = lik.log_lik_and_grad(x_o, theta)
+    th = theta.clone().requires_grad_(True)
+    ll_auto = lik.log_lik_fn(est.params, x_o, th)
+    (g_auto,) = torch.autograd.grad(ll_auto.sum(), th)
+    ll_auto = ll_auto.detach()
+    err_v = float(((ll - ll_auto).abs() / ll_auto.abs().clamp(min=1.0)).max())
+    err_g = float(((g - g_auto).abs().amax(1) / g_auto.abs().amax(1).clamp(min=1.0)).max())
+    _log(f"[{label}] closed-form log_lik_and_grad against autograd of log_lik_fn at 24 thetas: value rel err="
+         f"{err_v:.3e} (limit 1e-4), gradient rel err per row={err_g:.3e} (limit 1e-3)")
+    if not (err_v <= 1e-4 and err_g <= 1e-3 and bool(torch.isfinite(g).all())):
+        raise AssertionError(f"{label}: the closed-form gradient differs from autograd ({err_v}, {err_g})")
+    return {"value_rel_err": err_v, "grad_rel_err": err_g}
+
+
+def _counting_likelihood_calls():
+    """Wraps ``ConditionedMNLELogLikelihood``'s ``log_lik_and_grad`` to count
+    its gradient and value-only calls, and ``log_lik_fn`` (the value of the
+    sampler's start and of the potential's own calls, through the fused
+    ``autograd.Function``'s forward) to count its calls; returns (counts,
+    restore)."""
+    from sbi_for_diffusion_models_tpu_torch.potentials import ConditionedMNLELogLikelihood
+
+    real, real_fn = ConditionedMNLELogLikelihood.log_lik_and_grad, ConditionedMNLELogLikelihood.log_lik_fn
+    counts = {"grad": 0, "value": 0, "log_lik_fn": 0}
+
+    def counted(self, x, theta, need_grad=True, sessions=None):
+        counts["grad" if need_grad else "value"] += 1
+        return real(self, x, theta, need_grad, sessions)
+
+    def counted_fn(self, *args, **kwargs):
+        counts["log_lik_fn"] += 1
+        return real_fn(self, *args, **kwargs)
+
+    ConditionedMNLELogLikelihood.log_lik_and_grad = counted
+    ConditionedMNLELogLikelihood.log_lik_fn = counted_fn
+
+    def restore():
+        ConditionedMNLELogLikelihood.log_lik_and_grad = real
+        ConditionedMNLELogLikelihood.log_lik_fn = real_fn
+
+    return counts, restore
+
+
+def _fused_rows(check: dict, D: int) -> dict:
+    """The K2 and K3 entries of a row check (``phase_k2k3``'s result) for
+    the ``kernels`` line: per row count, the context width D, the error and
+    the times."""
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by")
+    return {k: [{"n": n, "D": D, "max_abs_err": c[k]["max_abs_err"], **dict(zip(timed, c[k]["times"]))}
+                for n, c in sorted(check.items())] for k in ("K2", "K3")}
+
+
+def phase_sharp(device) -> dict:
+    """The tail-sharp path on the committed ``SHARP_MODEL_FILE`` (shifted-log
+    RT, k = 1.5): the observed session's posterior by the calibrated
+    sampler (PT6 x 4 chains, grid hop, t_nd slice) at NEW_WARMUP / NEW_DRAWS
+    draws a chain, trees capped at NEW_TREE_DEPTH (K2 and K3 launched; at
+    this depth the value-only calls are a large share, as on the resume
+    path). Then, after the counts are read: K2/K3 on the model's
+    rows at 1,200 and 9,600 against float64 (``phase_k2k3``), the
+    closed-form gradient against autograd, ``sample`` on the card against
+    the CPU's plain path, and ``tail_sharp_inverse``'s round trip on the
+    card's draws."""
+    import torch
+
+    from sbi_for_diffusion_models_tpu_torch.mnle import load_model
+    from sbi_for_diffusion_models_tpu_torch.nets.mnle_net import tail_sharp_inverse, tail_sharp_transform
+
+    os.environ["MODEL_DIR"] = str(MODEL_DIR)
+    est = load_model(SHARP_MODEL_FILE, device=device)
+
+    def run():
+        prior, x_o, pulses_o = _observed_session(device)
+        walls = _sample_posterior("sharp", device, None, prior, x_o, pulses_o, NEW_WARMUP,
+                                  NEW_DRAWS * 4, est=est, max_depth=NEW_TREE_DEPTH)
+        return walls, prior, x_o, pulses_o
+
+    (walls, prior, x_o, pulses_o), launches = _launches_on("sharp", ("mnle_logprob_fwd", "mnle_logprob_bwd"), run)
+    rows = phase_k2k3(device, sizes=(ROWS_MAIN, ROWS_FOLD), model_file=SHARP_MODEL_FILE)
+    grad = _closed_form_against_autograd("sharp", est, x_o, pulses_o, prior, device)
+    sample = hold_sample("sharp", est, load_model(SHARP_MODEL_FILE, device="cpu"), device)
+
+    # The Newton inverse on the card's draws: t (the standardized
+    # coordinate of each draw) against tail_sharp_inverse(tail_sharp_transform(t)).
+    cfg = est.cfg
+    draws, cond = sample["draws"], sample["cond"]
+    live = draws[:, 1] != cfg.censored_category
+    t = (torch.log(draws[live, 0] - cond[live, cfg.tnd_index]) - est.x_mean) / est.x_std
+    back = tail_sharp_inverse(cfg, tail_sharp_transform(cfg, t)[0])
+    err = float(((back - t).abs() / t.abs().clamp(min=1.0)).max())
+    _log(f"[sharp] tail_sharp_inverse round trip on the card's {int(live.sum())} draws that are not censored: "
+         f"max |t - inverse(phi(t))| / max(1, |t|) = {err:.3e} (limit 1e-4); t in [{float(t.min()):.3f}, "
+         f"{float(t.max()):.3f}], c = {cfg.tail_sharp_c:.4f}")
+    if not err <= 1e-4:
+        raise AssertionError(f"sharp: tail_sharp_inverse round trip off by {err}")
+    return {"walls": walls, "launches": launches, "rows": _fused_rows(rows, 85), "grad": grad,
+            "sample_p": sample["p"], "inverse_err": err}
+
+
+def _float64_copy(est):
+    """The estimator with its network and stats in float64 (a copy)."""
+    import copy
+
+    import torch
+
+    out = copy.deepcopy(est)
+    out.net.double()
+    for name in ("cond_mean", "cond_std", "x_mean", "x_std"):
+        setattr(out, name, getattr(out, name).to(torch.float64))
+    return out
+
+
+def _hold_mixture(ens, prior, device) -> dict:
+    """The ensemble's rows through its members' fused paths (one K2 each)
+    at 1,200 rows of one session, against the float64 log-mean-exp of the
+    members' float64 rows, each row to 1e-4 x max(1, |ref|) plus twice its
+    spread where steep (``ops/rowcheck``), with the members' plain float32
+    rows mixed beside. The committed members are log-rep models without
+    censoring, trained with the censored trials pinned at 8 s: on the
+    session's censored rows their float32 evaluation, the plain version's
+    as well, can be off float64 by far more than their input spread. So
+    the kernel's rows may exceed their allowance on as large a share as
+    the plain float32 version's do, and on 0.1 % otherwise; the worst row
+    as ``row_check`` limits it. Then times."""
+    import math
+
+    import torch
+
+    from sbi_for_diffusion_models_tpu_torch.ops.rowcheck import MAX_OVER_SHARE, reference, row_check
+
+    (xr, cr), = _session_pairs(prior, device, 1)
+    fused, plain = ens.dispatch_log_prob("pallas"), ens.dispatch_log_prob("xla")
+    with torch.no_grad():
+        kern, plain_v = fused(xr, cr), plain(xr, cr)
+        members64 = [_float64_copy(m) for m in ens.members]
+        choice = xr[:, 1].double()
+
+        def run(rt, cond, g):
+            x = torch.stack([rt, choice], -1)
+            lps = torch.stack([m.log_prob_fn(m.net, x, cond) for m in members64])
+            return (torch.logsumexp(lps, 0) - math.log(len(members64)),)
+
+        ref, spread = reference(run, (xr[:, 0], cr), torch.zeros_like(xr[:, 0]), (1,))
+        c = row_check(kern, plain_v, ref[0], spread[0], value=True)
+        limit = max(MAX_OVER_SHARE, c.plain_share)
+        r = c.worst_row
+        _log(f"[ensemble] mixture n={xr.shape[0]}: rows over their allowance kernel={c.share:.3e} "
+             f"({int(c.over.sum())} rows: {torch.nonzero(c.over).reshape(-1).tolist()[:8]}) plain_f32="
+             f"{c.plain_share:.3e} (limit {limit:.3e}); worst err/allowance kernel={c.worst:.3f} plain_f32="
+             f"{c.plain_worst:.3f} (limit {c.limit:.3f}) at row {r} (x {xr[r].tolist()}: kernel {float(kern[r]):.7g} "
+             f"plain_f32 {float(plain_v[r]):.7g} float64 {float(ref[0][r]):.7g}); steep rows: {c.steep}; kernel rel "
+             f"err on the other rows={c.flat_err:.3e}")
+        if not (bool(torch.isfinite(kern).all()) and c.share <= limit and c.worst <= c.limit):
+            raise AssertionError(f"ensemble: the mixture's rows fail their float64 check ({c.share:.3e} over, "
+                                 f"worst {c.worst:.3f})")
+        k_ms = _time_ms(lambda: fused(xr, cr), 20, device)
+        p_ms = _time_ms(lambda: plain(xr, cr), 20, device)
+    _log(f"[ensemble] mixture rows n={xr.shape[0]}: fused (3 K2 and the outer terms) {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+    return {"max_abs_err": float((kern - plain_v).abs().max()), "ms": k_ms, "plain_ms": p_ms}
+
+
+def phase_ensemble(device) -> dict:
+    """The ensemble path: ``load_ensemble`` of ENSEMBLE_FILES (three
+    committed full-width log-rep models of one config) and the observed
+    session's posterior by the calibrated sampler at the sharp path's cut.
+    Each potential call launches one kernel per member: K3 three times a
+    gradient call, K2 three times a value-only call or a ``log_lik_fn``
+    call (checked against the calls counted). Then, after the counts are read: the mixture's rows
+    against float64 (``_hold_mixture``), the closed-form gradient against
+    autograd, and ``sample`` against the CPU's plain path."""
+    from sbi_for_diffusion_models_tpu_torch.mnle import load_ensemble
+
+    os.environ["MODEL_DIR"] = str(MODEL_DIR)
+    ens = load_ensemble(",".join(ENSEMBLE_FILES), device=device)
+    K = len(ens)
+
+    def run():
+        prior, x_o, pulses_o = _observed_session(device)
+        counts, restore = _counting_likelihood_calls()
+        try:
+            walls = _sample_posterior("ensemble", device, None, prior, x_o, pulses_o, NEW_WARMUP, NEW_DRAWS * 4,
+                                      est=ens, max_depth=NEW_TREE_DEPTH)
+        finally:
+            restore()
+        return walls, counts, prior, x_o, pulses_o
+
+    (walls, counts, prior, x_o, pulses_o), launches = _launches_on(
+        "ensemble", ("mnle_logprob_fwd", "mnle_logprob_bwd"), run)
+    _log(f"[ensemble] {K} members; log_lik_and_grad calls: {counts['grad']} with the gradient, {counts['value']} "
+         f"value-only; log_lik_fn calls: {counts['log_lik_fn']}; K3 launches={launches['mnle_logprob_bwd']} K2 "
+         f"launches={launches['mnle_logprob_fwd']} ({K} a call)")
+    value_calls = counts["value"] + counts["log_lik_fn"]
+    if launches["mnle_logprob_bwd"] != K * counts["grad"] or launches["mnle_logprob_fwd"] != K * value_calls:
+        raise AssertionError(f"ensemble: not {K} launches a call: {launches}, calls {counts}")
+    mixture = _hold_mixture(ens, prior, device)
+    grad = _closed_form_against_autograd("ensemble", ens, x_o, pulses_o, prior, device)
+    sample = hold_sample("ensemble", ens, load_ensemble(list(ENSEMBLE_FILES), device="cpu"), device)
+    return {"walls": walls, "launches": launches, "calls": counts, "mixture": mixture, "grad": grad,
+            "sample_p": sample["p"]}
+
+
+def phase_embed(device, proposal, z, x) -> dict:
+    """The pulse-embedding path: ``train_mnle`` under ``CALIBRATED_CONFIG``
+    with MNLE_EMBED_DIM = EMBED_DIM in "append" mode (context width 85 + 32
+    + 6 = 123) for EMBED_EPOCHS epochs on the main path's 131,072 pairs,
+    ``save_model`` / ``load_model`` bit for bit, the observed session's
+    posterior at the sharp path's cut, and one value-only call of a
+    "replace"-mode network (context width 43) that ``train_mnle`` builds
+    from the same proposal without training (K2 once). Then, after the
+    counts are read: K2/K3 at width 123 against float64 at 1,200 and 9,600
+    rows (``phase_k2k3``), the replace-mode call against the plain path,
+    and the closed-form gradient against autograd."""
+    import torch
+
+    import sbi_for_diffusion_models_tpu_torch as port
+    from sbi_for_diffusion_models_tpu_torch.potentials import ConditionedMNLELogLikelihood
+    from sbi_for_diffusion_models_tpu_torch.run_config import CALIBRATED_CONFIG
+    from sbi_for_diffusion_models_tpu_torch.utils.rng import make_generator
+
+    cfg = CALIBRATED_CONFIG.replace(MNLE_EMBED_DIM=EMBED_DIM, MNLE_EMBED_MODE="append", TRAIN_MAX_EPOCHS=EMBED_EPOCHS,
+                                    TRAIN_STOP_AFTER_EPOCHS=EMBED_EPOCHS)
+    model_file = "mnle_chip_embed.npz"
+    with tempfile.TemporaryDirectory() as model_dir:
+        def run():
+            t0 = time.perf_counter()
+            est = port.train_mnle(cfg, proposal, z, x, seed=0, verbose=False)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            mc_, meta = est.cfg, est.train_meta
+            if (mc_.pulse_dim, mc_.embed_dim, mc_.embed_mode, mc_.context_dim) != (80, EMBED_DIM, "append", 123):
+                raise AssertionError(f"embed: not the append-mode embedding of width 123: {mc_}")
+            if meta["epochs_run"] != EMBED_EPOCHS or not all(map(math.isfinite, meta["val_losses"])):
+                raise AssertionError(f"embed: {meta['epochs_run']} epochs, validation losses {meta['val_losses']}")
+            _log(f"[embed] trained {meta['epochs_run']} epochs x {meta['steps_per_epoch']} steps in {train_s:.3f} s "
+                 f"(ms_per_optimizer_step={meta['step_ms']:.3f}) val_losses={[round(v, 4) for v in meta['val_losses']]}")
+            os.environ["MODEL_DIR"] = model_dir
+            port.save_model(est, cfg, model_file)
+            loaded = port.load_model(model_file, device=device)
+            same = all(torch.equal(a, b) for a, b in zip(est.net.state_dict().values(),
+                                                          loaded.net.state_dict().values()))
+            if not same or loaded.cfg != est.cfg:
+                raise AssertionError("embed: the loaded weights or config differ from the saved ones")
+            _log("[embed] save_model -> load_model: config and weights bit-equal")
+            prior, x_o, pulses_o = _observed_session(device)
+            walls = _sample_posterior("embed", device, None, prior, x_o, pulses_o, NEW_WARMUP, NEW_DRAWS * 4,
+                                      est=loaded, max_depth=NEW_TREE_DEPTH)
+            walls["train"] = train_s
+            replace = port.train_mnle(cfg.replace(MNLE_EMBED_MODE="replace", TRAIN_MAX_EPOCHS=0), proposal, z, x,
+                                      seed=1, verbose=False)
+            theta = prior.sample(make_generator(23, device), (24,))
+            lik = ConditionedMNLELogLikelihood(replace, pulses_o, logprob_kernel="pallas")
+            value = lik.log_lik_and_grad(x_o, theta, need_grad=False)[0]
+            return walls, loaded, replace, prior, x_o, pulses_o, theta, value
+
+        (walls, est, replace, prior, x_o, pulses_o, theta, value), launches = _launches_on(
+            "embed", ("mnle_logprob_fwd", "mnle_logprob_bwd"), run)
+        rows = phase_k2k3(device, sizes=(ROWS_MAIN, ROWS_FOLD), model_file=model_file, model_dir=model_dir)
+    D = replace.net.cat_net.layers[0].in_features
+    plain = ConditionedMNLELogLikelihood(replace, pulses_o, logprob_kernel="xla").log_lik_fn(replace.params, x_o, theta)
+    err = float(((value - plain).abs() / plain.abs().clamp(min=1.0)).max())
+    _log(f"[embed] replace mode (context width {D}): one value-only call (K2 at {theta.shape[0] * x_o.shape[0]} rows) "
+         f"against the plain path: rel err={err:.3e} (limit 1e-4)")
+    if D != 43 or not err <= 1e-4:
+        raise AssertionError(f"embed: the replace-mode call (D={D}) differs from the plain path by {err}")
+    grad = _closed_form_against_autograd("embed", est, x_o, pulses_o, prior, device)
+    return {"walls": walls, "launches": launches, "rows": _fused_rows(rows, 123), "grad": grad,
+            "replace_rel_err": err}
+
 
 def measured_bounds(kernels: list, report: dict) -> None:
     """Add ``measured_bound_ms`` to every kernel of the line, and to its
@@ -1484,7 +1897,8 @@ def measured_bounds(kernels: list, report: dict) -> None:
 
     fma, tra = report["issue_fma"]["ops_per_s"], report["issue_transcendental"]["ops_per_s"]
     for k in kernels:
-        for at in (k, k.get("large"), k.get("fold"), k.get("short_chain"), *k.get("pipeline", ())):
+        for at in (k, k.get("large"), k.get("fold"), k.get("short_chain"), *k.get("pipeline", ()),
+                   *k.get("sharp", ()), *k.get("embed", ())):
             if at is None:
                 continue
             if k["name"] == "ddm_rt_choice":
@@ -1535,6 +1949,9 @@ def main() -> int:
     train_path = phase_train(device, main_path["proposal"], main_path["z"], main_path["x"])
     sbc = phase_sbc(device)
     pipe = phase_pipeline(device)
+    sharp = phase_sharp(device)
+    ens = phase_ensemble(device)
+    emb = phase_embed(device, main_path["proposal"], main_path["z"], main_path["x"])
     _log(f"[time] whole script after start-up: {time.perf_counter() - t_start:.1f} s")
 
     src = f"{PKG}/csrc"
@@ -1575,6 +1992,8 @@ def main() -> int:
                 {"n": n, "rows": kind, **({"launches": k3_calls} if label == "K3" else {}),
                  "max_abs_err": c[label]["max_abs_err"], **dict(zip(timed, c[label]["times"]))}
                 for kind, n, k3_calls, c in pipe["checks"]]
+            # The tail-sharp model's rows, and the embedded model's at context width 123.
+            kernels[-1]["sharp"], kernels[-1]["embed"] = sharp["rows"][label], emb["rows"][label]
     # The fused kernels' tile height, as the source they were built from defines it, and ptxas's report of each
     # build (K1: of each instance, G lanes a trial with or without the collapsing bound); a spill fails the run.
     tile_rows = int(re.search(r"#define TILE_ROWS (\d+)", (ROOT / src / "mnle_tile.cuh").read_text())[1])
@@ -1610,7 +2029,8 @@ def main() -> int:
     for k in kernels:
         k["launches_by_path"] = {name: p["launches"][k["name"]] for name, p in (
             ("main", main_path), ("pulse", pulse_path), ("roofline", roof), ("slice", slice_path),
-            ("resume", resume), ("train", train_path), ("sbc", sbc), ("pipeline", pipe))}
+            ("resume", resume), ("train", train_path), ("sbc", sbc), ("pipeline", pipe), ("sharp", sharp),
+            ("ensemble", ens), ("embed", emb))}
     measured_bounds(kernels, roof["report"])
     print(smi)
     print(json.dumps({"kernels": kernels}))

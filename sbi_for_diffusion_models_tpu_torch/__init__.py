@@ -18,30 +18,43 @@ Entry points run on the CUDA card unless given another ``device``
 (``utils/device.py``); without a card they raise. The package imports
 ``torch`` and never ``jax``. Submodules are imported where they are used;
 importing the package itself loads nothing else: the names in ``__all__``
-(the entry points of ``mnle``, ``analysis`` and ``pipeline``) are imported
-from their modules when first asked for.
+(the JAX package's public names whose modules are ported, and the entry
+points of ``mnle``, ``analysis`` and ``pipeline``) are imported from their
+modules when first asked for. Names whose module is not ported yet
+(``train_snpe``, ``HierarchicalModel``, the choice-only and 7-parameter
+simulators, ...) raise ``AttributeError``.
 """
 
 __version__ = "0.1.0"
 
-_EXPORTS = {
-    "train_mnle": "mnle",
-    "save_model": "mnle",
-    "load_model": "mnle",
-    "build_mnle": "mnle",
-    "run_inference_mcmc": "mnle",
-    "run_sbc": "mnle",
-    "pairplot": "analysis",
-    "sbc_uniformity_stats": "analysis",
-    "build_prior_theta": "pipeline",
-    "main": "pipeline",
+_MODULES = {
+    "run_config": ("RunConfig", "RUN_CONFIG_PARAMS"),
+    "distributions": ("Beta", "BoxUniform", "LogNormal", "MultipleIndependent", "Normal", "Uniform",
+                      "mcmc_transform"),
+    "proposals": ("ExtendedProposal", "PulseSequenceProposal"),
+    "models": ("RTChoiceModelParams", "generate_pulse_matrix", "generate_pulse_matrix_numpy",
+               "n_pulses_max_from_schedule", "pack_x_rt_choice", "pulse_schedule", "rt_choice_model_simulator",
+               "rt_choice_model_simulator_torch", "simulate_session_data_rt_choice"),
+    "data_simulator": ("sim_wrapper", "simulate_observed_session", "simulate_training_set_with_conditions",
+                       "summarize_trials"),
+    "nets": ("MNLE", "MNLEConfig"),
+    "potentials": ("ConditionedMNLELogLikelihood", "ThetaOnlyPosteriorPotential"),
+    "inference": ("MCMCPosterior", "run_nuts", "run_slice"),
+    "mnle": ("train_mnle", "save_model", "load_model", "build_mnle", "run_inference_mcmc", "run_sbc",
+             "MNLEEnsemble", "load_ensemble"),
+    "analysis": ("pairplot", "sbc_uniformity_stats"),
+    "pipeline": ("build_prior_theta", "main"),
+    "datasets": ("make_x_from_rat_df", "split_by_subject"),
 }
-__all__ = list(_EXPORTS)
+_EXPORTS = {name: module for module, names in _MODULES.items() for name in names}
+__all__ = ["constants"] + list(_EXPORTS)
 
 
 def __getattr__(name):
-    if name in _EXPORTS:
-        import importlib
+    import importlib
 
+    if name == "constants":
+        return importlib.import_module(".constants", __name__)
+    if name in _EXPORTS:
         return getattr(importlib.import_module(f".{_EXPORTS[name]}", __name__), name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -17,12 +17,16 @@ from __future__ import annotations
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 
 __all__ = [
     "Distribution",
     "Beta",
     "LogNormal",
+    "Normal",
+    "Uniform",
+    "BoxUniform",
     "MultipleIndependent",
     "Support",
     "real_support",
@@ -60,10 +64,11 @@ def interval_support(lo: float, hi: float) -> Support:
 
 
 def _as_params(v) -> list[float]:
-    """Scalar or sequence parameter -> list of floats (one per event dim)."""
-    if isinstance(v, (int, float)):
-        return [float(v)]
-    return [float(e) for e in v]
+    """Scalar or sequence parameter (numbers, a numpy array, a tensor) ->
+    list of floats (one per event dim)."""
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    return np.asarray(v, dtype=np.float64).reshape(-1).tolist()
 
 
 class _Consts:
@@ -177,6 +182,63 @@ class LogNormal(Distribution):
 
     def supports(self):
         return [positive_support() for _ in range(self.event_dim)]
+
+
+class Normal(Distribution):
+    def __init__(self, loc, scale):
+        self.mu = _as_params(loc)
+        self.sigma = _as_params(scale)
+        self.event_shape = (len(self.mu),)
+        self._consts = _Consts(mu=self.mu, sigma=self.sigma, log_sigma=[math.log(v) for v in self.sigma])
+
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.event_shape
+        dev = generator.device
+        eps = torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
+        return torch.tensor(self.mu, device=dev) + torch.tensor(self.sigma, device=dev) * eps
+
+    def log_prob(self, x):
+        c = self._consts.on(x)
+        return (-c["log_sigma"] - _LOG_SQRT_2PI - 0.5 * ((x - c["mu"]) / c["sigma"]) ** 2).sum(-1)
+
+    def log_prob_and_grad(self, x):
+        """``(log_prob(x), d log_prob / dx)`` in closed form."""
+        c = self._consts.on(x)
+        return self.log_prob(x), -(x - c["mu"]) / (c["sigma"] * c["sigma"])
+
+    def supports(self):
+        return [real_support() for _ in range(self.event_dim)]
+
+
+class Uniform(Distribution):
+    def __init__(self, low, high):
+        self.lo = _as_params(low)
+        self.hi = _as_params(high)
+        self.event_shape = (len(self.lo),)
+        self._consts = _Consts(lo=self.lo, hi=self.hi, neg_log_width=[-math.log(h - l) for l, h in zip(self.lo, self.hi)])
+
+    def sample(self, generator, sample_shape=()):
+        shape = tuple(sample_shape) + self.event_shape
+        dev = generator.device
+        lo, hi = torch.tensor(self.lo, device=dev), torch.tensor(self.hi, device=dev)
+        return lo + (hi - lo) * torch.rand(shape, generator=generator, device=dev, dtype=torch.float32)
+
+    def log_prob(self, x):
+        c = self._consts.on(x)
+        inside = (x >= c["lo"]) & (x <= c["hi"])
+        return torch.where(inside, c["neg_log_width"], -math.inf).sum(-1)
+
+    def log_prob_and_grad(self, x):
+        """``(log_prob(x), 0)``: the density is flat on its box."""
+        return self.log_prob(x), torch.zeros_like(x)
+
+    def supports(self):
+        return [interval_support(lo, hi) for lo, hi in zip(self.lo, self.hi)]
+
+
+def BoxUniform(low, high) -> Uniform:
+    """sbi-style BoxUniform: a ``Uniform`` on the box [low, high]."""
+    return Uniform(low, high)
 
 
 class MultipleIndependent(Distribution):

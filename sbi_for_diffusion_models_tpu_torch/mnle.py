@@ -10,10 +10,12 @@ in the other), ``run_inference_mcmc`` and simulation-based calibration
 (``run_sbc``: datasets folded into the chain axis, the mixing gate and its
 escalating remediation, atomic partials, and the sampler's segment
 checkpoints under ``nuts_ckpt/``, from which a cut run resumes), for the
-log, shifted-log and pulse-grid RT representations. Training differentiates
-the plain ``MNLE.log_prob_fn`` with autograd: the fused kernels K2/K3 return
-input gradients only and serve inference; it checkpoints and resumes with
-``checkpoint_dir``. Ensembles are not ported yet.
+log, shifted-log and pulse-grid RT representations (with the left-tail
+sharpening and the pulse embedding). Training differentiates the plain
+``MNLE.log_prob_fn`` with autograd: the fused kernels K2/K3 return input
+gradients only and serve inference; it checkpoints and resumes with
+``checkpoint_dir``. ``MNLEEnsemble`` / ``load_ensemble``: a uniform mixture of
+saved estimators, served by the same potentials, samplers and SBC.
 """
 
 from __future__ import annotations
@@ -56,7 +58,12 @@ from .nets.mnle_net import (
     shifted_rt_transform,
     transform_condition,
 )
-from .potentials import ConditionedMNLELogLikelihood, ThetaOnlyPosteriorPotential, tempered_value_and_grad
+from .potentials import (
+    ConditionedMNLELogLikelihood,
+    ThetaOnlyPosteriorPotential,
+    mixture_log_prob,
+    tempered_value_and_grad,
+)
 from .run_config import RunConfig
 from .utils.checkpoint import restore_train_state, save_train_state
 from .utils.device import resolve_device
@@ -64,6 +71,7 @@ from .utils.rng import as_seed, child_seed, make_generator
 
 __all__ = [
     "train_mnle", "train_step", "TrainState", "save_model", "load_model", "build_mnle", "run_inference_mcmc", "run_sbc",
+    "MNLEEnsemble", "load_ensemble",
 ]
 
 _DEFAULT_MODEL_FILENAME = "mnle_rt_choice_model.npz"
@@ -171,6 +179,17 @@ def _mnle_config(cfg: RunConfig, condition_dim: int, num_categories: int, pulse_
     )
 
 
+def _flow_coordinate(mcfg: MNLEConfig, z, x):
+    """The flow's own coordinate of the pairs, before z-scoring (per
+    ``rt_rep``)."""
+    rt = x[:, 0]
+    if mcfg.rt_rep == "pulse":
+        return pulse_grid_split(mcfg, rt, z[:, mcfg.tnd_index])[2]
+    if mcfg.rt_rep == "shifted_log":
+        return shifted_rt_transform(mcfg, rt, z)[0]
+    return torch.log(rt.clamp(min=1e-37)) if mcfg.log_transform_x else rt
+
+
 def _standardization_stats(mcfg: MNLEConfig, z, x):
     """(cond_mean, cond_std, x_mean, x_std): "independent" z-scoring stats of
     the transformed condition and of the flow's own coordinate (per
@@ -179,13 +198,7 @@ def _standardization_stats(mcfg: MNLEConfig, z, x):
     z_cond = transform_condition(mcfg, z)
     cond_mean = z_cond.mean(0)
     cond_std = z_cond.std(0, unbiased=False).clamp(min=1e-6)
-    rt = x[:, 0]
-    if mcfg.rt_rep == "pulse":
-        _, _, t, _, _ = pulse_grid_split(mcfg, rt, z[:, mcfg.tnd_index])
-    elif mcfg.rt_rep == "shifted_log":
-        t, _, _ = shifted_rt_transform(mcfg, rt, z)
-    else:
-        t = torch.log(rt.clamp(min=1e-37)) if mcfg.log_transform_x else rt
+    t = _flow_coordinate(mcfg, z, x)
     if mcfg.censor_rt:
         # The flow only ever sees the rows that are not censored.
         m = (x[:, 1] != mcfg.censored_category).to(t.dtype)
@@ -196,6 +209,20 @@ def _standardization_stats(mcfg: MNLEConfig, z, x):
         x_mean = t.mean()
         x_std = t.std(unbiased=False).clamp(min=1e-6)
     return cond_mean, cond_std, x_mean, x_std
+
+
+def _auto_tail_sharp_c(mcfg: MNLEConfig, z, x, x_mean, x_std) -> float:
+    """The tail sharpening's automatic threshold (``MNLE_TAIL_SHARP_C=None``):
+    c = (q - x_mean) / x_std - 0.25, q the 0.001 quantile of the flow
+    coordinate over the rows that are not censored, so the suppression
+    starts just below the training data's left edge in standardized units.
+    Computed as the JAX package does, by ``np.quantile`` (linear
+    interpolation) on one host copy: ``torch.quantile`` refuses inputs above
+    2^24 elements."""
+    t_np = _flow_coordinate(mcfg, z, x).cpu().numpy()
+    if mcfg.censor_rt:
+        t_np = t_np[x[:, 1].cpu().numpy() != mcfg.censored_category]
+    return float((np.quantile(t_np, 1e-3) - float(x_mean)) / float(x_std) - 0.25)
 
 
 def train_mnle(
@@ -226,6 +253,10 @@ def train_mnle(
     ``step_ms`` (mean wall milliseconds per optimizer step, epoch by epoch
     read-back included, validation excluded), each of the epochs this call
     ran.
+
+    ``MNLE_TAIL_SHARP_C=None`` (with ``MNLE_TAIL_SHARP_K > 0``) resolves the
+    threshold from the training data (``_auto_tail_sharp_c``); the estimator's
+    config, and so the saved one, holds the resolved value.
 
     ``checkpoint_dir``: the weights, Adam's state and the optimizer step are
     saved there every ``checkpoint_every`` epochs (``utils/checkpoint.py``),
@@ -287,13 +318,18 @@ def train_mnle(
             "slot/phase factorization has no continuous spline chain to "
             "precondition); disable one of the two"
         )
-    mcfg.check_ported()
+    mcfg.validate()
     if mcfg.rt_rep in ("pulse", "shifted_log"):
         theta_dim_stats = theta_dim if theta_dim is not None else 5
         if mcfg.tnd_index >= theta_dim_stats:
             raise ValueError(f"tnd_index={mcfg.tnd_index} outside theta block (theta_dim={theta_dim_stats})")
 
     cond_mean, cond_std, x_mean, x_std = _standardization_stats(mcfg, z, x)
+    if mcfg.tail_sharp_k > 0 and mcfg.tail_sharp_c is None:
+        mcfg = dataclasses.replace(mcfg, tail_sharp_c=_auto_tail_sharp_c(mcfg, z, x, x_mean, x_std))
+        if verbose:
+            print(f"[train_mnle] tail_sharp_c auto -> {mcfg.tail_sharp_c:.3f} "
+                  f"(q0.001 of standardized training t - 0.25)")
     estimator = build_mnle(
         make_generator(child_seed(seed, 0), device), mcfg,
         cond_mean=cond_mean, cond_std=cond_std, x_mean=x_mean, x_std=x_std, device=device,
@@ -455,6 +491,85 @@ def load_model(filename: str = _DEFAULT_MODEL_FILENAME, *, device=None) -> MNLE:
         cfg, params, stats["cond_mean"], stats["cond_std"], stats["x_mean"], stats["x_std"],
         train_meta=meta.get("train_meta"), device=device,
     )
+
+
+class MNLEEnsemble:
+    """Uniform mixture of K independently trained MNLEs: log p(x | c) =
+    logsumexp_k log p_k(x | c) - log K, row by row.
+
+    The surface the potentials, samplers and SBC read from an ``MNLE``
+    (``dispatch_log_prob``, ``log_prob_fn``, ``params``, ``sample_fn``,
+    ``cfg``, ``train_meta``, ``device``, ``to``); each member keeps its own
+    standardization stats. ``params`` is one tuple of the members'
+    networks, made once, so the fused path's stale-weights guard (``params
+    is not est.params``) holds for ensembles too."""
+
+    def __init__(self, members):
+        members = tuple(members)
+        if not members:
+            raise ValueError("MNLEEnsemble needs at least one member")
+        c0 = members[0].cfg
+        for m in members[1:]:
+            if m.cfg != c0:
+                raise ValueError(f"ensemble members must share one MNLEConfig (got {m.cfg} vs {c0})")
+        self.members = members
+        self.params = tuple(m.params for m in members)
+        self.cfg = c0
+        metas = [m.train_meta or {} for m in members]
+        self.train_meta = {
+            "ensemble_size": len(members),
+            "num_train": sum(t.get("num_train") or 0 for t in metas) or None,
+            "num_train_per_member": [t.get("num_train") for t in metas],
+            "best_val_loss": [t.get("best_val_loss") for t in metas],
+        }
+
+    def __len__(self) -> int:
+        return len(self.members)
+
+    @property
+    def device(self) -> torch.device:
+        return self.members[0].device
+
+    def to(self, device) -> "MNLEEnsemble":
+        """Move every member to ``device`` (in place)."""
+        for m in self.members:
+            m.to(device)
+        return self
+
+    def log_prob_fn(self, params, x, condition):
+        lps = torch.stack([m.log_prob_fn(p, x, condition) for m, p in zip(self.members, params)])
+        return torch.logsumexp(lps, dim=0) - math.log(len(self.members))
+
+    def log_prob(self, x, condition):
+        return self.log_prob_fn(self.params, x, condition)
+
+    def dispatch_log_prob(self, kernel: str = "auto"):
+        """The mixture of the members' ``dispatch_log_prob(kernel)``."""
+        return mixture_log_prob([m.dispatch_log_prob(kernel) for m in self.members])
+
+    def sample_fn(self, params, generator, condition):
+        """Mixture draw: a member picked uniformly per condition row, then
+        that member's draw. ``generator`` (or a seed for one) draws the
+        picks, then each member's draws in turn."""
+        gen = generator if isinstance(generator, torch.Generator) else make_generator(generator, condition.device)
+        flat = condition.reshape(-1, condition.shape[-1])
+        pick = torch.randint(len(self.members), (flat.shape[0],), generator=gen, device=flat.device)
+        draws = torch.stack([m.sample_fn(p, gen, flat) for m, p in zip(self.members, params)])  # (K, rows, 2)
+        out = torch.gather(draws, 0, pick[None, :, None].expand(1, flat.shape[0], 2))[0]
+        return out.reshape(*condition.shape[:-1], 2)
+
+    def sample(self, generator, condition):
+        condition = torch.as_tensor(condition, dtype=torch.float32).to(self.device)
+        return self.sample_fn(self.params, generator, condition)
+
+
+def load_ensemble(filenames, *, device=None) -> MNLEEnsemble:
+    """An ``MNLEEnsemble`` of saved members (a list of ``save_model``
+    filenames under ``$MODEL_DIR``, or one comma-separated string of them),
+    each loaded by ``load_model`` onto ``device`` (default: the CUDA card)."""
+    if isinstance(filenames, str):
+        filenames = [f for f in filenames.split(",") if f]
+    return MNLEEnsemble([load_model(f, device=device) for f in filenames])
 
 
 def _mode_hop(cfg: RunConfig, bij):
@@ -984,7 +1099,7 @@ def run_sbc(
     (sharding over several devices) is not ported."""
     if mesh is not None:
         raise NotImplementedError(
-            "run_sbc(mesh=...) is not ported to PyTorch yet (multi-device: see ROADMAP.md, Queue 1 item 11)"
+            "run_sbc(mesh=...) is not ported to PyTorch yet (see ROADMAP.md, Queue 1: multi-device)"
         )
     device = torch.device(device) if device is not None else density_estimator.device
     density_estimator.to(device)

@@ -9,6 +9,7 @@ may be numpy arrays or tensors.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -26,12 +27,14 @@ cfg = RUN_CONFIG_PARAMS
 ArrayLike = Union[np.ndarray, torch.Tensor]
 
 __all__ = [
+    "RTChoiceModelParams",
     "dispatch_sim_kernel",
     "pulse_schedule",
     "n_pulses_max_from_schedule",
     "generate_pulse_matrix_numpy",
     "generate_pulse_matrix",
     "as_pulse_tensor",
+    "rt_choice_model_simulator",
     "rt_choice_model_simulator_torch",
     "simulate_session_data_rt_choice",
     "pack_x_rt_choice",
@@ -63,6 +66,38 @@ def dispatch_sim_kernel(sim_kernel: Optional[str] = None):
             chunk_steps=min(cfg.SIM_CHUNK_STEPS, steps_per_pulse), n_max=n_max,
         )
     return run
+
+
+@dataclass(frozen=True)
+class RTChoiceModelParams:
+    """Named scalar parameters [a0, lam, v, B, t_nd]."""
+
+    a0_frac: float
+    lam: float
+    v: float
+    B: float
+    t_nd: float
+
+    @staticmethod
+    def from_theta(theta) -> "RTChoiceModelParams":
+        """From a 5-vector (numpy or tensor), sanitised as the simulator
+        sees it: B = max(|B|, 1e-6) (1 if not finite), a0 clipped to [0, 1]
+        (0.5 if not finite), lam and v 0 if not finite, t_nd clipped to [0,
+        T_MAX - 1e-6] (0 if not finite)."""
+        if isinstance(theta, torch.Tensor):
+            theta = theta.detach().cpu().numpy()
+        theta = np.asarray(theta)
+        if theta.shape[-1] != 5:
+            raise ValueError(f"Expected theta with 5 params [a0, lam, v, B, t_nd], got shape {theta.shape}.")
+        a0, lam, v, B, t_nd = np.asarray(theta, dtype=np.float64)
+        B = float(abs(B)) if np.isfinite(B) else 1.0
+        B = max(B, 1e-6)
+        a0 = float(np.clip(a0, 0.0, 1.0)) if np.isfinite(a0) else 0.5
+        lam = float(lam) if np.isfinite(lam) else 0.0
+        v = float(v) if np.isfinite(v) else 0.0
+        t_nd = float(t_nd) if np.isfinite(t_nd) else 0.0
+        t_nd = float(np.clip(t_nd, 0.0, float(T_MAX) - 1e-6))
+        return RTChoiceModelParams(a0_frac=a0, lam=lam, v=v, B=B, t_nd=t_nd)
 
 
 def pulse_schedule(*, dt: float = float(DT_CHOICE)) -> Tuple[int, int]:
@@ -160,6 +195,24 @@ def _simulate_rt_choice_batch(
         theta, s, child_seed(seed, 0), mu_sensory=float(mu_sensory),
         collapse_rate=float(collapse_rate), steps_per_pulse=steps_per_pulse, n_max=n_max,
     )
+
+
+def rt_choice_model_simulator(
+    theta,
+    rng=None,
+    *,
+    mu_sensory: float = 1.0,
+    pulse_sides: Optional[ArrayLike] = None,
+    p_success: float = cfg.P_SUCCESS,
+    device=None,
+) -> tuple[float, int]:
+    """Single-trial API: (rt, choice) as Python numbers for one theta (5,),
+    simulated through ``dispatch_sim_kernel`` (K1 on the card) on ``device``
+    (default: theta's device, the CUDA card for numpy input)."""
+    th = _as_f32(theta, device).reshape(1, 5)
+    x = _simulate_rt_choice_batch(th, mu_sensory=float(mu_sensory), pulse_sides=pulse_sides,
+                                  p_success=float(p_success), rng=rng)
+    return float(x[0, 0]), int(x[0, 1])
 
 
 def rt_choice_model_simulator_torch(

@@ -7,10 +7,12 @@ then a standard-normal base), with the input transforms (log / shifted-log
 RT, log-scaled condition dims, z-scoring) and their change-of-variables
 terms baked into ``log_prob``.
 
-Ported representations: ``rt_rep`` "log" and "shifted_log", with or without
-``censor_rt`` and ``cond_affine``, and "pulse" (both grid anchors). The
-pulse embedding, ``tail_sharp`` and sampling are not ported yet; they raise
-``NotImplementedError``.
+Every option of the JAX ``MNLEConfig`` is ported: ``rt_rep`` "log" and
+"shifted_log" (with or without ``censor_rt``, ``cond_affine`` and the
+left-tail sharpening ``tail_sharp_k``) and "pulse" (both grid anchors), the
+pulse embedding (``pulse_dim`` with ``embed_dim`` / ``embed_mode``: the
+context the heads read is ``MNLENet.make_context``'s), and sampling
+(``MNLE.sample``).
 
 Layers are ``nn.Linear`` with PyTorch's (out, in) weight layout. The JAX
 package's flax ``Dense`` kernels are (in, out): ``mnle_from_flax_params``
@@ -31,6 +33,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..constants import PULSE_INTERVAL, T_MAX
 from ..utils.device import resolve_device
 from ..utils.rng import make_generator
 from .spline import (
@@ -39,6 +42,7 @@ from .spline import (
     num_spline_params,
     rq_spline_circular,
     rq_spline_forward,
+    rq_spline_inverse,
 )
 
 __all__ = [
@@ -50,12 +54,18 @@ __all__ = [
     "mnle_to_flax_params",
     "transform_condition",
     "shifted_rt_transform",
+    "tail_sharp_transform",
+    "tail_sharp_inverse",
     "pulse_grid_split",
+    "pulse_grid_join",
     "slot_features",
+    "pulse_physics_features",
 ]
 
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
-_LATER = "is not ported to PyTorch yet (see ROADMAP.md, Queue 1)"
+# Horizon times (seconds) of the leak-decayed pulse-evidence summaries (the
+# JAX package's ``_FEATURE_HORIZONS``).
+_FEATURE_HORIZONS = (0.25, 0.5, 1.0, 2.0, 4.0, 8.0)
 
 
 @dataclass(frozen=True)
@@ -107,9 +117,32 @@ class MNLEConfig:
             return 0
         return 3 if self.grid_anchor == "absolute" else 1
 
-    def check_ported(self) -> None:
-        """Raise ``ValueError`` for invalid configurations and
-        ``NotImplementedError`` for the parts not ported yet."""
+    @property
+    def use_embed(self) -> bool:
+        """Whether the pulse block goes through the learned ``pulse_embed`` MLP."""
+        return self.embed_dim > 0 and self.pulse_dim > 0
+
+    @property
+    def context_block(self) -> bool:
+        """Whether the heads read [embedding?, physics features] beside (or,
+        "replace" mode, instead of) the raw pulse block (JAX ``make_context``)."""
+        return self.pulse_dim > 0 and (self.use_embed or self.embed_mode == "append")
+
+    @property
+    def context_start(self) -> int:
+        """First column of the appended [embedding?, features] block of the
+        context: condition_dim ("append") or the theta width ("replace")."""
+        return self.condition_dim if self.embed_mode == "append" else self.condition_dim - self.pulse_dim
+
+    @property
+    def context_dim(self) -> int:
+        """Width D of the context the heads (and the fused kernels) read."""
+        if not self.context_block:
+            return self.condition_dim
+        return self.context_start + (self.embed_dim if self.use_embed else 0) + len(_FEATURE_HORIZONS)
+
+    def validate(self) -> None:
+        """Raise ``ValueError`` for invalid configurations."""
         if self.rt_rep not in ("log", "shifted_log", "pulse"):
             raise ValueError(f"unknown rt_rep {self.rt_rep!r}")
         if self.rt_rep in ("pulse", "shifted_log") and not self.censor_rt:
@@ -117,10 +150,6 @@ class MNLEConfig:
                 f"rt_rep={self.rt_rep!r} requires censor_rt=True: the censored "
                 "atom is handled by the choice head, not the RT flow"
             )
-        if self.pulse_dim > 0 and (self.embed_dim > 0 or self.embed_mode == "append"):
-            raise NotImplementedError(f"the pulse embedding (pulse_dim > 0) {_LATER}")
-        if self.tail_sharp_k > 0:
-            raise NotImplementedError(f"tail_sharp (tail_sharp_k > 0) {_LATER}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -155,6 +184,29 @@ def shifted_rt_transform(cfg: MNLEConfig, rt: torch.Tensor, condition: torch.Ten
     return t, -t, barrier
 
 
+def tail_sharp_transform(cfg: MNLEConfig, t: torch.Tensor):
+    """Left-tail sharpening of the standardized flow coordinate:
+    ``(phi(t), log|phi'(t)|)`` with phi(t) = t - e / k, e = exp(min(-k (t -
+    c), 30)), and log|phi'| = log1p(e). The clamp keeps far-below-onset
+    proposals finite (a huge negative log-density with finite gradients)."""
+    k = cfg.tail_sharp_k
+    e = torch.exp(torch.clamp(-k * (t - cfg.tail_sharp_c), max=30.0))
+    return t - e / k, torch.log1p(e)
+
+
+def tail_sharp_inverse(cfg: MNLEConfig, y: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``tail_sharp_transform`` by 30 Newton steps from a
+    branch-aware start (the identity above c, the asymptote y ~ -exp(-k (t -
+    c)) / k below it); phi' >= 1 keeps the steps bounded. No early exit, so
+    no step reads anything back to the host."""
+    k, c = cfg.tail_sharp_k, cfg.tail_sharp_c
+    t = torch.where(y > c, y, c - torch.log1p(k * torch.clamp(c - y, min=0.0)) / k)
+    for _ in range(30):
+        e = torch.exp(torch.clamp(-k * (t - c), max=30.0))
+        t = t - (t - e / k - y) / (1.0 + e)
+    return t
+
+
 def pulse_grid_split(cfg: MNLEConfig, rt: torch.Tensor, t_nd: torch.Tensor):
     """(pulse rep) rt -> ``(k, phi, s, ds, barrier)``: the slot k (int64),
     the within-slot phase phi in (0, 1), the flow coordinate s, log|ds/drt|
@@ -176,6 +228,51 @@ def pulse_grid_split(cfg: MNLEConfig, rt: torch.Tensor, t_nd: torch.Tensor):
     s = torch.log(phi) - torch.log1p(-phi)
     ds = -torch.log(phi) - torch.log1p(-phi) - math.log(delta)
     return k, phi, s, ds, barrier
+
+
+def pulse_grid_join(cfg: MNLEConfig, k: torch.Tensor, s: torch.Tensor, t_nd: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``pulse_grid_split`` for sampling: (slot k, flow coordinate
+    s) -> rt. Absolute anchor: s is the phase; tnd anchor: s = logit(phi)
+    and the grid starts at t_nd."""
+    if cfg.circular:
+        return (k.to(s.dtype) + clip(s, 1e-6, 1.0 - 1e-6)) * cfg.pulse_interval
+    phi = clip(torch.sigmoid(s), 1e-6, 1.0 - 1e-6)
+    return t_nd + (k.to(s.dtype) + phi) * cfg.pulse_interval
+
+
+@functools.lru_cache(maxsize=None)
+def _feature_grid(pulse_dim: int, device: torch.device):
+    """(lag (6, P), inside (6, P)): T - t_p for every horizon T and pulse
+    time t_p = p x PULSE_INTERVAL, and where t_p < T; made once per device."""
+    t_p = torch.arange(pulse_dim, dtype=torch.float32) * PULSE_INTERVAL
+    horizons = torch.tensor(_FEATURE_HORIZONS, dtype=torch.float32)[:, None]
+    return (horizons - t_p).to(device), (t_p < horizons).to(device)
+
+
+def pulse_physics_features(c_raw: torch.Tensor, theta_dim: int, pulse_dim: int, lam_index: int, *,
+                           lam_tangent: bool = False):
+    """Leak-decayed pulse-evidence summaries (..., 6), one per horizon T in
+    ``_FEATURE_HORIZONS``: F_T / sqrt(G_T + 1e-6) with F_T = sum_p w_p s_p,
+    G_T = sum_p w_p^2 and w_p = exp(-|lambda| (T - t_p)) for pulses before T
+    (0 after), lambda = c_raw[..., lam_index] raw and s the pulse block of
+    the raw condition. With ``lam_tangent`` also their derivative w.r.t.
+    |lambda| (..., 6), in closed form (dw_p = -(T - t_p) w_p)."""
+    lag, inside = _feature_grid(pulse_dim, c_raw.device)
+    lam = c_raw[..., lam_index]
+    # |lambda| with JAX's derivative at 0 (1, where torch.abs gives 0).
+    lam = torch.where(lam >= 0, lam, -lam)[..., None, None]
+    s = c_raw[..., None, theta_dim : theta_dim + pulse_dim]
+    w = torch.where(inside, torch.exp(-lam * lag), 0.0)
+    num = (w * s).sum(-1)
+    sq = (w * w).sum(-1) + 1e-6
+    denom = torch.sqrt(sq)
+    feats = num / denom
+    if not lam_tangent:
+        return feats
+    dw = -lag * w
+    d_num = (dw * s).sum(-1)
+    d_sq = 2.0 * (dw * w).sum(-1)
+    return feats, d_num / denom - 0.5 * num * d_sq / (sq * denom)
 
 
 def slot_features(cfg: MNLEConfig, k: torch.Tensor, t_nd: torch.Tensor, dtype) -> torch.Tensor:
@@ -206,28 +303,77 @@ class _MLP(nn.Module):
             x = F.relu(layer(x))
         return self.layers[-1](x)
 
+    def jvp(self, x, dx):
+        """(forward(x), its derivative along the tangent dx): the forward's
+        own operations, with each ReLU's mask applied to the tangent."""
+        for layer in self.layers[:-1]:
+            pre = layer(x)
+            x = F.relu(pre)
+            dx = torch.where(pre > 0, F.linear(dx, layer.weight), 0.0)
+        return self.layers[-1](x), F.linear(dx, self.layers[-1].weight)
+
 
 class MNLENet(nn.Module):
     """The raw network on standardized inputs: ``u`` the z-scored (log-)rt
-    scalar (pulse rep: the flow coordinate s), ``c`` the z-scored
-    condition."""
+    scalar (pulse rep: the flow coordinate s), ``c`` the context
+    (``make_context`` of the z-scored condition)."""
 
     def __init__(self, cfg: MNLEConfig):
         super().__init__()
-        cfg.check_ported()
+        cfg.validate()
+        if cfg.tail_sharp_k > 0 and cfg.tail_sharp_c is None:
+            raise ValueError("tail_sharp_c=None is a training-time sentinel: train_mnle resolves it before the "
+                             "network is built")
         self.cfg = cfg
-        H, C = cfg.hidden_features, cfg.num_categories
-        self.cat_net = _MLP(cfg.condition_dim, H, C, cfg.trunk_depth)
-        self.flow_trunk = _MLP(cfg.condition_dim + C, H, H, cfg.trunk_depth)
+        H, C, D = cfg.hidden_features, cfg.num_categories, cfg.context_dim
+        self.cat_net = _MLP(D, H, C, cfg.trunk_depth)
+        self.flow_trunk = _MLP(D + C, H, H, cfg.trunk_depth)
         S = num_circular_spline_params(cfg.num_bins) if cfg.circular else num_spline_params(cfg.num_bins)
         head_in = H + cfg.num_slot_features
         self.spline_heads = nn.ModuleList([nn.Linear(head_in, S) for _ in range(cfg.num_transforms)])
         pulse = cfg.rt_rep == "pulse"
         self.affine_head = nn.Linear(H, 2) if cfg.cond_affine and not pulse else None
         self.pulse_slot_head = nn.Linear(H, cfg.num_pulse_slots) if pulse else None
+        self.pulse_embed = None
+        if cfg.use_embed:
+            self.pulse_embed = _MLP(cfg.pulse_dim + len(_FEATURE_HORIZONS), H, cfg.embed_dim, cfg.embed_depth)
+
+    def make_context(self, c_std, c_raw, lam_tangent: bool = False):
+        """The heads' input: the z-scored condition ``c_std``, with the pulse
+        block ("replace": raw pulses swapped for [embedding, physics
+        features]; "append": raw pulses kept, [embedding?, features]
+        appended) when ``cfg.context_block``. The features read |lambda| off
+        the raw condition ``c_raw``. With ``lam_tangent``, returns ``(ctx,
+        tangent)``: the derivative of the appended block (the columns from
+        ``cfg.context_start`` on) w.r.t. ``c_raw[..., lam_index]`` (None
+        without a block), for the closed-form potential gradient."""
+        cfg = self.cfg
+        if not cfg.context_block:
+            return (c_std, None) if lam_tangent else c_std
+        k = cfg.condition_dim - cfg.pulse_dim
+        feats = pulse_physics_features(c_raw, k, cfg.pulse_dim, cfg.lam_index, lam_tangent=lam_tangent)
+        if lam_tangent:
+            feats, d_feats = feats
+        parts = [c_std] if cfg.embed_mode == "append" else [c_std[..., :k]]
+        tangents = []
+        if self.pulse_embed is not None:
+            inp = torch.cat([c_std[..., k:], feats], -1)
+            if lam_tangent:
+                emb, d_emb = self.pulse_embed.jvp(inp, torch.cat([torch.zeros_like(c_std[..., k:]), d_feats], -1))
+                tangents.append(d_emb)
+            else:
+                emb = self.pulse_embed(inp)
+            parts.append(emb)
+        parts.append(feats)
+        ctx = torch.cat(parts, -1)
+        if not lam_tangent:
+            return ctx
+        # d|lambda| / d lambda: -1 below 0, 1 from 0 up (JAX's abs).
+        sign = torch.where(c_raw[..., cfg.lam_index] >= 0, 1.0, -1.0)[..., None]
+        return ctx, torch.cat(tangents + [d_feats], -1) * sign
 
     def choice_logits(self, c):
-        """(..., condition_dim) -> (..., num_categories) log-probabilities."""
+        """(..., context_dim) -> (..., num_categories) log-probabilities."""
         return F.log_softmax(self.cat_net(c), dim=-1)
 
     def _trunk_emb(self, c, choice_onehot):
@@ -270,6 +416,33 @@ class MNLENet(nn.Module):
             log_det = log_det + ld
         return -_LOG_SQRT_2PI - 0.5 * z**2 + log_det
 
+    def flow_sample(self, generator, c, choice_onehot, k_feat=None):
+        """One draw u ~ p(u | c, choice) per row (c: (..., context_dim)): the
+        base (standard normal; uniform on [0, 1) for the circular flow)
+        drawn from ``generator``, then the flow's inverse."""
+        params, affine = self.flow_params(c, choice_onehot, k_feat)
+        shape, dev = c.shape[:-1], c.device
+        if self.cfg.circular:
+            z = torch.rand(shape, generator=generator, device=dev)
+            for p in reversed(params):
+                z, _ = rq_spline_circular(z, p, num_bins=self.cfg.num_bins, inverse=True)
+            return z
+        z = torch.randn(shape, generator=generator, device=dev)
+        for p in reversed(params):
+            z, _ = rq_spline_inverse(z, p, num_bins=self.cfg.num_bins, tail_bound=self.cfg.tail_bound)
+        if affine is not None:
+            mu, ls = affine
+            z = z * torch.exp(ls) + mu
+        return z
+
+
+def _categorical(generator: torch.Generator, logp: torch.Tensor) -> torch.Tensor:
+    """One index per row of the log-probabilities ``logp`` (..., K), by the
+    Gumbel-max rule on uniforms from ``generator`` (no read-back to the
+    host, as ``torch.multinomial`` may need)."""
+    u = torch.rand(logp.shape, generator=generator, device=logp.device)
+    return torch.argmax(logp - torch.log(-torch.log(u)), dim=-1)
+
 
 class MNLE:
     """Trained estimator: the network, the standardization stats and the
@@ -311,14 +484,17 @@ class MNLE:
             setattr(self, name, getattr(self, name).to(device))
         return self
 
+    def _condition(self, condition):
+        """The standardized condition: log dims, then z-scoring."""
+        c = transform_condition(self.cfg, condition)
+        return (c - self.cond_mean) / self.cond_std if self.cfg.z_score_theta else c
+
     def _standardize_condition(self, x, condition):
         """``(choice, onehot, c)``: the choice, its one-hot and the
         standardized condition."""
         cfg = self.cfg
         choice = x[..., 1].to(torch.int64)
-        c = transform_condition(cfg, condition)
-        if cfg.z_score_theta:
-            c = (c - self.cond_mean) / self.cond_std
+        c = self._condition(condition)
         # A comparison, not F.one_hot: one_hot reads the largest index back
         # to the host, a device sync on every call of the potential.
         onehot = (choice[..., None] == torch.arange(cfg.num_categories, device=choice.device)).to(torch.float32)
@@ -327,8 +503,10 @@ class MNLE:
     def standardize(self, x, condition):
         """The outer transforms around the network, shared with the fused
         path: returns ``(t, onehot, c, log_det, barrier, choice)`` with t the
-        standardized flow coordinate, c the standardized condition and
-        log_det + barrier the change-of-variables terms of t."""
+        standardized flow coordinate (after the tail sharpening, when
+        ``tail_sharp_k > 0``), c the standardized condition (the context is
+        ``net.make_context(c, condition)``) and log_det + barrier the
+        change-of-variables terms of t."""
         cfg = self.cfg
         rt = x[..., 0]
         choice, onehot, c = self._standardize_condition(x, condition)
@@ -345,6 +523,9 @@ class MNLE:
         if cfg.z_score_x:
             t = (t - self.x_mean) / self.x_std
             log_det = log_det - torch.log(self.x_std)
+        if cfg.tail_sharp_k > 0:
+            t, ld = tail_sharp_transform(cfg, t)
+            log_det = log_det + ld
         return t, onehot, c, log_det, barrier, choice
 
     def standardize_pulse(self, x, condition):
@@ -368,14 +549,15 @@ class MNLE:
         cfg = self.cfg
         rt = x[..., 0]
         choice, onehot, c = self._standardize_condition(x, condition)
-        cat_lp = torch.gather(params.choice_logits(c), -1, choice[..., None])[..., 0]
+        ctx = params.make_context(c, condition)
+        cat_lp = torch.gather(params.choice_logits(ctx), -1, choice[..., None])[..., 0]
         t_nd = condition[..., cfg.tnd_index]
         k, _, t, log_det, barrier = pulse_grid_split(cfg, rt, t_nd)
         if cfg.z_score_x and not cfg.circular:
             t = (t - self.x_mean) / self.x_std
             log_det = log_det - torch.log(self.x_std)
-        slot_lp = torch.gather(params.slot_logits(c, onehot), -1, k[..., None])[..., 0]
-        flow_lp = params.flow_log_prob(t, c, onehot, slot_features(cfg, k, t_nd, t.dtype))
+        slot_lp = torch.gather(params.slot_logits(ctx, onehot), -1, k[..., None])[..., 0]
+        flow_lp = params.flow_log_prob(t, ctx, onehot, slot_features(cfg, k, t_nd, t.dtype))
         rt_term = slot_lp + flow_lp + log_det + barrier
         return cat_lp + torch.where(choice == cfg.censored_category, 0.0, rt_term)
 
@@ -386,9 +568,9 @@ class MNLE:
         if cfg.rt_rep == "pulse":
             return self._pulse_log_prob(params, x, condition)
         t, onehot, c, log_det, barrier, choice = self.standardize(x, condition)
-        logits = params.choice_logits(c)
-        cat_lp = torch.gather(logits, -1, choice[..., None])[..., 0]
-        flow_lp = params.flow_log_prob(t, c, onehot)
+        ctx = params.make_context(c, condition)
+        cat_lp = torch.gather(params.choice_logits(ctx), -1, choice[..., None])[..., 0]
+        flow_lp = params.flow_log_prob(t, ctx, onehot)
         if cfg.censor_rt:
             # Censored trials keep P(choice | z) only. The JAX package
             # multiplies by the not-censored mask; a where keeps a
@@ -429,11 +611,48 @@ class MNLE:
         auto.weights = fused.weights
         return auto
 
-    def sample_fn(self, *args, **kwargs):
-        raise NotImplementedError(f"MNLE sampling {_LATER}")
+    def sample_fn(self, params: MNLENet, generator, condition):
+        """One (rt, choice) draw per condition row: condition (...,
+        condition_dim) -> (..., 2), rt in seconds (T_MAX on censored draws).
+        ``generator`` is a ``torch.Generator`` on the condition's device, or
+        a seed for one. The choice is drawn from the categorical head (and,
+        for the pulse rep, the slot from the slot head), then the flow's
+        base, pushed through the inverse splines, the cond-affine head, the
+        tail-sharp inverse, the de-standardisation and the RT transform's
+        inverse. The streams are not the JAX package's: draws agree with
+        its ``sample_fn`` in distribution."""
+        cfg = self.cfg
+        gen = generator if isinstance(generator, torch.Generator) else make_generator(generator, condition.device)
+        with torch.no_grad():
+            ctx = params.make_context(self._condition(condition), condition)
+            choice = _categorical(gen, params.choice_logits(ctx))
+            onehot = (choice[..., None] == torch.arange(cfg.num_categories, device=choice.device)).to(torch.float32)
+            if cfg.rt_rep == "pulse":
+                t_nd = condition[..., cfg.tnd_index]
+                k = _categorical(gen, params.slot_logits(ctx, onehot))
+                u = params.flow_sample(gen, ctx, onehot, slot_features(cfg, k, t_nd, torch.float32))
+                if cfg.z_score_x and not cfg.circular:
+                    u = u * self.x_std + self.x_mean
+                t = pulse_grid_join(cfg, k, u, t_nd)
+            else:
+                t = params.flow_sample(gen, ctx, onehot)
+                if cfg.tail_sharp_k > 0:
+                    t = tail_sharp_inverse(cfg, t)
+                if cfg.z_score_x:
+                    t = t * self.x_std + self.x_mean
+                if cfg.rt_rep == "shifted_log":
+                    t = condition[..., cfg.tnd_index] + torch.exp(t)
+                elif cfg.log_transform_x:
+                    t = torch.exp(t)
+            if cfg.censor_rt:
+                t = torch.where(choice == cfg.censored_category, T_MAX, t)
+            return torch.stack([t, choice.to(t.dtype)], dim=-1)
 
-    def sample(self, *args, **kwargs):
-        raise NotImplementedError(f"MNLE sampling {_LATER}")
+    def sample(self, generator, condition):
+        """``sample_fn`` with the estimator's own network; ``condition`` is
+        moved to the estimator's device."""
+        condition = torch.as_tensor(condition, dtype=torch.float32).to(self.device)
+        return self.sample_fn(self.net, generator, condition)
 
 
 def mnle_from_flax_params(
@@ -451,8 +670,9 @@ def mnle_from_flax_params(
 
     ``params`` is the flax tree as nested dicts of numpy arrays:
     ``cat_net/Dense_i``, ``flow_trunk/Dense_i``, ``spline_head_i``,
-    (cond-affine) ``affine_head`` and (pulse rep) ``pulse_slot_head``, each
-    with ``kernel`` (in, out) and ``bias`` (out,). The port's ``nn.Linear``
+    (cond-affine) ``affine_head``, (pulse rep) ``pulse_slot_head`` and (pulse
+    embedding) ``pulse_embed/Dense_i``, each with ``kernel`` (in, out) and
+    ``bias`` (out,). The port's ``nn.Linear``
     layers keep PyTorch's (out, in) layout, so each kernel is transposed
     here; biases are copied as they are. The weights come back with
     ``requires_grad=False``, on ``device`` (default: the CUDA card).
@@ -471,16 +691,11 @@ def mnle_from_flax_params(
             linear.weight.copy_(torch.from_numpy(kernel.T.copy()))
             linear.bias.copy_(torch.from_numpy(bias))
 
-    for name in ("cat_net", "flow_trunk"):
-        mlp = getattr(net, name)
-        for i, layer in enumerate(mlp.layers):
-            put(layer, params[name][f"Dense_{i}"])
-    for i, head in enumerate(net.spline_heads):
-        put(head, params[f"spline_head_{i}"])
-    if net.affine_head is not None:
-        put(net.affine_head, params["affine_head"])
-    if net.pulse_slot_head is not None:
-        put(net.pulse_slot_head, params["pulse_slot_head"])
+    for path, linear in _named_linears(net):
+        leaf = params
+        for name in path:
+            leaf = leaf[name]
+        put(linear, leaf)
     # Inference differentiates w.r.t. the inputs only: the weights are
     # constants, as the JAX package's closed-over parameter tree is.
     net.requires_grad_(False)
@@ -494,8 +709,9 @@ def _named_linears(net: MNLENet):
     out = []
     if net.affine_head is not None:
         out.append((("affine_head",), net.affine_head))
-    for name in ("cat_net", "flow_trunk"):
-        out += [((name, f"Dense_{i}"), layer) for i, layer in enumerate(getattr(net, name).layers)]
+    for name in ("cat_net", "flow_trunk", "pulse_embed"):
+        if getattr(net, name) is not None:
+            out += [((name, f"Dense_{i}"), layer) for i, layer in enumerate(getattr(net, name).layers)]
     if net.pulse_slot_head is not None:
         out.append((("pulse_slot_head",), net.pulse_slot_head))
     heads = [((f"spline_head_{i}",), head) for i, head in enumerate(net.spline_heads)]
@@ -506,7 +722,7 @@ def mnle_to_flax_params(estimator: MNLE) -> dict:
     """The estimator's weights as the JAX parameter tree: nested dicts of
     numpy arrays named as flax names them (``cat_net/Dense_i``,
     ``flow_trunk/Dense_i``, ``spline_head_i``, ``affine_head``,
-    ``pulse_slot_head``), each with ``kernel`` transposed back to (in, out),
+    ``pulse_slot_head``, ``pulse_embed/Dense_i``), each with ``kernel`` transposed back to (in, out),
     C-contiguous, and ``bias``. The inverse of ``mnle_from_flax_params``."""
     tree: dict = {}
     for path, linear in _named_linears(estimator.net):
@@ -554,7 +770,7 @@ def build_mnle(
     every kernel ``lecun_normal``, every bias zero, and the cond-affine
     head's kernel zero too, so that layer is the identity at the start. The
     weights require gradients."""
-    cfg.check_ported()
+    cfg.validate()
     device = resolve_device(device)
     if isinstance(generator_or_seed, torch.Generator):
         gen = generator_or_seed

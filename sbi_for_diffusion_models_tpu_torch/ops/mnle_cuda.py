@@ -512,8 +512,10 @@ def make_fused_logprob(estimator):
     outer transforms run in PyTorch around the kernels). The weights are
     packed once, here, on the estimator's device: the function is tied to
     the estimator's current weights and differentiates w.r.t. its inputs.
-    The pulse rep's tnd anchor has no fused path and raises, as in the JAX
-    package."""
+    The kernels read the context ``net.make_context`` gives (the pulse
+    embedding runs in PyTorch before them, as in the JAX package), and the
+    tail sharpening is part of ``standardize``'s t and log-det. The pulse
+    rep's tnd anchor has no fused path and raises, as in the JAX package."""
     cfg = estimator.cfg
     if cfg.rt_rep == "pulse" and not cfg.circular:
         raise ValueError(
@@ -524,6 +526,7 @@ def make_fused_logprob(estimator):
 
     def pulse_log_prob(x, condition, batch_shape):
         phi, onehot, c, kf, kv, ds, _ = estimator.standardize_pulse(x, condition)
+        c = estimator.net.make_context(c, condition)
         n = math.prod(batch_shape)
         lp = FusedPulseRowsLogProb.apply(
             phi.reshape(n), onehot.reshape(n, cfg.num_categories), c.reshape(n, c.shape[-1]),
@@ -538,6 +541,7 @@ def make_fused_logprob(estimator):
         if cfg.rt_rep == "pulse":
             return pulse_log_prob(x, condition, batch_shape)
         t, onehot, c, log_det, barrier, choice = estimator.standardize(x, condition)
+        c = estimator.net.make_context(c, condition)
         log_det = log_det + barrier
         if cfg.censor_rt:
             log_det = torch.where(choice == cfg.censored_category, torch.zeros_like(log_det), log_det)

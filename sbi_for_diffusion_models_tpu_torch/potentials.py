@@ -12,13 +12,23 @@ the same value and its theta-gradient in closed form around one K3 launch
 (K3p for the pulse rep), which writes the rows' values and their
 gradients; a call without the gradient launches K2 (K2p). The sampler uses
 it at every leapfrog step, where autograd's per-operation host cost was most
-of the step's time on the card.
+of the step's time on the card. The outer transforms are differentiated in
+closed form: the condition's log dims and z-scoring, the shifted-log RT with
+its floor and barrier, the left-tail sharpening, the pulse rep's t_nd phase
+features, and the pulse embedding's physics features (which read |lambda|)
+through the embedding MLP by one forward-mode pass.
+
+An ensemble (``mnle.MNLEEnsemble``) is a uniform mixture per trial row: each
+member's rows (with its own standardization and outer terms) come from its
+own K3 (K2) launch, so a call launches one kernel per member; the rows mix
+by log-mean-exp and the gradient weighs each member's row gradient by its
+share of the row's mixture (a softmax over the members).
 
 The likelihood also holds several sessions at once (SBC folds its datasets
 into the chain axis): ``local_theta`` (G, T, P) and ``x`` (G, T, 2), and
 each call names every theta row's session (``sessions``, (N,)). The
 theta-free session terms are made once, for the G sessions, and every call
-is still one launch over all N*T rows.
+is still one launch (per member) over all N*T rows.
 """
 
 from __future__ import annotations
@@ -28,10 +38,26 @@ import math
 import torch
 
 from .distributions import Distribution
-from .nets.mnle_net import MNLE, slot_features
+from .nets.mnle_net import MNLE, slot_features, tail_sharp_transform
 from .ops import mnle_cuda
 
-__all__ = ["ConditionedMNLELogLikelihood", "ThetaOnlyPosteriorPotential", "tempered_value_and_grad"]
+__all__ = [
+    "ConditionedMNLELogLikelihood", "ThetaOnlyPosteriorPotential", "tempered_value_and_grad", "mixture_log_prob",
+]
+
+
+def mixture_log_prob(fns):
+    """The uniform mixture of the log-prob functions ``fns`` (each
+    ``fn(x, condition)``): log-mean-exp over them, row by row; one function
+    is returned as it is."""
+    if len(fns) == 1:
+        return fns[0]
+    log_k = math.log(len(fns))
+
+    def log_prob(x, condition):
+        return torch.logsumexp(torch.stack([f(x, condition) for f in fns]), dim=0) - log_k
+
+    return log_prob
 
 
 def _per_chain(a, sessions, n: int):
@@ -46,10 +72,12 @@ class ConditionedMNLELogLikelihood:
     """``ll(theta) = sum_i log p(x_i | theta, s_i)`` for batches of theta,
     given the session's stimulus ``local_theta`` (T, P), or the stimuli of G
     sessions (G, T, P); with G sessions every call takes ``x`` (G, T, 2) and
-    ``sessions`` (N,), the session of each theta row."""
+    ``sessions`` (N,), the session of each theta row. ``estimator`` is an
+    ``MNLE`` or an ensemble of them (anything with ``members``)."""
 
     def __init__(self, estimator: MNLE, local_theta, *, logprob_kernel: str = "xla"):
         self.estimator = estimator
+        self.members = tuple(getattr(estimator, "members", (estimator,)))
         self.local_theta = torch.as_tensor(local_theta, dtype=torch.float32).to(estimator.device)
         if self.local_theta.dim() not in (2, 3):
             raise ValueError(
@@ -64,7 +92,8 @@ class ConditionedMNLELogLikelihood:
         cfg = estimator.cfg
         tnd_anchor = cfg.rt_rep == "pulse" and not cfg.circular
         fused = logprob_kernel != "xla" and (logprob_kernel == "pallas" or not tnd_anchor)
-        self._lp_fused = estimator.dispatch_log_prob(logprob_kernel) if fused else None
+        self._fused = [m.dispatch_log_prob(logprob_kernel) for m in self.members] if fused else None
+        self._lp_fused = mixture_log_prob(self._fused) if fused else None
         self._session_cache = None
 
     def __call__(self, x, theta):
@@ -103,29 +132,32 @@ class ConditionedMNLELogLikelihood:
         return self._lp_fused is not None
 
     def _session(self, x, sessions, n: int):
-        """The theta-free parts of the rows of n theta rows, each (n, T,
-        ...): one-hot choices, censored mask, the standardized stimulus
-        columns of the condition, and the RT terms when they do not depend
-        on theta. They are made once for ``x`` (one session (T, 2), or G
-        sessions (G, T, 2)); one session's are broadcast to the n rows, and
-        with G sessions each row's are gathered once per ``sessions``
-        tensor, so a sampler's calls (the same ``x`` and ``sessions``
-        every time) compute them once."""
+        """The theta-free parts of the rows of n theta rows, one dict per
+        member, each entry (n, T, ...): one-hot choices, censored mask, the
+        standardized stimulus columns of the condition (and the raw ones,
+        for the pulse embedding's features), and the RT terms when they do
+        not depend on theta. They are made once for ``x`` (one session (T,
+        2), or G sessions (G, T, 2)); one session's are broadcast to the n
+        rows, and with G sessions each row's are gathered once per
+        ``sessions`` tensor, so a sampler's calls (the same ``x`` and
+        ``sessions`` every time) compute them once."""
         if self._session_cache is None or self._session_cache[0] is not x:
-            self._session_cache = (x, self._session_terms(x), None)
+            self._session_cache = (x, [self._session_terms(m, x) for m in self.members], None)
         _, terms, gathered = self._session_cache
         if gathered is not None and gathered[0] is sessions:
             return gathered[1]
-        rows = {k: v if k == "log_mask" or v is None else _per_chain(v, sessions, n) for k, v in terms.items()}
+        rows = [{k: v if k == "log_mask" or v is None else _per_chain(v, sessions, n) for k, v in t.items()}
+                for t in terms]
         if sessions is not None:
             self._session_cache = (x, terms, (sessions, rows))
         return rows
 
-    def _session_terms(self, x):
+    def _session_terms(self, est: MNLE, x):
         """The theta-free terms of session ``x`` (T, 2), or of the sessions
-        ``x`` (G, T, 2), each of shape x.shape[:-1] + its own (``log_mask``:
-        which theta columns enter the condition as logs)."""
-        est, cfg = self.estimator, self.estimator.cfg
+        ``x`` (G, T, 2), under member ``est``'s standardization, each of
+        shape x.shape[:-1] + its own (``log_mask``: which theta columns
+        enter the condition as logs)."""
+        cfg = est.cfg
         P = self.local_theta.shape[-1]
         theta_dim = cfg.condition_dim - P
         lead = x.shape[:-1]
@@ -145,6 +177,7 @@ class ConditionedMNLELogLikelihood:
             "rt": x[:, 0],
             "onehot": onehot,
             "c_stim": c[:, theta_dim:],
+            "s_raw": self.local_theta.reshape(-1, P) if cfg.context_block else None,
             "censored": (choice == cfg.censored_category) if cfg.censor_rt else None,
         })
         sess = {k: None if v is None else v.reshape(*lead, *v.shape[1:]) for k, v in sess.items()}
@@ -161,18 +194,38 @@ class ConditionedMNLELogLikelihood:
         the gradient over all N*T rows (one K2 (K2p) launch for the values
         alone when ``need_grad`` is False), with the outer
         transforms (condition log/z-score, shifted-log RT, its log-det and
-        barrier, the pulse rep's t_nd phase features, the censored mask)
-        differentiated in closed form instead of by autograd. The same
-        function as ``log_lik_fn``; the sampler calls this at every leapfrog
-        step, where autograd's per-operation cost dominated. With G
-        sessions, x is (G, T, 2) and ``sessions`` (N,) names each theta
-        row's session; still one launch a call."""
+        barrier, the tail sharpening, the pulse rep's t_nd phase features,
+        the pulse embedding, the censored mask) differentiated in closed
+        form instead of by autograd. The same function as ``log_lik_fn``;
+        the sampler calls this at every leapfrog step, where autograd's
+        per-operation cost dominated. With G sessions, x is (G, T, 2) and
+        ``sessions`` (N,) names each theta row's session; still one launch
+        a call. An ensemble of K members launches K, one per member, and
+        mixes them row by row."""
         if self._lp_fused is None:
             raise ValueError("log_lik_and_grad needs the fused path (logprob_kernel != 'xla')")
         self._check_sessions(sessions)
-        est, cfg = self.estimator, self.estimator.cfg
+        terms = self._session(x, sessions, theta.shape[0])
+        rows = [self._member_rows(m, w, sess, theta, need_grad)
+                for m, w, sess in zip(self.members, (f.weights for f in self._fused), terms)]
+        if len(rows) == 1:
+            lp, grad = rows[0]
+            return lp.sum(-1), grad(None) if need_grad else None
+        lps = torch.stack([lp for lp, _ in rows])  # (K, N, T)
+        ll = (torch.logsumexp(lps, dim=0) - math.log(len(rows))).sum(-1)
+        if not need_grad:
+            return ll, None
+        share = torch.softmax(lps, dim=0)  # each member's share of each row's mixture
+        return ll, sum(grad(share[k]) for k, (_, grad) in enumerate(rows))
+
+    def _member_rows(self, est: MNLE, weights, sess, theta, need_grad: bool):
+        """One member's rows: ``(lp (N, T), grad)``, lp each row's
+        log-prob with its outer terms (one K3 launch, or K2 without the
+        gradient), and ``grad(share)`` (None without the gradient) the
+        theta-gradient (N, D) of the rows' sum, each row weighed by ``share``
+        (N, T) (None: all rows by 1)."""
+        cfg = est.cfg
         N, D = theta.shape
-        sess = self._session(x, sessions, N)
         T = sess["rt"].shape[1]
 
         # Condition columns of theta: log dims, then z-scoring.
@@ -187,8 +240,29 @@ class ConditionedMNLELogLikelihood:
             c_th = (c_th - est.cond_mean[:D]) / est.cond_std[:D]
             dc_th = dc_th / est.cond_std[:D]
         ctx = torch.cat([c_th[:, None, :].expand(N, T, D), sess["c_stim"]], dim=-1).reshape(N * T, -1)
+        lam_tangent = None
+        if cfg.context_block:
+            # The embedding context reads |lambda| off the raw condition.
+            c_raw = torch.cat([theta[:, None, :].expand(N, T, D), sess["s_raw"]], dim=-1).reshape(N * T, -1)
+            ctx = est.net.make_context(ctx, c_raw, lam_tangent=need_grad)
+            if need_grad:
+                ctx, lam_tangent = ctx
+
+        def weigh(a, share):
+            return a if share is None else a * share.reshape(share.shape + (1,) * (a.dim() - 2))
+
+        def context_grad(d_ctx, share):
+            """The gradient through the context: its theta columns, and
+            lambda's features (and embedding) where the context has them."""
+            d_ctx = weigh(d_ctx.reshape(N, T, -1), share)
+            grad = d_ctx[:, :, :D].sum(1) * dc_th
+            if lam_tangent is not None:
+                tan = lam_tangent.reshape(N, T, -1)
+                grad[:, cfg.lam_index] += (d_ctx[:, :, cfg.context_start:] * tan).sum((1, 2))
+            return grad
+
         if cfg.rt_rep == "pulse":
-            return self._pulse_lik_and_grad(sess, theta, ctx, dc_th, need_grad)
+            return self._pulse_rows(est, weights, sess, theta, ctx, need_grad, weigh, context_grad)
 
         # RT coordinate: depends on theta only through t_nd in shifted-log.
         if cfg.rt_rep == "shifted_log":
@@ -199,57 +273,71 @@ class ConditionedMNLELogLikelihood:
             extra = -t_raw - 50.0 * torch.relu(1e-6 - gap)
             if cfg.z_score_x:
                 extra = extra - torch.log(est.x_std)
+            t_std = t
+            if cfg.tail_sharp_k > 0:
+                t, ld = tail_sharp_transform(cfg, t)
+                extra = extra + ld
         else:
             t = sess["t"]
             extra = sess["extra"]
         if sess["censored"] is not None:
             extra = torch.where(sess["censored"], 0.0, extra)
 
-        weights = self._lp_fused.weights
         t_rows = t.reshape(N * T)
         oh_rows = sess["onehot"].reshape(N * T, -1)
         if not need_grad:
-            return (mnle_cuda.rows_logp(t_rows, oh_rows, ctx, weights).reshape(N, T) + extra).sum(-1), None
-
+            return mnle_cuda.rows_logp(t_rows, oh_rows, ctx, weights).reshape(N, T) + extra, None
         lp, d_t, d_ctx = mnle_cuda.rows_logp_and_vjp(t_rows, oh_rows, ctx, weights, torch.ones_like(t_rows))
-        ll = (lp.reshape(N, T) + extra).sum(-1)
-        grad = d_ctx.reshape(N, T, -1)[:, :, :D].sum(1) * dc_th
-        if cfg.rt_rep == "shifted_log":
-            # d t_raw / d t_nd = -1/gap above the floor; barrier slope -50 below it.
-            dt_raw = torch.where(gap >= 1e-6, -1.0 / gap_c, 0.0)
-            d_t_th = dt_raw / est.x_std if cfg.z_score_x else dt_raw
-            d_extra = -dt_raw - 50.0 * (gap < 1e-6).to(theta.dtype)
-            if sess["censored"] is not None:
-                d_extra = torch.where(sess["censored"], 0.0, d_extra)
-            g_tnd = (d_t.reshape(N, T) * d_t_th + d_extra).sum(-1)
-            grad[:, cfg.tnd_index] += g_tnd
-        return ll, grad
 
-    def _pulse_lik_and_grad(self, sess, theta, ctx, dc_th, need_grad: bool):
-        """The pulse rep's part of ``log_lik_and_grad`` (absolute anchor):
+        def grad(share):
+            g = context_grad(d_ctx, share)
+            if cfg.rt_rep == "shifted_log":
+                # d t_raw / d t_nd = -1/gap above the floor; barrier slope -50 below it.
+                dt_raw = torch.where(gap >= 1e-6, -1.0 / gap_c, 0.0)
+                d_t_th = dt_raw / est.x_std if cfg.z_score_x else dt_raw
+                d_extra = -dt_raw - 50.0 * (gap < 1e-6).to(theta.dtype)
+                if cfg.tail_sharp_k > 0:
+                    # phi' = 1 + e and d log1p(e) / dt = -k e / (1 + e), both
+                    # through e = exp(-k (t - c)) where the clamp at 30 is off.
+                    arg = -cfg.tail_sharp_k * (t_std - cfg.tail_sharp_c)
+                    e = torch.exp(torch.clamp(arg, max=30.0))
+                    free = arg < 30.0
+                    d_extra = d_extra + torch.where(free, -cfg.tail_sharp_k * e / (1.0 + e), 0.0) * d_t_th
+                    d_t_th = d_t_th * torch.where(free, 1.0 + e, 1.0)
+                if sess["censored"] is not None:
+                    d_extra = torch.where(sess["censored"], 0.0, d_extra)
+                g[:, cfg.tnd_index] += weigh(d_t.reshape(N, T) * d_t_th + d_extra, share).sum(-1)
+            return g
+
+        return lp.reshape(N, T) + extra, grad
+
+    def _pulse_rows(self, est: MNLE, weights, sess, theta, ctx, need_grad: bool, weigh, context_grad):
+        """The pulse rep's part of ``_member_rows`` (absolute anchor):
         K3p on the rows (K2p without the gradient), and t_nd's gradient
         through the features kf = [k_norm, sin ang, cos ang],
         ang = 2 pi ((t_nd / Delta) mod 1):
         d kf / d t_nd = (0, cos ang, -sin ang) 2 pi / Delta. There is no
         barrier to differentiate."""
-        cfg = self.estimator.cfg
+        cfg = est.cfg
         N, D = theta.shape
         T = sess["rt"].shape[1]
         kf = slot_features(cfg, sess["kv"], theta[:, cfg.tnd_index, None].expand(N, T), theta.dtype)
         rows = (sess["phi"].reshape(N * T), sess["onehot"].reshape(N * T, -1), ctx, kf.reshape(N * T, -1),
                 sess["kv"].reshape(N * T))
-        weights = self._lp_fused.weights
         # extra = -log Delta on the rows that are not censored (made per session).
         if not need_grad:
-            return (mnle_cuda.rows_logp_pulse(*rows, weights).reshape(N, T) + sess["extra"]).sum(-1), None
+            return mnle_cuda.rows_logp_pulse(*rows, weights).reshape(N, T) + sess["extra"], None
         lp, _, d_ctx, d_kf = mnle_cuda.rows_logp_pulse_and_vjp(*rows, weights, torch.ones_like(rows[0]))
-        ll = (lp.reshape(N, T) + sess["extra"]).sum(-1)
-        grad = d_ctx.reshape(N, T, -1)[:, :, :D].sum(1) * dc_th
-        d_kf = d_kf.reshape(N, T, -1).sum(1)
-        scale = 2.0 * math.pi / cfg.pulse_interval
-        sin, cos = kf[:, 0, 1], kf[:, 0, 2]
-        grad[:, cfg.tnd_index] += (d_kf[:, 1] * cos - d_kf[:, 2] * sin) * scale
-        return ll, grad
+
+        def grad(share):
+            g = context_grad(d_ctx, share)
+            d_kf3 = weigh(d_kf.reshape(N, T, -1), share).sum(1)
+            scale = 2.0 * math.pi / cfg.pulse_interval
+            sin, cos = kf[:, 0, 1], kf[:, 0, 2]
+            g[:, cfg.tnd_index] += (d_kf3[:, 1] * cos - d_kf3[:, 2] * sin) * scale
+            return g
+
+        return lp.reshape(N, T) + sess["extra"], grad
 
     def forward(self, x, theta):
         """x: (T, 2) or (1, T, 2); theta: (N, D). Returns (1, N)."""

@@ -232,14 +232,20 @@ def test_censored_rows_keep_only_the_choice_term():
 
 
 def test_unported_options_raise():
+    """Every option of the config is ported: invalid ones still raise, so
+    does a tail-sharp threshold that training has not resolved, and a tree
+    whose widths are not the config's context (the embedding widens it)."""
     with pytest.raises(ValueError, match="requires censor_rt=True"):
         mnle_from_flax_params(MNLEConfig(rt_rep="pulse"), {}, 0.0, 1.0, 0.0, 1.0, device="cpu")
-    for kw in (dict(tail_sharp_k=2.0), dict(pulse_dim=80, embed_dim=8)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            mnle_from_flax_params(MNLEConfig(**kw), {}, 0.0, 1.0, 0.0, 1.0, device="cpu")
-    est = _port(_jax_est_cached("log"))
-    with pytest.raises(NotImplementedError):
-        est.sample(None, None)
+    with pytest.raises(ValueError, match="training-time sentinel"):
+        mnle_from_flax_params(MNLEConfig(tail_sharp_k=2.0, tail_sharp_c=None), {}, 0.0, 1.0, 0.0, 1.0, device="cpu")
+    jest = _jax_est_cached("log")
+    tree = jax.tree.map(np.asarray, jest.params)
+    embedded = MNLEConfig(**{**jest.cfg.__dict__, "pulse_dim": 4, "embed_dim": 8})
+    with pytest.raises(ValueError, match="kernel shape"):
+        mnle_from_flax_params(embedded, tree, 0.0, 1.0, 0.0, 1.0, device="cpu")
+    est = _port(jest)
+    assert est.sample(0, torch.zeros((5, 9))).shape == (5, 2)
     with pytest.raises(ValueError, match="unknown log-prob kernel"):
         est.dispatch_log_prob("triton")
 

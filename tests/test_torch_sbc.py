@@ -318,7 +318,7 @@ def test_torch_run_sbc_batched_with_slice(tiny_setup, tmp_path):
 
 def test_run_sbc_with_a_mesh_is_not_ported(tiny_setup, tmp_path):
     prior, est, cfg = tiny_setup
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="Queue 1: multi-device"):
         tmnle.run_sbc(cfg, prior, est, outdir=tmp_path, seed=0, verbose=False, mesh=object())
 
 

@@ -417,8 +417,12 @@ FLAG_ERRORS = {
                           "MNLE_COND_AFFINE has no effect"),
     "log_dims_outside": (dict(MNLE_LOG_THETA_DIMS=(1, 99)), {}, ValueError, "outside the condition block"),
     "uncensored_shifted_log": (dict(MNLE_RT_REP="shifted_log"), {}, ValueError, "requires censor_rt=True"),
-    "tail_sharp": (dict(MNLE_TAIL_SHARP_K=2.0), {}, NotImplementedError, "not ported"),
-    "pulse_embedding": (dict(MNLE_EMBED_DIM=8), {}, NotImplementedError, "not ported"),
+    # The tail sharpening and the pulse embedding are ported: with each on,
+    # the other checks still raise.
+    "tail_sharp": (dict(MNLE_TAIL_SHARP_K=2.0, MNLE_TAIL_SHARP_C=-3.0, MNLE_CENSOR_RT=True, MNLE_RT_REP="log",
+                        MNLE_NUM_CATEGORIES=2), {}, ValueError, "contains category 2"),
+    "pulse_embedding": (dict(MNLE_EMBED_DIM=8, MNLE_LOG_THETA_DIMS=(1, 99)), {}, ValueError,
+                        "outside the condition block"),
 }
 
 
@@ -445,11 +449,16 @@ def test_pulse_rep_trains_with_its_warning():
 
 
 def test_package_exports_the_training_entry_points():
-    from sbi_for_diffusion_models_tpu_torch import analysis, pipeline
+    import importlib
 
     assert {"train_mnle", "save_model", "build_mnle"} <= set(port.__all__)
     for name in port.__all__:  # each from the module that defines it
-        assert getattr(port, name) is next(getattr(m, name) for m in (tmnle, analysis, pipeline) if name in m.__all__)
+        if name != "constants":
+            assert getattr(port, name) is getattr(importlib.import_module(f"{port.__name__}.{port._EXPORTS[name]}"), name)
     assert port.train_mnle is tmnle.train_mnle and port.build_mnle is build_mnle
-    with pytest.raises(AttributeError):
-        port.train_snpe  # not ported
+    for name in ("train_snpe", "train_snle", "DirectPosterior", "HierarchicalModel", "run_hierarchical_inference",
+                 "simulate_hierarchical_sessions", "rt_choice_model_simulator_7p", "simulate_session_data_7p",
+                 "ChoiceModelParams", "choice_model_simulator", "choice_model_simulator_torch",
+                 "generate_pulse_sides"):
+        with pytest.raises(AttributeError):
+            getattr(port, name)  # not ported
