@@ -136,7 +136,32 @@ port's paths once each through their public entry points:
    the plain path, and the closed-form gradient against autograd. The
    flagship and pulse-grid paths (phases 6 and 7) also hold their models'
    ``sample`` against the CPU's plain path (the pulse model: the slot head
-   and the circular splines' inverse).
+   and the circular splines' inverse);
+16. the variants path: ``choice_model_simulator_torch`` at the SNPE
+   example's shape (20,000 thetas x 8 trials at n_max 4,000, t_max 2 s; one
+   pass, then two resample passes, each timed with its share of -1) and
+   ``simulate_session_data_7p`` for one session of 1,200 trials (K1's
+   per-trial noise-scale instances); K1 must have launched. Then K1's
+   per-trial noise scale against the plain scan at 4,096 trials on a
+   1,600-step window: bit for bit at sigma = 0, with noise by chi-square
+   and KS (p > P_MIN), and at sigma_i all 1 equal to the scalar launch's
+   bits (the K1 fixture of phase 2 holds the scalar instances);
+17. the hierarchical path at the coverage configuration
+   (``artifacts/hierarchical_coverage_pt_a.json``: ``mnle_1m_censor.npz``,
+   4 datasets x 4 subjects x 20 trials, 4 chains x 6 rungs in one sampler
+   launch): ``simulate_hierarchical_sessions`` and
+   ``run_hierarchical_inference`` at warmup HIER_WARMUP / HIER_DRAWS draws
+   a chain, trees capped at HIER_TREE_DEPTH; every K3 launch at the fold's
+   7,680 rows. Then K2/K3 on the rows of its first K3 call against float64
+   (as in phase 3, and timed there), and the fold's first value-and-gradient
+   call against autograd through the plain row function;
+18. the SNPE path at the example's shape: the BoxUniform prior, 20,000
+   thetas, x the mean choice of 8 choice-only trials (K1), ``train_snpe``
+   and ``train_snle`` (epochs capped at SNPE_EPOCHS), 2,000
+   ``DirectPosterior`` draws all inside the prior's support, and a short
+   ``make_posterior(x_o)`` NUTS run (4 chains, warmup SNPE_WARMUP,
+   SNPE_CHAIN_DRAWS draws a chain, depth <= 6); it prints the training ms
+   a step.
 
 Each kernel's bound is the larger of its FP32 operations over 67 TFLOP/s
 and its bytes (inputs read once, outputs written once) over 3.35 TB/s, the
@@ -151,9 +176,11 @@ their launches, errors, times and bounds at both sizes (K4: both chain
 lengths), K1 also with its launch shape, the four fused kernels' with their
 tile height, K2's and K3's also at the SBC fold's 9,600 rows (``fold``), on
 the CLI path's model (``pipeline``), on the tail-sharp model (``sharp``) and
-on the embedded model at context width 123 (``embed``),
+on the embedded model at context width 123 (``embed``) and at the
+hierarchical fold's 7,680 rows (``hierarchical``), K1 also with its
+per-trial noise-scale launch (``per_trial_sigma``),
 each kernel's launches on every path (``launches_by_path``), and each with
-ptxas's registers, stack and spills (K1: of each of its six instances); a
+ptxas's registers, stack and spills (K1: of each of its twelve instances); a
 spill fails the run. Any failed check
 raises, and the script exits non-zero without that line. There is no CPU fallback: without
 a CUDA card the script exits with status 2.
@@ -220,6 +247,19 @@ EMBED_DIM, EMBED_EPOCHS = 32, 2  # the embedding path's MNLE_EMBED_DIM ("append"
 # above): 10 draws a chain.
 NEW_WARMUP, NEW_DRAWS, NEW_TREE_DEPTH = 10, 10, 6
 SAMPLE_CARD, SAMPLE_CPU = 131_072, 8_192  # ``sample`` draws on the card and on the CPU's plain path, at 64 conditions
+# The variants, hierarchical and SNPE paths. The SNPE example's shape (examples/snpe_snle_choice_model.py): 20,000
+# thetas from its BoxUniform prior, x the mean choice of 8 trials of the choice-only model at n_max 4,000 and t_max
+# 2 s with two resample passes.
+VARIANT_K1_N = 4_096  # K1's per-trial noise scale against the plain scan, on a 1,600-step window
+VARIANT_THETAS, VARIANT_REPS, VARIANT_7P_TRIALS = 20_000, 8, 1_200
+CHOICE_GRID = {"t_max": 2.0, "n_max": 4_000}
+SNPE_LO, SNPE_HI = (0.1, 0.05, 0.2, 2.0, 0.0), (0.9, 1.0, 3.0, 20.0, 0.5)
+SNPE_THETAS, SNPE_DRAWS = 20_000, 2_000
+SNPE_EPOCHS = 30  # the example's 60 epochs, cut for time (patience 12, as there)
+SNPE_WARMUP, SNPE_CHAIN_DRAWS = 20, 20  # the SNLE posterior's NUTS run: 4 chains, trees capped at depth 6
+# The hierarchical coverage configuration (artifacts/hierarchical_coverage_pt_a.json: warmup 250, 300 draws a
+# chain, depth 8), cut for time.
+HIER_WARMUP, HIER_DRAWS, HIER_TREE_DEPTH = 10, 10, 6
 
 
 def _log(*args) -> None:
@@ -1884,6 +1924,303 @@ def phase_embed(device, proposal, z, x) -> dict:
             "replace_rel_err": err}
 
 
+def _k1_per_trial_sigma(device, n: int = VARIANT_K1_N, n_max: int = 1_600, spp: int = 200, seed: int = 29) -> dict:
+    """K1's per-trial noise-scale instances against the plain scan repaired
+    for an (N,) ``mu_sensory``, at ``n`` prior draws on an ``n_max``-step
+    window: with sigma = 0 for every trial bit for bit (and equal to the
+    scalar launch at 0); with sigma_i drawn from [0.5, 1.5] the same
+    distribution (chi-square on the choices, KS on RT per choice, p >
+    P_MIN); with sigma_i all equal to 1 the scalar launch's bits. Then the
+    per-trial launch's time beside the scalar one's at the same trials."""
+    import numpy as np
+    import torch
+    from scipy import stats
+
+    from sbi_for_diffusion_models_tpu_torch.models.rt_choice_model import generate_pulse_matrix
+    from sbi_for_diffusion_models_tpu_torch.ops.ddm_cuda import ddm_rt_choice_cuda
+    from sbi_for_diffusion_models_tpu_torch.ops.ddm_scan import ddm_rt_choice_scan
+    from sbi_for_diffusion_models_tpu_torch.pipeline import build_prior_theta
+    from sbi_for_diffusion_models_tpu_torch.utils.rng import make_generator
+
+    gen = make_generator(seed, device)
+    theta = build_prior_theta().sample(gen, (n,))
+    s = generate_pulse_matrix(gen, n, n_max // spp)
+    sigma = 0.5 + torch.rand((n,), generator=gen, device=device)
+    kw = dict(steps_per_pulse=spp, n_max=n_max)
+
+    def kernel(mu, sd):
+        return ddm_rt_choice_cuda(theta, s, sd, mu_sensory=mu, **kw)
+
+    def plain(mu, sd):
+        return ddm_rt_choice_scan(theta, s, sd, mu_sensory=mu, chunk_steps=spp, **kw)
+
+    zero = torch.zeros((n,), device=device)
+    a, b, c = kernel(zero, 1), plain(zero, 2), kernel(0.0, 3)
+    zero_diff = int((a != b).any(1).sum())
+    zero_scalar_diff = int((a != c).any(1).sum())
+    ones = torch.ones((n,), device=device)
+    uniform_diff = int((kernel(ones, 5) != kernel(1.0, 5)).any(1).sum())
+    an, bn = kernel(sigma, 11).cpu().numpy(), plain(sigma, 12).cpu().numpy()
+    counts = np.array([[np.sum(x[:, 1] == k) for k in range(3)] for x in (an, bn)])
+    seen = counts.sum(0) > 0
+    chi2_p = float(stats.chi2_contingency(counts[:, seen])[1]) if seen.sum() > 1 else 1.0
+    ks_p = [float(stats.ks_2samp(an[an[:, 1] == k, 0], bn[bn[:, 1] == k, 0]).pvalue)
+            for k in (0, 1) if counts[:, k].min() > 0]
+    _log(f"[variants K1 per-trial sigma] n={n} window={n_max}: sigma=0 rows differing from the plain scan="
+         f"{zero_diff}, from the scalar launch at 0={zero_scalar_diff}; sigma_i=1 rows differing from the scalar "
+         f"launch at 1={uniform_diff}; sigma_i in [0.5, 1.5]: choice counts kernel={counts[0].tolist()} "
+         f"plain={counts[1].tolist()} chi2_p={chi2_p:.4g} ks_p(rt|choice)={[round(p, 4) for p in ks_p]}")
+    if zero_diff or zero_scalar_diff or uniform_diff:
+        raise AssertionError(f"variants: K1's per-trial sigma differs without noise ({zero_diff}, "
+                             f"{zero_scalar_diff}) or at uniform sigma ({uniform_diff})")
+    if min([chi2_p] + ks_p) <= P_MIN:
+        raise AssertionError(f"variants: K1's per-trial sigma and the plain scan differ in distribution")
+    # The per-trial instance against the scalar one on the same work (sigma_i = 1: the same bits), in turns
+    # (scalar, per-trial, per-trial, scalar); then the per-trial launch at the varied sigma_i.
+    turns = [_time_ms(lambda: kernel(1.0 if k in (0, 3) else ones, 3), 50, device) for k in range(4)]
+    scalar_ms, k_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    varied_ms = _time_ms(lambda: kernel(sigma, 3), 50, device)
+    p_ms = _time_ms(lambda: plain(ones, 4), 1, device)
+    b_ms, b_by, steps = k1_bound(theta, kernel(ones, 3), n_max // spp)
+    _log(f"[variants K1 per-trial sigma] time n={n} window={n_max} at sigma_i = 1 in turns (scalar, per-trial, "
+         f"per-trial, scalar) {[round(t, 4) for t in turns]}: kernel_ms={k_ms:.4f} scalar_ms={scalar_ms:.4f} "
+         f"plain_ms={p_ms:.4f} bound_ms={b_ms:.4g} ({b_by}) executed_trial_steps={steps}; at sigma_i in "
+         f"[0.5, 1.5]: kernel_ms={varied_ms:.4f}")
+    return {"n": n, "n_max": n_max, "max_abs_err": float((a - b).abs().max()), "ms": k_ms,
+            "scalar_ms": scalar_ms, "varied_sigma_ms": varied_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "steps": steps, "chi2_p": chi2_p, "ks_p": ks_p, "zero_sigma_rows_differing": zero_diff}
+
+
+def phase_variants(device) -> dict:
+    """The choice-only and 7-parameter simulators through their entry
+    points: ``choice_model_simulator_torch`` at the SNPE example's shape
+    (VARIANT_THETAS thetas x VARIANT_REPS trials at n_max 4,000, t_max 2 s;
+    one pass, then with two resample passes, each timed, with its share of
+    -1), and ``simulate_session_data_7p`` for one session of
+    VARIANT_7P_TRIALS trials (K1's per-trial noise-scale instances). K1
+    must have launched. Then, after the counts are read, K1's per-trial
+    noise scale against the plain scan (``_k1_per_trial_sigma``)."""
+    import torch
+
+    from sbi_for_diffusion_models_tpu_torch.distributions import BoxUniform
+    from sbi_for_diffusion_models_tpu_torch.models import choice_model_simulator_torch
+    from sbi_for_diffusion_models_tpu_torch.models.pulse_ddm_7p import simulate_session_data_7p
+    from sbi_for_diffusion_models_tpu_torch.utils.rng import make_generator
+
+    def run():
+        prior = BoxUniform(SNPE_LO, SNPE_HI)
+        theta = prior.sample(make_generator(0, device), (VARIANT_THETAS,)).repeat_interleave(VARIANT_REPS, 0)
+        out = {}
+        choice_model_simulator_torch(theta[:VARIANT_REPS], 0, **CHOICE_GRID)  # warm-up: the launch shape's query
+        for label, resample in (("one_pass", False), ("resampled", True)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x = choice_model_simulator_torch(theta, 1, resample_invalid=resample, max_resamples=2, **CHOICE_GRID)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if tuple(x.shape) != (theta.shape[0], 1) or not set(x.unique().tolist()) <= {-1.0, 0.0, 1.0}:
+                raise AssertionError(f"variants: choice simulator gave {tuple(x.shape)}, {x.unique().tolist()}")
+            out[label] = {"ms": ms, "invalid_share": float((x < 0).double().mean())}
+        _log(f"[variants] choice_model_simulator_torch {theta.shape[0]} trials ({VARIANT_THETAS} thetas x "
+             f"{VARIANT_REPS}) at {json.dumps(CHOICE_GRID)}: {json.dumps(out)}")
+        if not out["resampled"]["invalid_share"] <= out["one_pass"]["invalid_share"]:
+            raise AssertionError(f"variants: the resample passes left more invalid trials: {out}")
+        theta7 = torch.tensor([0.5, 0.3, 1.5, 8.0, 1.0, 0.1, 0.5], device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x7 = simulate_session_data_7p(theta7, VARIANT_7P_TRIALS, 2)
+        torch.cuda.synchronize()
+        out["session_7p"] = {"ms": (time.perf_counter() - t0) * 1e3,
+                             "choice_shares": [round(float((x7[:, 1] == k).double().mean()), 4) for k in range(3)]}
+        if tuple(x7.shape) != (VARIANT_7P_TRIALS, 2) or not bool(torch.isfinite(x7).all()):
+            raise AssertionError(f"variants: 7-parameter session {tuple(x7.shape)}, finite "
+                                 f"{bool(torch.isfinite(x7).all())}")
+        _log(f"[variants] simulate_session_data_7p {VARIANT_7P_TRIALS} trials: {json.dumps(out['session_7p'])}")
+        return out
+
+    out, launches = _launches_on("variants", ("ddm_rt_choice",), run)
+    return {"launches": launches, "choice": out, "k1_sigma": _k1_per_trial_sigma(device)}
+
+
+def _hierarchical_setup(device):
+    """The coverage configuration's data (``artifacts/hierarchical_coverage_pt_a.json``):
+    its model file loaded, the hyperprior moment-matched, and HIER_B datasets
+    of its subjects x trials drawn from the exact hyperprior (hyper_shrink 1)
+    and simulated on K1."""
+    import torch
+
+    from sbi_for_diffusion_models_tpu_torch.mnle import load_model
+    from sbi_for_diffusion_models_tpu_torch.models.hierarchical import (
+        HierarchicalModel,
+        simulate_hierarchical_sessions,
+    )
+    from sbi_for_diffusion_models_tpu_torch.pipeline import build_prior_theta
+
+    conf = json.loads((ROOT / "artifacts" / "hierarchical_coverage_pt_a.json").read_text())
+    os.environ["MODEL_DIR"] = str(MODEL_DIR)
+    est = load_model(conf["model_file"], device=device)
+    prior = build_prior_theta()
+    model = HierarchicalModel.from_prior(prior, device=device)
+    sims = [simulate_hierarchical_sessions(prior, conf["subjects"], conf["trials"], model=model,
+                                           seed=conf["seed"] + 1000 + r, hyper_shrink=1.0)
+            for r in range(conf["reps"])]
+    xs, ps = torch.stack([s[1] for s in sims]), torch.stack([s[2] for s in sims])
+    return conf, est, prior, model, xs, ps
+
+
+def phase_hierarchical(device) -> dict:
+    """The hierarchical path at the repo's coverage configuration
+    (``artifacts/hierarchical_coverage_pt_a.json``: ``mnle_1m_censor.npz``,
+    4 datasets x 4 subjects x 20 trials, 4 chains x 6 rungs, all datasets in
+    one sampler launch): ``simulate_hierarchical_sessions`` (K1) and
+    ``run_hierarchical_inference``, depth cut to warmup HIER_WARMUP,
+    HIER_DRAWS draws a chain, trees capped at HIER_TREE_DEPTH. Every K3
+    launch must hold the fold's B*C*R*S*T = 7,680 rows. Then, after the
+    counts are read: K2/K3 on the rows of the first K3 call against their
+    plain version and float64 (``_hold_fused``), and the fold's first
+    value-and-gradient call (closed form around one K3 launch) against
+    autograd through the plain row function (``logprob_kernel="xla"``):
+    each row's value to 1e-4 and its gradient to 1e-3 x max(1, its largest
+    |ref|)."""
+    import torch
+
+    from sbi_for_diffusion_models_tpu_torch.distributions import mcmc_transform
+    from sbi_for_diffusion_models_tpu_torch.inference.nuts import geometric_ladder
+    from sbi_for_diffusion_models_tpu_torch.models.hierarchical import _hierarchical_density, run_hierarchical_inference
+    from sbi_for_diffusion_models_tpu_torch.utils.rng import child_seed, make_generator
+
+    seed = 2000
+
+    def run():
+        conf, est, prior, model, xs, ps = _hierarchical_setup(device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run_hierarchical_inference(est, prior, xs, ps, model=model, num_chains=conf["chains"],
+                                         num_warmup=HIER_WARMUP, num_samples=HIER_DRAWS,
+                                         max_tree_depth=HIER_TREE_DEPTH, pt_replicas=conf["pt_replicas"],
+                                         pt_beta_min=conf["pt_beta_min"], segment_length=8, seed=seed)
+        torch.cuda.synchronize()
+        return conf, est, prior, model, xs, ps, out, time.perf_counter() - t0
+
+    with _recording_k3() as (rows_seen, k3_first):
+        (conf, est, prior, model, xs, ps, out, wall), launches = _launches_on(
+            "hierarchical", ("ddm_rt_choice", "mnle_logprob_bwd"), run)
+    B, S, T = xs.shape[:3]
+    C, R = conf["chains"], conf["pt_replicas"]
+    rows = B * C * R * S * T
+    calls = out["info"]["potential_calls"]
+    theta = out["theta_subjects"]
+    _log(f"[hierarchical] B={B} S={S} T={T} chains={C} rungs={R}: rows_per_K3={rows} wall_s={wall:.3f} "
+         f"potential_calls={calls} ms_per_call={wall * 1e3 / calls:.3f} K3_launches={launches['mnle_logprob_bwd']} "
+         f"K2_launches={launches['mnle_logprob_fwd']} swap_accept={out['swap_accept']:.3f} "
+         f"mean_accept={float(out['info']['accept_prob'].mean()):.3f} "
+         f"divergences={int(out['info']['diverging'].sum())}")
+    if set(rows_seen) != {rows} or len(rows_seen) != launches["mnle_logprob_bwd"]:
+        raise AssertionError(f"hierarchical: K3 launched at {sorted(set(rows_seen))} rows, expected {rows}")
+    if theta.shape != (B, C * HIER_DRAWS, S, 5) or out["raw"].shape[:3] != (B, C, HIER_DRAWS):
+        raise AssertionError(f"hierarchical: output shapes {theta.shape}, {out['raw'].shape}")
+    if not bool(torch.isfinite(prior.log_prob(torch.from_numpy(theta.reshape(-1, 5)))).all()):
+        raise AssertionError("hierarchical: subject draws outside the prior's support")
+    k3_rows, w32, g = k3_first[rows]
+    check = _hold_fused(device, w32, *_k2k3_specs(), k3_rows, g)
+
+    # The fold's first call: the sampler's starting rows, as run_hierarchical_inference makes them.
+    bij = mcmc_transform(prior)
+    D, dim = model.theta_dim, model.dim(S)
+    center = torch.cat([model.mu_loc, model.log_tau_loc, torch.zeros(S * D, device=device)])
+    scale = torch.cat([model.mu_scale, model.log_tau_scale, torch.ones(S * D, device=device)])
+    q = center + 0.1 * scale * torch.randn((B * C * R, dim), generator=make_generator(child_seed(seed, 0), device),
+                                           device=device)
+    data = (torch.arange(B, device=device).repeat_interleave(C * R),
+            torch.as_tensor(geometric_ladder(R, conf["pt_beta_min"]), device=device).repeat(B * C))
+    _, _, vg = _hierarchical_density(model, bij, est, xs, ps)
+    value, grad = vg(q, data)
+    logp_plain, _, none = _hierarchical_density(model, bij, est, xs, ps, logprob_kernel="xla")
+    q_ = q.clone().requires_grad_(True)
+    v_auto = logp_plain(q_, data)
+    (g_auto,) = torch.autograd.grad(v_auto.sum(), q_)
+    v_auto = v_auto.detach()
+    err_v = float(((value - v_auto).abs() / v_auto.abs().clamp(min=1.0)).max())
+    err_g = float(((grad - g_auto).abs().amax(1) / g_auto.abs().amax(1).clamp(min=1.0)).max())
+    _log(f"[hierarchical] the fold's first value-and-gradient call ({B * C * R} rows x {S} subjects, closed form "
+         f"around one K3 launch) against autograd through the plain row function: value rel err={err_v:.3e} "
+         f"(limit 1e-4), gradient rel err per row={err_g:.3e} (limit 1e-3)")
+    if none is not None or not (err_v <= 1e-4 and err_g <= 1e-3 and bool(torch.isfinite(grad).all())):
+        raise AssertionError(f"hierarchical: the fold's closed form differs from autograd ({err_v}, {err_g})")
+    return {"launches": launches, "wall": wall, "calls": calls, "rows": rows, "check": check,
+            "value_rel_err": err_v, "grad_rel_err": err_g}
+
+
+def phase_snpe(device) -> dict:
+    """SNPE and SNLE at the example's shape (``examples/snpe_snle_choice_model.py``):
+    the BoxUniform prior, SNPE_THETAS thetas, x the mean choice over
+    VARIANT_REPS trials of the choice-only simulator (K1) at n_max 4,000,
+    t_max 2 s, two resample passes; ``train_snpe`` and ``train_snle`` with
+    their epochs capped at SNPE_EPOCHS; ``DirectPosterior.sample`` of
+    SNPE_DRAWS draws, every one inside the prior's support; and a short
+    ``make_posterior(x_o)`` NUTS run (4 chains, warmup SNPE_WARMUP,
+    SNPE_CHAIN_DRAWS draws a chain, trees capped at depth 6). K1 must have
+    launched."""
+    import torch
+
+    from sbi_for_diffusion_models_tpu_torch.distributions import BoxUniform
+    from sbi_for_diffusion_models_tpu_torch.models import choice_model_simulator_torch
+    from sbi_for_diffusion_models_tpu_torch.run_config import RUN_CONFIG_PARAMS
+    from sbi_for_diffusion_models_tpu_torch.snpe import train_snle, train_snpe
+    from sbi_for_diffusion_models_tpu_torch.utils.rng import make_generator
+
+    cfg = RUN_CONFIG_PARAMS.replace(TRAIN_MAX_EPOCHS=SNPE_EPOCHS, TRAIN_STOP_AFTER_EPOCHS=12, TRAIN_BATCH_SIZE=1024,
+                                    NUM_CHAINS=4, WARMUP_STEPS=SNPE_WARMUP, MCMC_MAX_TREE_DEPTH=6)
+
+    def run():
+        walls = {}
+        prior = BoxUniform(SNPE_LO, SNPE_HI)
+        t0 = time.perf_counter()
+        theta = prior.sample(make_generator(0, device), (SNPE_THETAS,))
+        choices = choice_model_simulator_torch(theta.repeat_interleave(VARIANT_REPS, 0), 1, resample_invalid=True,
+                                               max_resamples=2, **CHOICE_GRID)
+        x = choices.reshape(SNPE_THETAS, VARIANT_REPS).mean(1, keepdim=True)
+        theta_true = torch.tensor([0.5, 0.3, 1.5, 8.0, 0.1], device=device)
+        x_o = choice_model_simulator_torch(theta_true.repeat(VARIANT_REPS, 1), 2, resample_invalid=True,
+                                           max_resamples=2, **CHOICE_GRID).mean(0, keepdim=True)
+        torch.cuda.synchronize()
+        walls["simulate"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        post = train_snpe(cfg, prior, theta, x, seed=3)
+        walls["train_snpe"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        draws = post.sample((SNPE_DRAWS,), x_o[0], seed=4)
+        torch.cuda.synchronize()
+        walls["sample_snpe"] = time.perf_counter() - t0
+        inside = bool(torch.isfinite(prior.log_prob(draws)).all())
+        t0 = time.perf_counter()
+        flow, make_posterior = train_snle(cfg, prior, theta, x, seed=5)
+        walls["train_snle"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nle = make_posterior(x_o).sample((4 * SNPE_CHAIN_DRAWS,), seed=6)
+        torch.cuda.synchronize()
+        walls["mcmc_snle"] = time.perf_counter() - t0
+        metas = {"snpe": post.flow.train_meta, "snle": flow.train_meta}
+        _log(f"[snpe] x_o={float(x_o[0, 0]):.4f} walls_s={json.dumps({k: round(v, 3) for k, v in walls.items()})}")
+        for name, m in metas.items():
+            _log(f"[snpe] {name}: epochs={m['epochs']} steps_per_epoch={m['steps_per_epoch']} "
+                 f"train_ms_per_step={m['step_ms']:.3f} val_losses(first, best, last)="
+                 f"{[round(m['val_losses'][0], 4), round(m['best_val_loss'], 4), round(m['val_losses'][-1], 4)]}")
+        _log(f"[snpe] SNPE posterior mean={[round(v, 4) for v in draws.mean(0).tolist()]} draws inside the prior's "
+             f"support={inside}; SNLE posterior mean={[round(v, 4) for v in nle.mean(0).tolist()]}")
+        if tuple(draws.shape) != (SNPE_DRAWS, 5) or not inside:
+            raise AssertionError(f"snpe: {tuple(draws.shape)} draws, all inside the prior's support: {inside}")
+        if tuple(nle.shape) != (4 * SNPE_CHAIN_DRAWS, 5) or not bool(torch.isfinite(prior.log_prob(nle)).all()):
+            raise AssertionError(f"snpe: the SNLE posterior's draws {tuple(nle.shape)} are not all in the support")
+        for name, m in metas.items():
+            if not m["best_val_loss"] < m["val_losses"][0]:
+                raise AssertionError(f"snpe: {name}'s validation loss never fell below its first epoch's: {m}")
+        return {"walls": walls, "step_ms": {k: m["step_ms"] for k, m in metas.items()}}
+
+    out, launches = _launches_on("snpe", ("ddm_rt_choice",), run)
+    return {"launches": launches, **out}
+
+
 def measured_bounds(kernels: list, report: dict) -> None:
     """Add ``measured_bound_ms`` to every kernel of the line, and to its
     entry at the other size (``large``; K4's ``short_chain``): its
@@ -1897,8 +2234,8 @@ def measured_bounds(kernels: list, report: dict) -> None:
 
     fma, tra = report["issue_fma"]["ops_per_s"], report["issue_transcendental"]["ops_per_s"]
     for k in kernels:
-        for at in (k, k.get("large"), k.get("fold"), k.get("short_chain"), *k.get("pipeline", ()),
-                   *k.get("sharp", ()), *k.get("embed", ())):
+        for at in (k, k.get("large"), k.get("fold"), k.get("short_chain"), k.get("per_trial_sigma"),
+                   k.get("hierarchical"), *k.get("pipeline", ()), *k.get("sharp", ()), *k.get("embed", ())):
             if at is None:
                 continue
             if k["name"] == "ddm_rt_choice":
@@ -1952,6 +2289,9 @@ def main() -> int:
     sharp = phase_sharp(device)
     ens = phase_ensemble(device)
     emb = phase_embed(device, main_path["proposal"], main_path["z"], main_path["x"])
+    variants = phase_variants(device)
+    hier = phase_hierarchical(device)
+    snpe = phase_snpe(device)
     _log(f"[time] whole script after start-up: {time.perf_counter() - t_start:.1f} s")
 
     src = f"{PKG}/csrc"
@@ -1967,6 +2307,8 @@ def main() -> int:
         "launch_shape": k1["launch_shape"],
         "large": {"n": N_SIM, "ms": k1_large[0], "plain_ms": k1_large[1], "bound_ms": k1_large[2],
                   "bound_by": k1_large[3], "steps": k1_large[4]},
+        # The per-trial noise-scale instances (the 7-parameter model's sigma_a) on a 1,600-step window.
+        "per_trial_sigma": {k: v for k, v in variants["k1_sigma"].items() if k not in ("chi2_p", "ks_p")},
     }]
     for kname, label, f, rep, path in (
         ("mnle_logprob_fwd", "K2", "mnle_logprob.cu", "mnle_pallas.py:269", main_path),
@@ -1994,6 +2336,10 @@ def main() -> int:
                 for kind, n, k3_calls, c in pipe["checks"]]
             # The tail-sharp model's rows, and the embedded model's at context width 123.
             kernels[-1]["sharp"], kernels[-1]["embed"] = sharp["rows"][label], emb["rows"][label]
+            # The hierarchical fold's rows (B x C x R x S x T), on the coverage configuration's model.
+            kernels[-1]["hierarchical"] = {"n": hier["rows"], "launches": hier["launches"][kname],
+                                           "max_abs_err": hier["check"][label]["max_abs_err"],
+                                           **dict(zip(timed, hier["check"][label]["times"]))}
     # The fused kernels' tile height, as the source they were built from defines it, and ptxas's report of each
     # build (K1: of each instance, G lanes a trial with or without the collapsing bound); a spill fails the run.
     tile_rows = int(re.search(r"#define TILE_ROWS (\d+)", (ROOT / src / "mnle_tile.cuh").read_text())[1])
@@ -2002,8 +2348,9 @@ def main() -> int:
         if k["name"] == "ddm_rt_choice":
             k["ptxas"] = {}
             for e, v in found.items():
-                m = re.search(r"ddm_rt_choice_kernelILi(\d+)ELb([01])E", e)
-                k["ptxas"][f"G{m[1]}" + ("_collapse" if m[2] == "1" else "") if m else e] = v
+                m = re.search(r"ddm_rt_choice_kernelILi(\d+)ELb([01])ELb([01])E", e)
+                k["ptxas"][f"G{m[1]}" + ("_collapse" if m[2] == "1" else "") + ("_sig_rows" if m[3] == "1" else "")
+                           if m else e] = v
         elif k["name"].startswith("mnle_"):
             if len(found) != 1:
                 raise AssertionError(f"ptxas reported {len(found)} builds of {k['name']}, expected one: {sorted(ptxas)}")
@@ -2013,8 +2360,8 @@ def main() -> int:
         for v in found.values():
             if v.get("spill_stores", 0) or v.get("spill_loads", 0):
                 raise AssertionError(f"{k['name']} spills registers: {found}")
-    if len(kernels[0]["ptxas"]) != 6:
-        raise AssertionError(f"ptxas reported {len(kernels[0]['ptxas'])} K1 instances, expected 6: {sorted(ptxas)}")
+    if len(kernels[0]["ptxas"]) != 12:
+        raise AssertionError(f"ptxas reported {len(kernels[0]['ptxas'])} K1 instances, expected 12: {sorted(ptxas)}")
     fma = roof["report"]["issue_fma"]
     kernels.append({
         "name": "issue_ceiling", "route": "cuda", "source": f"{src}/issue_ceiling.cu",
@@ -2030,7 +2377,7 @@ def main() -> int:
         k["launches_by_path"] = {name: p["launches"][k["name"]] for name, p in (
             ("main", main_path), ("pulse", pulse_path), ("roofline", roof), ("slice", slice_path),
             ("resume", resume), ("train", train_path), ("sbc", sbc), ("pipeline", pipe), ("sharp", sharp),
-            ("ensemble", ens), ("embed", emb))}
+            ("ensemble", ens), ("embed", emb), ("variants", variants), ("hierarchical", hier), ("snpe", snpe))}
     measured_bounds(kernels, roof["report"])
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -20,9 +20,8 @@ Entry points run on the CUDA card unless given another ``device``
 importing the package itself loads nothing else: the names in ``__all__``
 (the JAX package's public names whose modules are ported, and the entry
 points of ``mnle``, ``analysis`` and ``pipeline``) are imported from their
-modules when first asked for. Names whose module is not ported yet
-(``train_snpe``, ``HierarchicalModel``, the choice-only and 7-parameter
-simulators, ...) raise ``AttributeError``.
+modules when first asked for. Every public name of the JAX package's root
+has its counterpart here; multi-device (``parallel``) is not ported.
 """
 
 __version__ = "0.1.0"
@@ -32,7 +31,8 @@ _MODULES = {
     "distributions": ("Beta", "BoxUniform", "LogNormal", "MultipleIndependent", "Normal", "Uniform",
                       "mcmc_transform"),
     "proposals": ("ExtendedProposal", "PulseSequenceProposal"),
-    "models": ("RTChoiceModelParams", "generate_pulse_matrix", "generate_pulse_matrix_numpy",
+    "models": ("ChoiceModelParams", "RTChoiceModelParams", "choice_model_simulator", "choice_model_simulator_torch",
+               "generate_pulse_sides", "generate_pulse_matrix", "generate_pulse_matrix_numpy",
                "n_pulses_max_from_schedule", "pack_x_rt_choice", "pulse_schedule", "rt_choice_model_simulator",
                "rt_choice_model_simulator_torch", "simulate_session_data_rt_choice"),
     "data_simulator": ("sim_wrapper", "simulate_observed_session", "simulate_training_set_with_conditions",
@@ -45,6 +45,9 @@ _MODULES = {
     "analysis": ("pairplot", "sbc_uniformity_stats"),
     "pipeline": ("build_prior_theta", "main"),
     "datasets": ("make_x_from_rat_df", "split_by_subject"),
+    "snpe": ("DirectPosterior", "train_snle", "train_snpe"),
+    "models.hierarchical": ("HierarchicalModel", "run_hierarchical_inference", "simulate_hierarchical_sessions"),
+    "models.pulse_ddm_7p": ("rt_choice_model_simulator_7p", "simulate_session_data_7p"),
 }
 _EXPORTS = {name: module for module, names in _MODULES.items() for name in names}
 __all__ = ["constants"] + list(_EXPORTS)

@@ -1,10 +1,15 @@
-"""Simulators (PyTorch port): the RT+choice pulse DDM.
-
-The choice-only model's names (``ChoiceModelParams``,
-``choice_model_simulator``, ``choice_model_simulator_torch``,
-``generate_pulse_sides``) are not ported yet.
+"""Simulators (PyTorch port): the RT+choice pulse DDM and the choice-only
+model, as the JAX package's ``models`` exports them. The 7-parameter model
+(``pulse_ddm_7p``) and the hierarchical model (``hierarchical``) are
+submodules here, as there.
 """
 
+from .choice_model import (
+    ChoiceModelParams,
+    choice_model_simulator,
+    choice_model_simulator_torch,
+    generate_pulse_sides,
+)
 from .rt_choice_model import (
     RTChoiceModelParams,
     as_pulse_tensor,
@@ -19,6 +24,10 @@ from .rt_choice_model import (
 )
 
 __all__ = [
+    "ChoiceModelParams",
+    "choice_model_simulator",
+    "choice_model_simulator_torch",
+    "generate_pulse_sides",
     "RTChoiceModelParams",
     "as_pulse_tensor",
     "generate_pulse_matrix",

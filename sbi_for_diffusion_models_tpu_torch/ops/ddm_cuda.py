@@ -14,12 +14,19 @@ of N and the card (``k1_launch_shape``): its SM count and resident blocks
 runs). No argument chooses it, and every shape gives the
 same bits: a trial's noise depends only on (seed, trial index, step).
 ``K1_LAST_LAUNCH`` holds the N, G and blocks of the last launch.
+
+``mu_sensory`` is one float for every trial, or an (N,) tensor, one noise
+scale a trial (the 7-parameter model's sigma_a): the wrapper then passes
+K1 the (N,) array ``sigma * sqrt(dt)``, computed as the plain version
+computes it (``ddm_scan.noise_scale``), and K1 runs its per-trial
+instances; with a float those are not run and the scalar instances are
+unchanged.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -27,7 +34,7 @@ import torch
 from ..constants import DT_CHOICE, T_MAX
 from ..utils.rng import as_seed
 from ._cuda import CudaKernel, check_cuda_tensor, stream_handle
-from .ddm_scan import ddm_rt_choice_scan
+from .ddm_scan import ddm_rt_choice_scan, noise_scale
 
 __all__ = ["ddm_rt_choice_cuda", "k1_launch_shape", "k1_noise_mismatches", "K1", "K1_GROUP_SIZES", "K1_LANES_PER_SM",
            "K1_LAST_LAUNCH", "K1_THREADS", "K1_TRIALS_PER_GROUP"]
@@ -36,7 +43,7 @@ K1 = CudaKernel(
     "ddm_rt_choice",
     "ddm_rt_choice.cu",
     "sdm_ddm_rt_choice",
-    [ctypes.c_void_p] * 4
+    [ctypes.c_void_p] * 5
     + [ctypes.c_int] * 3
     + [ctypes.c_float] * 5
     + [ctypes.c_uint64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
@@ -93,20 +100,21 @@ def k1_noise_mismatches(device) -> int:
 _RESIDENT: dict[tuple, dict[int, int]] = {}
 
 
-def _card_capacity(device: torch.device, collapse: bool) -> tuple[int, dict[int, int]]:
+def _card_capacity(device: torch.device, collapse: bool, sig_rows: bool = False) -> tuple[int, dict[int, int]]:
     """(SM count, {G: resident blocks an SM}) of the kernels that run for
-    ``collapse``, asked of the card once per device."""
+    ``collapse`` and a per-trial noise scale (``sig_rows``), asked of the
+    card once per device."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    key = (index, collapse)
+    key = (index, collapse, sig_rows)
     if key not in _RESIDENT:
         fn = K1.library.load().sdm_ddm_rt_choice_resident_blocks
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
         blocks = {}
         with torch.cuda.device(index):
             for g in K1_GROUP_SIZES:
                 b = ctypes.c_int(0)
-                err = fn(g, int(collapse), ctypes.byref(b))
+                err = fn(g, int(collapse), int(sig_rows), ctypes.byref(b))
                 if err != 0:
                     raise RuntimeError(f"ddm_rt_choice: occupancy query failed for G={g}: cudaError {err}")
                 blocks[g] = b.value
@@ -119,19 +127,23 @@ def ddm_rt_choice_cuda(
     pulse_sides: torch.Tensor,
     seed: int = 0,
     *,
-    mu_sensory: float = 1.0,
+    mu_sensory: Union[float, torch.Tensor] = 1.0,
     collapse_rate: float = 0.0,
     dt: float = float(DT_CHOICE),
     t_max: float = float(T_MAX),
     steps_per_pulse: int = 200,
     n_max: Optional[int] = None,
 ) -> torch.Tensor:
-    """theta (N, 5), pulse_sides (N, P >= n_max/steps_per_pulse) ->
-    (N, 2) float32 [rt, choice], choice in {0, 1, 2}."""
+    """theta (N, 5), pulse_sides (N, P >= n_max/steps_per_pulse), mu_sensory
+    a float or (N,) -> (N, 2) float32 [rt, choice], choice in {0, 1, 2}."""
     if n_max is None:
         n_max = int(t_max / dt)
     if n_max % steps_per_pulse != 0:
         raise ValueError(f"n_max={n_max} must be divisible by steps_per_pulse={steps_per_pulse}")
+    if isinstance(mu_sensory, torch.Tensor) and (mu_sensory.shape != (theta.shape[0],)
+                                                 or mu_sensory.device != theta.device):
+        raise ValueError(f"a per-trial mu_sensory must be ({theta.shape[0]},) on {theta.device}, got "
+                         f"{tuple(mu_sensory.shape)} on {mu_sensory.device}")
     if not theta.is_cuda:
         return ddm_rt_choice_scan(
             theta, pulse_sides, seed, mu_sensory=mu_sensory, collapse_rate=collapse_rate,
@@ -156,15 +168,20 @@ def ddm_rt_choice_cuda(
     s_t = pulse_sides[:, :n_chunks].t().contiguous()
     check_cuda_tensor("theta^T", theta_t, (5, N))
     check_cuda_tensor("pulse_sides^T", s_t, (n_chunks, N))
+    sig_rows = None
+    if isinstance(mu_sensory, torch.Tensor):
+        sig_rows = noise_scale(mu_sensory, dt, theta.device).contiguous()
+        check_cuda_tensor("sigma_sqrt_dt", sig_rows, (N,))
     out = torch.empty((N, 2), dtype=torch.float32, device=theta.device)
     if N == 0:
         return out
     next_trial = torch.empty((1,), dtype=torch.int32, device=theta.device)  # the refill counter, zeroed by K1
-    sm_count, resident = _card_capacity(theta.device, float(np.float32(collapse_rate)) != 0.0)
+    sm_count, resident = _card_capacity(theta.device, float(np.float32(collapse_rate)) != 0.0, sig_rows is not None)
     G, blocks = k1_launch_shape(N, steps_per_pulse, sm_count, resident)
-    sig = float(np.float32(mu_sensory) * np.sqrt(np.float32(dt)))
+    sig = 0.0 if sig_rows is not None else float(np.float32(mu_sensory) * np.sqrt(np.float32(dt)))
     K1(
-        theta_t.data_ptr(), s_t.data_ptr(), out.data_ptr(), next_trial.data_ptr(),
+        theta_t.data_ptr(), s_t.data_ptr(), None if sig_rows is None else sig_rows.data_ptr(), out.data_ptr(),
+        next_trial.data_ptr(),
         N, n_max, steps_per_pulse,
         float(dt), float(t_max), float(t_max) - 1e-6, sig, float(collapse_rate),
         as_seed(seed), G, blocks, stream_handle(theta.device),

@@ -24,14 +24,15 @@ reciprocal or double-precision shortcut inside PyTorch's elementwise ops).
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
+import numpy as np
 import torch
 
 from ..constants import DT_CHOICE, T_MAX
 from ..utils.rng import child_seed, make_generator
 
-__all__ = ["sanitize_theta", "ddm_rt_choice_scan"]
+__all__ = ["sanitize_theta", "noise_scale", "ddm_rt_choice_scan", "ddm_choice_scan"]
 
 
 def sanitize_theta(theta: torch.Tensor, t_max: float = float(T_MAX)):
@@ -51,12 +52,21 @@ def _f32(x, device) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32, device=device)
 
 
+def noise_scale(mu_sensory, dt: float, device) -> torch.Tensor:
+    """sigma * sqrt(dt) in float32, as the JAX scan computes it: a scalar
+    for a float ``mu_sensory``, one per trial for an (N,) tensor. sqrt(dt)
+    is rounded to float32 on the host (the correctly rounded root of
+    float32(dt)), so a tensor ``mu_sensory`` on the card costs one
+    elementwise kernel and no copy that waits for the stream."""
+    return torch.as_tensor(mu_sensory, dtype=torch.float32, device=device) * float(np.sqrt(np.float32(dt)))
+
+
 def ddm_rt_choice_scan(
     theta: torch.Tensor,
     pulse_sides: torch.Tensor,
     seed: int = 0,
     *,
-    mu_sensory: float = 1.0,
+    mu_sensory: Union[float, torch.Tensor] = 1.0,
     collapse_rate: float = 0.0,
     dt: float = float(DT_CHOICE),
     t_max: float = float(T_MAX),
@@ -68,8 +78,10 @@ def ddm_rt_choice_scan(
     """Batched RT+choice pulse-DDM simulator.
 
     theta: (N, 5) [a0_frac, lam, v, B, t_nd]; pulse_sides: (N, P) in {+1,-1}
-    with P >= n_max / steps_per_pulse. Returns (N, 2) float32 [rt, choice],
-    choice in {0., 1., 2.} (2 = censored), on theta's device.
+    (or real-valued, as the 7-parameter model's noisy pulses) with P >=
+    n_max / steps_per_pulse; ``mu_sensory`` a float or a per-trial (N,)
+    tensor (the 7-parameter model's sigma_a). Returns (N, 2) float32 [rt,
+    choice], choice in {0., 1., 2.} (2 = censored), on theta's device.
     """
     if n_max is None:
         n_max = int(t_max / dt)
@@ -85,7 +97,7 @@ def ddm_rt_choice_scan(
     dtf = _f32(dt, dev)
     t_maxf = _f32(t_max, dev)
     n_steps = torch.clamp(torch.floor((t_maxf - t_nd) / dtf).to(torch.int32), 0, n_max)
-    sigma_sqrt_dt = _f32(mu_sensory, dev) * torch.sqrt(dtf)
+    sigma_sqrt_dt = noise_scale(mu_sensory, dt, dev)
     crate = _f32(collapse_rate, dev)
     if noise is None:
         def noise(c):
@@ -127,3 +139,55 @@ def ddm_rt_choice_scan(
     outcome = torch.where(hit, choice, torch.full_like(choice, 2))
     rt = torch.clamp(t_nd + hit_step.to(torch.float32) * dtf, 1e-6, float(t_max))
     return torch.stack([rt, outcome.to(torch.float32)], dim=-1)
+
+
+def ddm_choice_scan(
+    theta: torch.Tensor,
+    seed: int = 0,
+    *,
+    mu_sensory: float = 1.0,
+    p_success: float = 0.75,
+    max_resamples: int = 0,
+    dt: float = float(DT_CHOICE),
+    t_max: float = float(T_MAX),
+    steps_per_pulse: int = 200,
+    chunk_steps: int = 200,
+    n_max: Optional[int] = None,
+) -> torch.Tensor:
+    """Choice-only pulse-DDM: theta (N, 5) -> (N,) int32 choices in {-1, 0,
+    1}, -1 where no bound was hit (censored, invalid).
+
+    Counterpart of the JAX ``ddm_choice_scan``. Each pass draws its stimulus
+    on theta's device (correct side 50/50 a trial, each pulse matching it
+    with probability ``p_success``) and simulates through
+    ``models/rt_choice_model.dispatch_sim_kernel()``: kernel K1 for CUDA
+    tensors, this module's plain scan for CPU tensors. With
+    ``max_resamples > 0`` up to that many more passes re-run the invalid
+    trials alone, each with fresh noise and a fresh stimulus, and stop once
+    none is left. Pass i (0 the first) draws from ``child_seed(seed, i)``.
+    """
+    from ..models.rt_choice_model import dispatch_sim_kernel, generate_pulse_matrix
+
+    if n_max is None:
+        n_max = int(t_max / dt)
+    if n_max % chunk_steps != 0:
+        raise ValueError(f"n_max={n_max} must be divisible by chunk_steps={chunk_steps}")
+    dev = theta.device
+    N = theta.shape[0]
+    P = -(-n_max // steps_per_pulse)
+    run = dispatch_sim_kernel()
+
+    def one_pass(th, pass_seed: int) -> torch.Tensor:
+        s = generate_pulse_matrix(make_generator(child_seed(pass_seed, 1), dev), th.shape[0], P, p_success=p_success)
+        x = run(th, s, child_seed(pass_seed, 0), mu_sensory=float(mu_sensory), collapse_rate=0.0,
+                steps_per_pulse=steps_per_pulse, n_max=n_max, dt=dt, t_max=t_max, chunk_steps=chunk_steps)
+        out = x[:, 1].to(torch.int32)
+        return torch.where(out == 2, torch.full_like(out, -1), out)
+
+    out = one_pass(theta, child_seed(seed, 0)) if N else torch.zeros((0,), dtype=torch.int32, device=dev)
+    for i in range(int(max_resamples)):
+        invalid = torch.nonzero(out < 0).reshape(-1)
+        if invalid.numel() == 0:
+            break
+        out[invalid] = one_pass(theta[invalid], child_seed(seed, i + 1))
+    return out

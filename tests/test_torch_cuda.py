@@ -76,6 +76,24 @@ def test_k1_is_deterministic_per_seed_and_differs_across_seeds():
     assert set(a[:, 1].unique().tolist()) <= {0.0, 1.0, 2.0}
 
 
+@pytest.mark.parametrize("collapse", [0.0, 2.0])
+def test_k1_per_trial_noise_scale(collapse):
+    """K1's per-trial noise-scale instances: at sigma_i = 0 the plain scan's
+    bits (and the scalar launch's at 0), at sigma_i all equal to 1 the
+    scalar launch's bits, and with noise other bits than at sigma_i = 1."""
+    theta, s = _theta_and_pulses(4096, seed=2)
+    kw = dict(KW, collapse_rate=collapse)
+    zero, ones = torch.zeros(4096, device=DEV), torch.ones(4096, device=DEV)
+    got = ddm_rt_choice_cuda(theta, s, 1, mu_sensory=zero, **kw)
+    assert torch.equal(got, ddm_rt_choice_scan(theta, s, 2, mu_sensory=zero, chunk_steps=200, **kw))
+    assert torch.equal(got, ddm_rt_choice_cuda(theta, s, 1, mu_sensory=0.0, **kw))
+    assert torch.equal(ddm_rt_choice_cuda(theta, s, 3, mu_sensory=ones, **kw),
+                       ddm_rt_choice_cuda(theta, s, 3, mu_sensory=1.0, **kw))
+    sigma = 0.5 + torch.rand(4096, generator=make_generator(4, DEV), device=DEV)
+    assert not torch.equal(ddm_rt_choice_cuda(theta, s, 3, mu_sensory=sigma, **kw),
+                           ddm_rt_choice_cuda(theta, s, 3, mu_sensory=ones, **kw))
+
+
 @functools.lru_cache(maxsize=None)
 def _k1_fixture():
     return k1_fixture.load()

@@ -1,6 +1,6 @@
 """PyTorch port: the public names (the package root, ``models`` and
-``nets`` against the JAX package's ``__init__`` lists, names whose module is
-not ported raising ``AttributeError``) and the small modules behind them,
+``nets`` against the JAX package's ``__init__`` lists, every one ported) and
+the small modules behind them,
 each against the JAX package: ``datasets``, ``utils/debug``, the ``Normal``
 / ``Uniform`` / ``BoxUniform`` distributions, ``RTChoiceModelParams`` and
 the single-trial ``rt_choice_model_simulator``."""
@@ -23,13 +23,6 @@ from sbi_for_diffusion_models_tpu_torch import distributions as td
 from sbi_for_diffusion_models_tpu_torch.models import rt_choice_model as tmodel
 from sbi_for_diffusion_models_tpu_torch.utils import debug as tdebug
 
-# Names whose module is not ported yet (ROADMAP.md, Queue 1).
-LATER = {
-    "ChoiceModelParams", "choice_model_simulator", "choice_model_simulator_torch", "generate_pulse_sides",
-    "DirectPosterior", "train_snle", "train_snpe", "HierarchicalModel", "run_hierarchical_inference",
-    "simulate_hierarchical_sessions", "rt_choice_model_simulator_7p", "simulate_session_data_7p",
-}
-
 
 def _jax_public(module):
     """The names the JAX module's own imports bind (its submodules aside)."""
@@ -38,25 +31,30 @@ def _jax_public(module):
 
 
 def test_root_exports_every_ported_jax_name():
+    """The root exports every public name of the JAX package's root (and
+    the port's ``MNLEEnsemble`` / ``load_ensemble``), each bound to an
+    object of the same kind and name; an unknown name raises."""
     jax_names = _jax_public(jpkg) - {"annotations"}
-    assert set(port.__all__) - {"MNLEEnsemble", "load_ensemble"} == jax_names - LATER
+    assert set(port.__all__) - {"MNLEEnsemble", "load_ensemble"} == jax_names
     for name in port.__all__:
         assert getattr(port, name) is not None
+    for name in jax_names - {"constants"}:
+        got, want = getattr(port, name), getattr(jpkg, name)
+        assert type(got).__name__ == type(want).__name__
+        assert getattr(got, "__name__", name) == getattr(want, "__name__", name)
     assert port.constants.T_MAX == jpkg.constants.T_MAX and port.MNLEEnsemble.__name__ == "MNLEEnsemble"
-    for name in LATER:
-        with pytest.raises(AttributeError):
-            getattr(port, name)
+    with pytest.raises(AttributeError):
+        getattr(port, "not_a_name")
 
 
 @pytest.mark.parametrize("sub", ["models", "nets"])
 def test_subpackage_exports_match_jax(sub):
     jmod = importlib.import_module(f"sbi_for_diffusion_models_tpu.{sub}")
     tmod = importlib.import_module(f"sbi_for_diffusion_models_tpu_torch.{sub}")
-    assert set(tmod.__all__) == set(jmod.__all__) - LATER
+    assert set(tmod.__all__) == set(jmod.__all__)
     for name in tmod.__all__:
         assert getattr(tmod, name) is not None
-    for name in set(jmod.__all__) & LATER:
-        assert not hasattr(tmod, name)
+        assert getattr(getattr(tmod, name), "__name__", name) == getattr(getattr(jmod, name), "__name__", name)
 
 
 def _table():

@@ -456,9 +456,16 @@ def test_package_exports_the_training_entry_points():
         if name != "constants":
             assert getattr(port, name) is getattr(importlib.import_module(f"{port.__name__}.{port._EXPORTS[name]}"), name)
     assert port.train_mnle is tmnle.train_mnle and port.build_mnle is build_mnle
-    for name in ("train_snpe", "train_snle", "DirectPosterior", "HierarchicalModel", "run_hierarchical_inference",
-                 "simulate_hierarchical_sessions", "rt_choice_model_simulator_7p", "simulate_session_data_7p",
-                 "ChoiceModelParams", "choice_model_simulator", "choice_model_simulator_torch",
-                 "generate_pulse_sides"):
-        with pytest.raises(AttributeError):
-            getattr(port, name)  # not ported
+    from sbi_for_diffusion_models_tpu_torch import snpe
+    from sbi_for_diffusion_models_tpu_torch.models import choice_model, hierarchical, pulse_ddm_7p
+
+    for module, names in ((snpe, ("train_snpe", "train_snle", "DirectPosterior")),
+                          (hierarchical, ("HierarchicalModel", "run_hierarchical_inference",
+                                          "simulate_hierarchical_sessions")),
+                          (pulse_ddm_7p, ("rt_choice_model_simulator_7p", "simulate_session_data_7p")),
+                          (choice_model, ("ChoiceModelParams", "choice_model_simulator", "choice_model_simulator_torch",
+                                          "generate_pulse_sides"))):
+        for name in names:  # ported since: each from the module that defines it
+            assert name in port.__all__ and getattr(port, name) is getattr(module, name)
+    with pytest.raises(AttributeError):
+        getattr(port, "train_snpe_v2")
