@@ -137,15 +137,19 @@ port's paths once each through their public entry points:
    flagship and pulse-grid paths (phases 6 and 7) also hold their models'
    ``sample`` against the CPU's plain path (the pulse model: the slot head
    and the circular splines' inverse);
-16. the variants path: ``choice_model_simulator_torch`` at the SNPE
-   example's shape (20,000 thetas x 8 trials at n_max 4,000, t_max 2 s; one
-   pass, then two resample passes, each timed with its share of -1) and
-   ``simulate_session_data_7p`` for one session of 1,200 trials (K1's
+16. the variants path: ``ddm_choice_scan`` at the SNPE example's shape, as
+   the example calls it (20,000 thetas x 8 trials at n_max 4,000, t_max 2
+   s; one pass, then two resample passes, each timed with its share of -1),
+   ``choice_model_simulator_torch`` on the same trials at its default grid
+   the same two ways, and ``simulate_session_data_7p`` for one session of 1,200 trials (K1's
    per-trial noise-scale instances); K1 must have launched. Then K1's
    per-trial noise scale against the plain scan at 4,096 trials on a
    1,600-step window: bit for bit at sigma = 0, with noise by chi-square
    and KS (p > P_MIN), and at sigma_i all 1 equal to the scalar launch's
-   bits (the K1 fixture of phase 2 holds the scalar instances);
+   bits; and at 131,072 trials (groups refill) with each trial's sigma
+   drawn from SIGMA_LEVELS, each row equal to the scalar launch at its own
+   level and the rows at 0 to the plain scan (the K1 fixture of phase 2
+   holds the scalar instances);
 17. the hierarchical path at the coverage configuration
    (``artifacts/hierarchical_coverage_pt_a.json``: ``mnle_1m_censor.npz``,
    4 datasets x 4 subjects x 20 trials, 4 chains x 6 rungs in one sampler
@@ -251,8 +255,9 @@ SAMPLE_CARD, SAMPLE_CPU = 131_072, 8_192  # ``sample`` draws on the card and on 
 # thetas from its BoxUniform prior, x the mean choice of 8 trials of the choice-only model at n_max 4,000 and t_max
 # 2 s with two resample passes.
 VARIANT_K1_N = 4_096  # K1's per-trial noise scale against the plain scan, on a 1,600-step window
+SIGMA_LEVELS = (0.0, 0.5, 1.0, 2.0)  # each trial's sigma drawn from these: its rows have that scalar launch's bits
 VARIANT_THETAS, VARIANT_REPS, VARIANT_7P_TRIALS = 20_000, 8, 1_200
-CHOICE_GRID = {"t_max": 2.0, "n_max": 4_000}
+CHOICE_GRID = {"t_max": 2.0, "n_max": 4_000, "steps_per_pulse": 200, "chunk_steps": 200}
 SNPE_LO, SNPE_HI = (0.1, 0.05, 0.2, 2.0, 0.0), (0.9, 1.0, 3.0, 20.0, 0.5)
 SNPE_THETAS, SNPE_DRAWS = 20_000, 2_000
 SNPE_EPOCHS = 30  # the example's 60 epochs, cut for time (patience 12, as there)
@@ -1924,14 +1929,55 @@ def phase_embed(device, proposal, z, x) -> dict:
             "replace_rel_err": err}
 
 
-def _k1_per_trial_sigma(device, n: int = VARIANT_K1_N, n_max: int = 1_600, spp: int = 200, seed: int = 29) -> dict:
+def _k1_sigma_by_trial(device, kernel, plain, n: int) -> dict:
+    """Each trial's own sigma: sigma_i drawn from SIGMA_LEVELS at random per
+    trial, ``n`` trials (more than the launch's groups hold, so groups
+    refill); ``kernel(mu, seed)`` and ``plain(mu, seed)`` simulate them. The rows at each level must have the scalar launch's bits at
+    that level with the same seed (a trial's noise depends only on the
+    seed, the trial and the step), and the rows at 0 the noise-free plain
+    scan's. A trial that took another trial's sigma, or kept its group's
+    previous one, differs from its own level's launch wherever the two
+    levels give other outputs (``distinguishable``: the share of rows whose
+    scalar launches at their own and the next level differ)."""
+    import torch
+
+    from sbi_for_diffusion_models_tpu_torch.ops.ddm_cuda import K1_LAST_LAUNCH, K1_THREADS
+    from sbi_for_diffusion_models_tpu_torch.utils.rng import make_generator
+
+    levels = torch.tensor(SIGMA_LEVELS, device=device)
+    level = torch.randint(0, len(SIGMA_LEVELS), (n,), generator=make_generator(37, device), device=device)
+    got = kernel(levels[level], 9)
+    groups = K1_LAST_LAUNCH["blocks"] * K1_THREADS // K1_LAST_LAUNCH["G"]
+    scalar = [kernel(float(v), 9) for v in SIGMA_LEVELS]
+    differing = {str(v): int((got[level == k] != scalar[k][level == k]).any(1).sum())
+                 for k, v in enumerate(SIGMA_LEVELS)}
+    zero = level == SIGMA_LEVELS.index(0.0)
+    zero_plain = int((got[zero] != plain(0.0, 2)[zero]).any(1).sum())
+    other = torch.stack(scalar)[(level + 1) % len(SIGMA_LEVELS), torch.arange(n, device=device)]
+    own = torch.stack(scalar)[level, torch.arange(n, device=device)]
+    distinguishable = float((own != other).any(1).double().mean())
+    _log(f"[variants K1 per-trial sigma] sigma_i from {SIGMA_LEVELS} per trial, n={n} on {groups} groups "
+         f"(G={K1_LAST_LAUNCH['G']}): rows differing from the scalar launch at their level={differing}, "
+         f"sigma_i=0 rows differing from the plain scan={zero_plain}; distinguishable={distinguishable:.4f}")
+    if groups >= n:
+        raise AssertionError(f"variants: {n} trials on {groups} groups: no group refilled; raise n")
+    if any(differing.values()) or zero_plain:
+        raise AssertionError(f"variants: K1's per-trial sigma is not each trial's own: {differing}, {zero_plain}")
+    if not distinguishable > 0.02:
+        raise AssertionError(f"variants: the levels give the same rows ({distinguishable}): the check sees nothing")
+    return {"n": n, "groups": groups, "rows_differing": differing, "zero_rows_differing_from_plain": zero_plain,
+            "distinguishable": distinguishable}
+
+
+def phase_k1_sigma(device, n: int = VARIANT_K1_N, n_max: int = 1_600, spp: int = 200, seed: int = 29) -> dict:
     """K1's per-trial noise-scale instances against the plain scan repaired
     for an (N,) ``mu_sensory``, at ``n`` prior draws on an ``n_max``-step
     window: with sigma = 0 for every trial bit for bit (and equal to the
     scalar launch at 0); with sigma_i drawn from [0.5, 1.5] the same
     distribution (chi-square on the choices, KS on RT per choice, p >
-    P_MIN); with sigma_i all equal to 1 the scalar launch's bits. Then the
-    per-trial launch's time beside the scalar one's at the same trials."""
+    P_MIN); with sigma_i all equal to 1 the scalar launch's bits; and at
+    N_SIM trials, each trial's sigma its own (``_k1_sigma_by_trial``).
+    Then the per-trial launch's time beside the scalar one's at ``n``."""
     import numpy as np
     import torch
     from scipy import stats
@@ -1943,8 +1989,9 @@ def _k1_per_trial_sigma(device, n: int = VARIANT_K1_N, n_max: int = 1_600, spp: 
     from sbi_for_diffusion_models_tpu_torch.utils.rng import make_generator
 
     gen = make_generator(seed, device)
-    theta = build_prior_theta().sample(gen, (n,))
-    s = generate_pulse_matrix(gen, n, n_max // spp)
+    theta_all = build_prior_theta().sample(gen, (N_SIM,))
+    s_all = generate_pulse_matrix(gen, N_SIM, n_max // spp)
+    theta, s = theta_all[:n], s_all[:n]
     sigma = 0.5 + torch.rand((n,), generator=gen, device=device)
     kw = dict(steps_per_pulse=spp, n_max=n_max)
 
@@ -1975,56 +2022,79 @@ def _k1_per_trial_sigma(device, n: int = VARIANT_K1_N, n_max: int = 1_600, spp: 
                              f"{zero_scalar_diff}) or at uniform sigma ({uniform_diff})")
     if min([chi2_p] + ks_p) <= P_MIN:
         raise AssertionError(f"variants: K1's per-trial sigma and the plain scan differ in distribution")
+    by_trial = _k1_sigma_by_trial(
+        device,
+        lambda mu, sd: ddm_rt_choice_cuda(theta_all, s_all, sd, mu_sensory=mu, **kw),
+        lambda mu, sd: ddm_rt_choice_scan(theta_all, s_all, sd, mu_sensory=mu, chunk_steps=spp, **kw), N_SIM)
     # The per-trial instance against the scalar one on the same work (sigma_i = 1: the same bits), in turns
-    # (scalar, per-trial, per-trial, scalar); then the per-trial launch at the varied sigma_i.
-    turns = [_time_ms(lambda: kernel(1.0 if k in (0, 3) else ones, 3), 50, device) for k in range(4)]
-    scalar_ms, k_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    # (scalar, per-trial, per-trial, scalar, twice; the median of each side); then the per-trial launch at the
+    # varied sigma_i.
+    order = "sppsspps"
+    turns = [_time_ms(lambda: kernel(1.0 if side == "s" else ones, 3), 50, device) for side in order]
+    scalar_ms = float(np.median([t for t, side in zip(turns, order) if side == "s"]))
+    k_ms = float(np.median([t for t, side in zip(turns, order) if side == "p"]))
     varied_ms = _time_ms(lambda: kernel(sigma, 3), 50, device)
     p_ms = _time_ms(lambda: plain(ones, 4), 1, device)
     b_ms, b_by, steps = k1_bound(theta, kernel(ones, 3), n_max // spp)
-    _log(f"[variants K1 per-trial sigma] time n={n} window={n_max} at sigma_i = 1 in turns (scalar, per-trial, "
-         f"per-trial, scalar) {[round(t, 4) for t in turns]}: kernel_ms={k_ms:.4f} scalar_ms={scalar_ms:.4f} "
+    _log(f"[variants K1 per-trial sigma] time n={n} window={n_max} at sigma_i = 1 in turns ({order}: s scalar, "
+         f"p per-trial) {[round(t, 4) for t in turns]}: medians kernel_ms={k_ms:.4f} scalar_ms={scalar_ms:.4f} "
          f"plain_ms={p_ms:.4f} bound_ms={b_ms:.4g} ({b_by}) executed_trial_steps={steps}; at sigma_i in "
          f"[0.5, 1.5]: kernel_ms={varied_ms:.4f}")
     return {"n": n, "n_max": n_max, "max_abs_err": float((a - b).abs().max()), "ms": k_ms,
             "scalar_ms": scalar_ms, "varied_sigma_ms": varied_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "steps": steps, "chi2_p": chi2_p, "ks_p": ks_p, "zero_sigma_rows_differing": zero_diff}
+            "bound_by": b_by, "steps": steps, "chi2_p": chi2_p, "ks_p": ks_p, "zero_sigma_rows_differing": zero_diff,
+            "by_trial": by_trial}
 
 
 def phase_variants(device) -> dict:
-    """The choice-only and 7-parameter simulators through their entry
-    points: ``choice_model_simulator_torch`` at the SNPE example's shape
-    (VARIANT_THETAS thetas x VARIANT_REPS trials at n_max 4,000, t_max 2 s;
-    one pass, then with two resample passes, each timed, with its share of
-    -1), and ``simulate_session_data_7p`` for one session of
-    VARIANT_7P_TRIALS trials (K1's per-trial noise-scale instances). K1
-    must have launched. Then, after the counts are read, K1's per-trial
-    noise scale against the plain scan (``_k1_per_trial_sigma``)."""
+    """The choice-only and 7-parameter simulators: ``ddm_choice_scan`` at the
+    SNPE example's shape, as the example calls it (VARIANT_THETAS thetas x
+    VARIANT_REPS trials at n_max 4,000, t_max 2 s; one pass, then with two
+    resample passes, each timed, with its share of -1), the entry point
+    ``choice_model_simulator_torch`` on the same trials at its own (the JAX
+    function's) grid, the same two ways, and
+    ``simulate_session_data_7p`` for one session of VARIANT_7P_TRIALS trials
+    (K1's per-trial noise-scale instances). K1 must have launched. Then,
+    after the counts are read, K1's per-trial noise scale against the plain
+    scan (``phase_k1_sigma``)."""
     import torch
 
     from sbi_for_diffusion_models_tpu_torch.distributions import BoxUniform
     from sbi_for_diffusion_models_tpu_torch.models import choice_model_simulator_torch
     from sbi_for_diffusion_models_tpu_torch.models.pulse_ddm_7p import simulate_session_data_7p
+    from sbi_for_diffusion_models_tpu_torch.ops.ddm_scan import ddm_choice_scan
     from sbi_for_diffusion_models_tpu_torch.utils.rng import make_generator
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = fn()
+        torch.cuda.synchronize()
+        return x, (time.perf_counter() - t0) * 1e3
 
     def run():
         prior = BoxUniform(SNPE_LO, SNPE_HI)
         theta = prior.sample(make_generator(0, device), (VARIANT_THETAS,)).repeat_interleave(VARIANT_REPS, 0)
         out = {}
-        choice_model_simulator_torch(theta[:VARIANT_REPS], 0, **CHOICE_GRID)  # warm-up: the launch shape's query
-        for label, resample in (("one_pass", False), ("resampled", True)):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            x = choice_model_simulator_torch(theta, 1, resample_invalid=resample, max_resamples=2, **CHOICE_GRID)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
-            if tuple(x.shape) != (theta.shape[0], 1) or not set(x.unique().tolist()) <= {-1.0, 0.0, 1.0}:
-                raise AssertionError(f"variants: choice simulator gave {tuple(x.shape)}, {x.unique().tolist()}")
+        ddm_choice_scan(theta[:VARIANT_REPS], 0, **CHOICE_GRID)  # warm-up: the launch shape's query
+        for label, passes in (("one_pass", 0), ("resampled", 2)):
+            x, ms = timed(lambda: ddm_choice_scan(theta, 1, max_resamples=passes, **CHOICE_GRID))
+            if tuple(x.shape) != (theta.shape[0],) or not set(x.unique().tolist()) <= {-1, 0, 1}:
+                raise AssertionError(f"variants: choice scan gave {tuple(x.shape)}, {x.unique().tolist()}")
             out[label] = {"ms": ms, "invalid_share": float((x < 0).double().mean())}
-        _log(f"[variants] choice_model_simulator_torch {theta.shape[0]} trials ({VARIANT_THETAS} thetas x "
-             f"{VARIANT_REPS}) at {json.dumps(CHOICE_GRID)}: {json.dumps(out)}")
-        if not out["resampled"]["invalid_share"] <= out["one_pass"]["invalid_share"]:
-            raise AssertionError(f"variants: the resample passes left more invalid trials: {out}")
+        for label, resample in (("entry_point_one_pass", False), ("entry_point_resampled", True)):
+            x, ms = timed(lambda: choice_model_simulator_torch(theta, 1, resample_invalid=resample, max_resamples=2))
+            if tuple(x.shape) != (theta.shape[0], 1) or x.dtype != torch.float32 or \
+                    not set(x.unique().tolist()) <= {-1.0, 0.0, 1.0}:
+                raise AssertionError(f"variants: choice simulator gave {tuple(x.shape)} {x.dtype}, "
+                                     f"{x.unique().tolist()}")
+            out[label] = {"ms": ms, "invalid_share": float((x < 0).double().mean())}
+        _log(f"[variants] ddm_choice_scan {theta.shape[0]} trials ({VARIANT_THETAS} thetas x {VARIANT_REPS}) at "
+             f"{json.dumps(CHOICE_GRID)}, then choice_model_simulator_torch on them at its default grid (8 s), each "
+             f"with no and with two resample passes: {json.dumps(out)}")
+        for first in ("one_pass", "entry_point_one_pass"):
+            if not out[first.replace("one_pass", "resampled")]["invalid_share"] <= out[first]["invalid_share"]:
+                raise AssertionError(f"variants: the resample passes left more invalid trials: {out}")
         theta7 = torch.tensor([0.5, 0.3, 1.5, 8.0, 1.0, 0.1, 0.5], device=device)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2039,7 +2109,7 @@ def phase_variants(device) -> dict:
         return out
 
     out, launches = _launches_on("variants", ("ddm_rt_choice",), run)
-    return {"launches": launches, "choice": out, "k1_sigma": _k1_per_trial_sigma(device)}
+    return {"launches": launches, "choice": out, "k1_sigma": phase_k1_sigma(device)}
 
 
 def _hierarchical_setup(device):
@@ -2164,7 +2234,7 @@ def phase_snpe(device) -> dict:
     import torch
 
     from sbi_for_diffusion_models_tpu_torch.distributions import BoxUniform
-    from sbi_for_diffusion_models_tpu_torch.models import choice_model_simulator_torch
+    from sbi_for_diffusion_models_tpu_torch.ops.ddm_scan import ddm_choice_scan
     from sbi_for_diffusion_models_tpu_torch.run_config import RUN_CONFIG_PARAMS
     from sbi_for_diffusion_models_tpu_torch.snpe import train_snle, train_snpe
     from sbi_for_diffusion_models_tpu_torch.utils.rng import make_generator
@@ -2177,12 +2247,11 @@ def phase_snpe(device) -> dict:
         prior = BoxUniform(SNPE_LO, SNPE_HI)
         t0 = time.perf_counter()
         theta = prior.sample(make_generator(0, device), (SNPE_THETAS,))
-        choices = choice_model_simulator_torch(theta.repeat_interleave(VARIANT_REPS, 0), 1, resample_invalid=True,
-                                               max_resamples=2, **CHOICE_GRID)
-        x = choices.reshape(SNPE_THETAS, VARIANT_REPS).mean(1, keepdim=True)
+        choices = ddm_choice_scan(theta.repeat_interleave(VARIANT_REPS, 0), 1, max_resamples=2, **CHOICE_GRID)
+        x = choices.reshape(SNPE_THETAS, VARIANT_REPS).to(torch.float32).mean(1, keepdim=True)
         theta_true = torch.tensor([0.5, 0.3, 1.5, 8.0, 0.1], device=device)
-        x_o = choice_model_simulator_torch(theta_true.repeat(VARIANT_REPS, 1), 2, resample_invalid=True,
-                                           max_resamples=2, **CHOICE_GRID).mean(0, keepdim=True)
+        x_o = ddm_choice_scan(theta_true.repeat(VARIANT_REPS, 1), 2, max_resamples=2,
+                              **CHOICE_GRID).to(torch.float32).reshape(1, VARIANT_REPS).mean(1, keepdim=True)
         torch.cuda.synchronize()
         walls["simulate"] = time.perf_counter() - t0
         t0 = time.perf_counter()

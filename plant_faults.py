@@ -12,13 +12,17 @@ with the tile product of ``csrc/mnle_tile.cuh``), ``chip_smoke.phase_k2pk3p``
 for K2p/K3p (``csrc/mnle_pulse.cu``), at 1,200 and at 115,200 rows, each
 size on its own; ``chip_smoke.phase_k1_fixture`` for K1
 (``csrc/ddm_rt_choice.cu``: every case of the parent K1's committed
-outputs, bit for bit). The unchanged source runs every check. It prints the checks' lines
-for each run, then one JSON object as the last line: per fault and size,
-"passed" or "failed". It exits with 0 only if the unchanged source passes
-every check at both sizes and every fault fails at both.
+outputs, bit for bit) and ``chip_smoke.phase_k1_sigma`` for its per-trial
+noise scale (each trial's rows at its own sigma). The unchanged source runs
+every check. It prints the checks' lines for each run, then one JSON object
+as the last line: per fault and size, "passed" or "failed". It exits with 0
+only if the unchanged source passes every check at both sizes and every
+fault fails at both.
 
 Run from the root of a checkout on a machine with one CUDA card and nvcc:
-``python3 plant_faults.py``. The checkout itself is never changed.
+``python3 plant_faults.py [FAULT ...]``: with names, only those faults,
+and the unchanged source runs only their checks. The checkout itself is
+never changed.
 """
 
 from __future__ import annotations
@@ -82,8 +86,15 @@ FAULTS = {
     # K1: the chunk's kick lands on its second step.
     "k1_kick_on_the_second_step": (K1_FILE, "phase_k1_fixture", "const int koff = tr.chunk * steps_per_pulse - t;",
                                    "const int koff = tr.chunk * steps_per_pulse + 1 - t;"),
+    # K1's per-trial noise scale: a group's first trial takes the next trial's sigma.
+    "k1_sigma_of_the_next_trial": (K1_FILE, "phase_k1_sigma",
+                                   "float sig = SIG_ROWS ? __fmul_rn(mu_rows[j], sig_sqrt_dt)",
+                                   "float sig = SIG_ROWS ? __fmul_rn(mu_rows[(j + 1) % N], sig_sqrt_dt)"),
+    # K1's per-trial noise scale: a refilled group keeps its previous trial's sigma.
+    "k1_sigma_kept_on_refill": (K1_FILE, "phase_k1_sigma", "if (SIG_ROWS) sig = __fmul_rn(mu_rows[j], sig_sqrt_dt);",
+                                "if (SIG_ROWS) sig = sig;"),
 }
-PHASES = ("phase_k2k3", "phase_k2pk3p", "phase_k1_fixture")
+PHASES = ("phase_k2k3", "phase_k2pk3p", "phase_k1_fixture", "phase_k1_sigma")
 
 CHILD = """
 import json, sys, torch
@@ -91,7 +102,7 @@ import chip_smoke as cs
 torch.backends.cuda.matmul.allow_tf32 = False
 out = {}
 for phase in sys.argv[1:]:
-    for n in ((None,) if phase == "phase_k1_fixture" else (cs.ROWS_MAIN, cs.ROWS_SBC)):
+    for n in ((None,) if phase.startswith("phase_k1") else (cs.ROWS_MAIN, cs.ROWS_SBC)):
         try:
             getattr(cs, phase)(torch.device("cuda", 0), **({} if n is None else {"sizes": (n,)}))
             out[phase if n is None else f"{phase}@{n}"] = "passed"
@@ -117,17 +128,26 @@ def _copy_with_fault(dst: Path, fault) -> None:
         path.write_text(src.replace(old, new))
 
 
-def main() -> int:
+def main(names: list) -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("plant_faults: no CUDA device; the checks run only on a GPU", file=sys.stderr)
         return 2
+    unknown = set(names) - set(FAULTS)
+    if unknown:
+        print(f"plant_faults: no such fault: {sorted(unknown)}", file=sys.stderr)
+        return 2
+    chosen = {name: FAULTS[name] for name in FAULTS if not names or name in names or name == "none"}
     results = {}
-    for name, fault in FAULTS.items():
+    for name, fault in chosen.items():
         with tempfile.TemporaryDirectory() as tmp:
             _copy_with_fault(Path(tmp), fault)
-            phases = PHASES if fault is None else (fault[1],)
+            if fault is not None:
+                phases = (fault[1],)
+            else:  # the unchanged source runs every check, or those of the chosen faults
+                phases = PHASES if not names else tuple(p for p in PHASES if any(FAULTS[k][1] == p for k in names
+                                                                                 if FAULTS[k] is not None))
             proc = subprocess.run([sys.executable, "-c", CHILD, *phases], cwd=tmp, capture_output=True, text=True,
                                   timeout=900)
         print(f"== {name} (rc {proc.returncode})", flush=True)
@@ -147,4 +167,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -12,12 +12,11 @@ agree with the JAX package's in distribution, and exactly without noise.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Union
+from typing import Union
 
 import numpy as np
 import torch
 
-from ..constants import DT_CHOICE, T_MAX
 from ..ops.ddm_scan import ddm_choice_scan
 from ..run_config import RUN_CONFIG_PARAMS
 from ..utils.rng import as_seed
@@ -83,18 +82,14 @@ def choice_model_simulator_torch(
     p_success: float = cfg.P_SUCCESS,
     resample_invalid: bool = False,
     max_resamples: int = 50,
-    dt: float = float(DT_CHOICE),
-    t_max: float = float(T_MAX),
-    n_max: Optional[int] = None,
     device=None,
 ) -> torch.Tensor:
     """Batched choice-only simulator: theta (N, 5) or (5,) -> (N, 1)
     float32 in {0., 1.} (-1. invalid) on ``device`` (default: theta's
     device, the CUDA card for numpy input). With ``resample_invalid=True``
     invalid trials are re-run with fresh noise and stimulus, up to
-    ``max_resamples`` passes. ``dt``, ``t_max`` and ``n_max`` set the time
-    grid as ``ddm_choice_scan``'s do (the JAX function fixes them to these
-    defaults)."""
+    ``max_resamples`` passes. The time grid is ``ddm_choice_scan``'s
+    default; call that for another."""
     theta = _as_f32(theta, device)
     if theta.dim() == 1:
         theta = theta.reshape(1, -1)
@@ -102,6 +97,6 @@ def choice_model_simulator_torch(
         raise ValueError(f"Expected theta shape (N,5) or (5,), got {tuple(theta.shape)}")
     out = ddm_choice_scan(
         theta, as_seed(rng), mu_sensory=float(mu_sensory), p_success=float(p_success),
-        max_resamples=int(max_resamples) if resample_invalid else 0, dt=dt, t_max=t_max, n_max=n_max,
+        max_resamples=int(max_resamples) if resample_invalid else 0,
     )
     return out.to(torch.float32).reshape(-1, 1)

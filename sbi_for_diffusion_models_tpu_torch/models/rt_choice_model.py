@@ -48,17 +48,14 @@ def dispatch_sim_kernel(sim_kernel: Optional[str] = None):
     for CUDA tensors and runs the plain version for CPU tensors; "scan"
     gives the plain version on any device. The returned ``run(theta, s,
     seed, *, mu_sensory, collapse_rate, steps_per_pulse, n_max, dt=DT_CHOICE,
-    t_max=T_MAX, chunk_steps=None)`` takes ``mu_sensory`` as a float or an
-    (N,) tensor; ``chunk_steps`` (default ``min(cfg.SIM_CHUNK_STEPS,
-    steps_per_pulse)``) is the plain version's noise block, which K1 does
-    not have.
+    t_max=T_MAX)`` takes ``mu_sensory`` as a float or an (N,) tensor.
     """
     choice = sim_kernel or cfg.SIM_KERNEL
     if choice not in ("auto", "scan", "pallas"):
         raise ValueError(f"unknown sim kernel {choice!r}")
     if choice in ("auto", "pallas"):
         def run(theta, s, seed, *, mu_sensory, collapse_rate, steps_per_pulse, n_max,
-                dt=float(DT_CHOICE), t_max=float(T_MAX), chunk_steps=None):
+                dt=float(DT_CHOICE), t_max=float(T_MAX)):
             return ddm_rt_choice_cuda(
                 theta, s, seed, mu_sensory=mu_sensory, collapse_rate=collapse_rate,
                 dt=dt, t_max=t_max, steps_per_pulse=steps_per_pulse, n_max=n_max,
@@ -66,11 +63,11 @@ def dispatch_sim_kernel(sim_kernel: Optional[str] = None):
         return run
 
     def run(theta, s, seed, *, mu_sensory, collapse_rate, steps_per_pulse, n_max,
-            dt=float(DT_CHOICE), t_max=float(T_MAX), chunk_steps=None):
+            dt=float(DT_CHOICE), t_max=float(T_MAX)):
         return ddm_rt_choice_scan(
             theta, s, seed, mu_sensory=mu_sensory, collapse_rate=collapse_rate, dt=dt, t_max=t_max,
             steps_per_pulse=steps_per_pulse,
-            chunk_steps=chunk_steps or min(cfg.SIM_CHUNK_STEPS, steps_per_pulse), n_max=n_max,
+            chunk_steps=min(cfg.SIM_CHUNK_STEPS, steps_per_pulse), n_max=n_max,
         )
     return run
 

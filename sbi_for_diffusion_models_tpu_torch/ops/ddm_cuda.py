@@ -17,10 +17,10 @@ same bits: a trial's noise depends only on (seed, trial index, step).
 
 ``mu_sensory`` is one float for every trial, or an (N,) tensor, one noise
 scale a trial (the 7-parameter model's sigma_a): the wrapper then passes
-K1 the (N,) array ``sigma * sqrt(dt)``, computed as the plain version
-computes it (``ddm_scan.noise_scale``), and K1 runs its per-trial
-instances; with a float those are not run and the scalar instances are
-unchanged.
+K1 that (N,) array and sqrt(dt) rounded to float32, and K1's per-trial
+instances form each trial's sigma * sqrt(dt) in one float32 rounding, as
+the plain version's product; with a float those are not run and the
+scalar instances are unchanged.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ import torch
 from ..constants import DT_CHOICE, T_MAX
 from ..utils.rng import as_seed
 from ._cuda import CudaKernel, check_cuda_tensor, stream_handle
-from .ddm_scan import ddm_rt_choice_scan, noise_scale
+from .ddm_scan import ddm_rt_choice_scan
 
 __all__ = ["ddm_rt_choice_cuda", "k1_launch_shape", "k1_noise_mismatches", "K1", "K1_GROUP_SIZES", "K1_LANES_PER_SM",
            "K1_LAST_LAUNCH", "K1_THREADS", "K1_TRIALS_PER_GROUP"]
@@ -100,12 +100,12 @@ def k1_noise_mismatches(device) -> int:
 _RESIDENT: dict[tuple, dict[int, int]] = {}
 
 
-def _card_capacity(device: torch.device, collapse: bool, sig_rows: bool = False) -> tuple[int, dict[int, int]]:
+def _card_capacity(device: torch.device, collapse: bool, per_trial: bool = False) -> tuple[int, dict[int, int]]:
     """(SM count, {G: resident blocks an SM}) of the kernels that run for
-    ``collapse`` and a per-trial noise scale (``sig_rows``), asked of the
+    ``collapse`` and a per-trial noise scale (``per_trial``), asked of the
     card once per device."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    key = (index, collapse, sig_rows)
+    key = (index, collapse, per_trial)
     if key not in _RESIDENT:
         fn = K1.library.load().sdm_ddm_rt_choice_resident_blocks
         fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
@@ -114,7 +114,7 @@ def _card_capacity(device: torch.device, collapse: bool, sig_rows: bool = False)
         with torch.cuda.device(index):
             for g in K1_GROUP_SIZES:
                 b = ctypes.c_int(0)
-                err = fn(g, int(collapse), int(sig_rows), ctypes.byref(b))
+                err = fn(g, int(collapse), int(per_trial), ctypes.byref(b))
                 if err != 0:
                     raise RuntimeError(f"ddm_rt_choice: occupancy query failed for G={g}: cudaError {err}")
                 blocks[g] = b.value
@@ -168,19 +168,20 @@ def ddm_rt_choice_cuda(
     s_t = pulse_sides[:, :n_chunks].t().contiguous()
     check_cuda_tensor("theta^T", theta_t, (5, N))
     check_cuda_tensor("pulse_sides^T", s_t, (n_chunks, N))
-    sig_rows = None
+    mu_rows = None
     if isinstance(mu_sensory, torch.Tensor):
-        sig_rows = noise_scale(mu_sensory, dt, theta.device).contiguous()
-        check_cuda_tensor("sigma_sqrt_dt", sig_rows, (N,))
+        mu_rows = mu_sensory.to(torch.float32).contiguous()
+        check_cuda_tensor("mu_sensory", mu_rows, (N,))
     out = torch.empty((N, 2), dtype=torch.float32, device=theta.device)
     if N == 0:
         return out
     next_trial = torch.empty((1,), dtype=torch.int32, device=theta.device)  # the refill counter, zeroed by K1
-    sm_count, resident = _card_capacity(theta.device, float(np.float32(collapse_rate)) != 0.0, sig_rows is not None)
+    sm_count, resident = _card_capacity(theta.device, float(np.float32(collapse_rate)) != 0.0, mu_rows is not None)
     G, blocks = k1_launch_shape(N, steps_per_pulse, sm_count, resident)
-    sig = 0.0 if sig_rows is not None else float(np.float32(mu_sensory) * np.sqrt(np.float32(dt)))
+    sqrt_dt = np.sqrt(np.float32(dt))
+    sig = float(sqrt_dt if mu_rows is not None else np.float32(mu_sensory) * sqrt_dt)
     K1(
-        theta_t.data_ptr(), s_t.data_ptr(), None if sig_rows is None else sig_rows.data_ptr(), out.data_ptr(),
+        theta_t.data_ptr(), s_t.data_ptr(), None if mu_rows is None else mu_rows.data_ptr(), out.data_ptr(),
         next_trial.data_ptr(),
         N, n_max, steps_per_pulse,
         float(dt), float(t_max), float(t_max) - 1e-6, sig, float(collapse_rate),

@@ -32,7 +32,7 @@ import torch
 from ..constants import DT_CHOICE, T_MAX
 from ..utils.rng import child_seed, make_generator
 
-__all__ = ["sanitize_theta", "noise_scale", "ddm_rt_choice_scan", "ddm_choice_scan"]
+__all__ = ["sanitize_theta", "ddm_rt_choice_scan", "ddm_choice_scan"]
 
 
 def sanitize_theta(theta: torch.Tensor, t_max: float = float(T_MAX)):
@@ -50,15 +50,6 @@ def sanitize_theta(theta: torch.Tensor, t_max: float = float(T_MAX)):
 
 def _f32(x, device) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32, device=device)
-
-
-def noise_scale(mu_sensory, dt: float, device) -> torch.Tensor:
-    """sigma * sqrt(dt) in float32, as the JAX scan computes it: a scalar
-    for a float ``mu_sensory``, one per trial for an (N,) tensor. sqrt(dt)
-    is rounded to float32 on the host (the correctly rounded root of
-    float32(dt)), so a tensor ``mu_sensory`` on the card costs one
-    elementwise kernel and no copy that waits for the stream."""
-    return torch.as_tensor(mu_sensory, dtype=torch.float32, device=device) * float(np.sqrt(np.float32(dt)))
 
 
 def ddm_rt_choice_scan(
@@ -97,7 +88,9 @@ def ddm_rt_choice_scan(
     dtf = _f32(dt, dev)
     t_maxf = _f32(t_max, dev)
     n_steps = torch.clamp(torch.floor((t_maxf - t_nd) / dtf).to(torch.int32), 0, n_max)
-    sigma_sqrt_dt = noise_scale(mu_sensory, dt, dev)
+    # sigma * sqrt(dt) in float32, as the JAX scan computes it (a scalar, or one a trial); sqrt(dt) is the
+    # correctly rounded float32 root of float32(dt), rounded on the host as K1's wrapper rounds it.
+    sigma_sqrt_dt = torch.as_tensor(mu_sensory, dtype=torch.float32, device=dev) * float(np.sqrt(np.float32(dt)))
     crate = _f32(collapse_rate, dev)
     if noise is None:
         def noise(c):
@@ -165,6 +158,9 @@ def ddm_choice_scan(
     ``max_resamples > 0`` up to that many more passes re-run the invalid
     trials alone, each with fresh noise and a fresh stimulus, and stop once
     none is left. Pass i (0 the first) draws from ``child_seed(seed, i)``.
+    ``chunk_steps`` is checked as JAX checks it (it must divide ``n_max``);
+    the simulator keeps its own noise blocks (K1 has none), which changes
+    the stream and not the distribution.
     """
     from ..models.rt_choice_model import dispatch_sim_kernel, generate_pulse_matrix
 
@@ -180,7 +176,7 @@ def ddm_choice_scan(
     def one_pass(th, pass_seed: int) -> torch.Tensor:
         s = generate_pulse_matrix(make_generator(child_seed(pass_seed, 1), dev), th.shape[0], P, p_success=p_success)
         x = run(th, s, child_seed(pass_seed, 0), mu_sensory=float(mu_sensory), collapse_rate=0.0,
-                steps_per_pulse=steps_per_pulse, n_max=n_max, dt=dt, t_max=t_max, chunk_steps=chunk_steps)
+                steps_per_pulse=steps_per_pulse, n_max=n_max, dt=dt, t_max=t_max)
         out = x[:, 1].to(torch.int32)
         return torch.where(out == 2, torch.full_like(out, -1), out)
 

@@ -80,7 +80,10 @@ def test_k1_is_deterministic_per_seed_and_differs_across_seeds():
 def test_k1_per_trial_noise_scale(collapse):
     """K1's per-trial noise-scale instances: at sigma_i = 0 the plain scan's
     bits (and the scalar launch's at 0), at sigma_i all equal to 1 the
-    scalar launch's bits, and with noise other bits than at sigma_i = 1."""
+    scalar launch's bits, and with noise other bits than at sigma_i = 1.
+    Then each trial's own sigma, with groups refilling: sigma_i is 0 or 1 at
+    random per trial, and each row has the bits of the scalar launch at its
+    own sigma with the same seed (the rows at 0 also the plain scan's)."""
     theta, s = _theta_and_pulses(4096, seed=2)
     kw = dict(KW, collapse_rate=collapse)
     zero, ones = torch.zeros(4096, device=DEV), torch.ones(4096, device=DEV)
@@ -92,6 +95,18 @@ def test_k1_per_trial_noise_scale(collapse):
     sigma = 0.5 + torch.rand(4096, generator=make_generator(4, DEV), device=DEV)
     assert not torch.equal(ddm_rt_choice_cuda(theta, s, 3, mu_sensory=sigma, **kw),
                            ddm_rt_choice_cuda(theta, s, 3, mu_sensory=ones, **kw))
+
+    n = 131_072
+    theta, s = _theta_and_pulses(n, seed=3)
+    noisy = torch.rand(n, generator=make_generator(5, DEV), device=DEV) < 0.5
+    mixed = ddm_rt_choice_cuda(theta, s, 7, mu_sensory=noisy.to(torch.float32), **kw)
+    assert K1_LAST_LAUNCH["blocks"] * K1_THREADS // K1_LAST_LAUNCH["G"] < n  # groups refilled
+    at_one = ddm_rt_choice_cuda(theta, s, 7, mu_sensory=1.0, **kw)
+    at_zero = ddm_rt_choice_cuda(theta, s, 7, mu_sensory=0.0, **kw)
+    assert torch.equal(mixed[noisy], at_one[noisy])
+    assert torch.equal(mixed[~noisy], at_zero[~noisy])
+    assert torch.equal(mixed[~noisy], ddm_rt_choice_scan(theta, s, 8, mu_sensory=0.0, chunk_steps=200, **kw)[~noisy])
+    assert (at_one != at_zero).any(1).sum() > n // 50  # the two sigmas give other rows: the check can tell them apart
 
 
 @functools.lru_cache(maxsize=None)

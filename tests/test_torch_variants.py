@@ -159,29 +159,37 @@ def test_torch_choice_scan_matches_jax_in_distribution(theta):
 
 
 def test_torch_choice_simulators_resample_and_shapes():
-    """``choice_model_simulator_torch``: (N, 1) float32 in {-1, 0, 1}; the
-    resample passes re-run only the invalid trials and leave fewer; the
-    same seed gives the same output; the single-trial API gives an int."""
+    """``ddm_choice_scan`` on the SNPE example's kind of grid (shorter here):
+    the resample passes re-run only the invalid trials and leave fewer, and
+    the same seed gives the same output. ``choice_model_simulator_torch``
+    (the JAX signature, the default grid): (N, 1) float32 in {-1, 0, 1},
+    ``ddm_choice_scan``'s choices; the single-trial API gives an int."""
     rng = np.random.default_rng(3)
-    theta = np.tile([0.5, 0.2, 0.4, 6.0, 0.1], (400, 1)).astype(np.float32)
-    kw = dict(t_max=T_MAX, n_max=N_MAX, device="cpu")
-    once = tchoice.choice_model_simulator_torch(theta, 7, **kw)
-    again = tchoice.choice_model_simulator_torch(theta, 7, resample_invalid=True, max_resamples=3, **kw)
-    assert once.shape == again.shape == (400, 1) and once.dtype == torch.float32
-    assert set(np.unique(once.numpy())) <= {-1.0, 0.0, 1.0}
-    valid = once[:, 0] >= 0
+    theta = torch.from_numpy(np.tile([0.5, 0.2, 0.4, 6.0, 0.1], (400, 1)).astype(np.float32))
+    grid = dict(t_max=T_MAX, n_max=N_MAX)
+    once = ddm_choice_scan(theta, 7, **grid)
+    again = ddm_choice_scan(theta, 7, max_resamples=3, **grid)
+    assert once.shape == again.shape == (400,) and once.dtype == torch.int32
+    assert set(np.unique(once.numpy())) <= {-1, 0, 1}
+    valid = once >= 0
     assert torch.equal(again[valid], once[valid])  # a valid first pass is kept
     assert 0 < int((again < 0).sum()) < int((once < 0).sum())
-    assert torch.equal(once, tchoice.choice_model_simulator_torch(theta, 7, **kw))
-    assert tchoice.choice_model_simulator_torch(theta[0], 7, **kw).shape == (1, 1)
+    assert torch.equal(once, ddm_choice_scan(theta, 7, **grid))
+    strong = np.tile([0.5, 0.2, 3.0, 1.0, 0.1], (8, 1)).astype(np.float32)  # every trial ends inside a pulse or two
+    x = tchoice.choice_model_simulator_torch(strong, 7, resample_invalid=True, max_resamples=2, device="cpu")
+    assert x.shape == (8, 1) and x.dtype == torch.float32 and set(np.unique(x.numpy())) <= {0.0, 1.0}
+    assert torch.equal(x[:, 0], ddm_choice_scan(torch.from_numpy(strong), 7, max_resamples=2).to(torch.float32))
+    assert tchoice.choice_model_simulator_torch(strong[0], 7, device="cpu").shape == (1, 1)
     c = tchoice.choice_model_simulator(theta[0], np.random.default_rng(0), device="cpu")
     assert isinstance(c, int) and c in (-1, 0, 1)
     with pytest.raises(ValueError, match="shape"):
         tchoice.choice_model_simulator_torch(np.zeros((3, 4), np.float32), device="cpu")
+    with pytest.raises(TypeError):
+        tchoice.choice_model_simulator_torch(strong, 7, n_max=N_MAX, device="cpu")  # the JAX signature: no grid
     with pytest.raises(ValueError, match="divisible"):
-        ddm_choice_scan(torch.from_numpy(theta), 0, n_max=1650, chunk_steps=200)
+        ddm_choice_scan(theta, 0, n_max=1650, chunk_steps=200)
     # The JAX package's shape for the same input.
-    assert jchoice.choice_model_simulator_torch(theta[:3], rng.integers(1 << 30)).shape == (3, 1)
+    assert jchoice.choice_model_simulator_torch(theta[:3].numpy(), rng.integers(1 << 30)).shape == (3, 1)
 
 
 def _theta7(rng, n, sigma_a, sigma_s):
