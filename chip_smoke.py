@@ -165,7 +165,23 @@ port's paths once each through their public entry points:
    ``DirectPosterior`` draws all inside the prior's support, and a short
    ``make_posterior(x_o)`` NUTS run (4 chains, warmup SNPE_WARMUP,
    SNPE_CHAIN_DRAWS draws a chain, depth <= 6); it prints the training ms
-   a step.
+   a step;
+19. the multi-device path (``phase_multidevice``): the SBC fold of phase 10
+   cut to warmup MD_WARMUP / MD_DRAWS draws, depth MD_TREE_DEPTH, run
+   unsharded; then (a) an NCCL world of one rank in this process (a
+   ``FileStore`` in a temporary directory): ``dryrun_multichip(1)`` and the
+   fold through ``run_sbc(mesh=...)``, whose draws must equal the unsharded
+   call's bit for bit, and K1's trial offset (``phase_k1_offset``: N_SIM
+   trials in blocks, each launched from its offset, against one launch, 0
+   rows may differ; the fixture at offset 0); (b) MD_RANKS ranks sharing
+   the card over gloo, started with a deadline: K1 at N_SIM trials in one
+   block a rank (0 rows may differ from one launch), the fold at 2,400 rows
+   a rank against the unsharded call (printed: bit for bit, or the largest
+   difference and the first transition that differs), and
+   ``dryrun_multichip(MD_RANKS)`` with the 2 x 2 TP step. K1, K2 and K3 must
+   have launched on the sharded paths; each rank's launches and ms a call
+   are printed. One card shows NCCL's communicator and the sharded code
+   paths, not scaling over several GPUs.
 
 Each kernel's bound is the larger of its FP32 operations over 67 TFLOP/s
 and its bytes (inputs read once, outputs written once) over 3.35 TB/s, the
@@ -183,7 +199,8 @@ the CLI path's model (``pipeline``), on the tail-sharp model (``sharp``) and
 on the embedded model at context width 123 (``embed``) and at the
 hierarchical fold's 7,680 rows (``hierarchical``), K1 also with its
 per-trial noise-scale launch (``per_trial_sigma``),
-each kernel's launches on every path (``launches_by_path``), and each with
+each kernel's launches on every path (``launches_by_path``; ``multidevice``
+summed over the ranks), and each with
 ptxas's registers, stack and spills (K1: of each of its twelve instances); a
 spill fails the run. Any failed check
 raises, and the script exits non-zero without that line. There is no CPU fallback: without
@@ -261,10 +278,20 @@ CHOICE_GRID = {"t_max": 2.0, "n_max": 4_000, "steps_per_pulse": 200, "chunk_step
 SNPE_LO, SNPE_HI = (0.1, 0.05, 0.2, 2.0, 0.0), (0.9, 1.0, 3.0, 20.0, 0.5)
 SNPE_THETAS, SNPE_DRAWS = 20_000, 2_000
 SNPE_EPOCHS = 30  # the example's 60 epochs, cut for time (patience 12, as there)
-SNPE_WARMUP, SNPE_CHAIN_DRAWS = 20, 20  # the SNLE posterior's NUTS run: 4 chains, trees capped at depth 6
+# The SNLE posterior's NUTS run: 4 chains, trees capped at depth 6. The multidevice phase (48.5 s) took the whole
+# script to 738.7 s on the H100, so this run, the script's longest sampler by autograd (67.5 s at 20 / 20), went to
+# 10 / 10.
+SNPE_WARMUP, SNPE_CHAIN_DRAWS = 10, 10
 # The hierarchical coverage configuration (artifacts/hierarchical_coverage_pt_a.json: warmup 250, 300 draws a
 # chain, depth 8), cut for time.
 HIER_WARMUP, HIER_DRAWS, HIER_TREE_DEPTH = 10, 10, 6
+# The multi-device phase: a world of one rank under NCCL in this process, then MD_RANKS ranks sharing the card over
+# gloo. Its SBC fold is the SBC phase's (8 datasets, 9,600 rows a K3 launch; 2,400 a rank) cut to warmup MD_WARMUP,
+# MD_DRAWS draws (5 a chain: the mixing gate is off, so no remediation), trees capped at MD_TREE_DEPTH. Predicted
+# before its first run (PERF.md): 40-70 s, most of it starting the ranks, each of which loads the built kernels.
+MD_RANKS = 4
+MD_WARMUP, MD_DRAWS, MD_TREE_DEPTH = 5, 20, 6
+MD_DEADLINE_S = 420.0  # the ranks' deadline; their collectives time out at the same limit
 
 
 def _log(*args) -> None:
@@ -2221,6 +2248,273 @@ def phase_hierarchical(device) -> dict:
             "value_rel_err": err_v, "grad_rel_err": err_g}
 
 
+def phase_k1_offset(device, n: int = N_SIM, blocks: int = MD_RANKS, seed: int = 41) -> dict:
+    """K1's trial offset, in this process: ``n`` prior draws with noise
+    launched as ``blocks`` equal blocks (as the ranks of a sharded run
+    launch them) and as a ragged split, each block with its trial offset,
+    against one launch over all of them: 0 rows may differ. Then the K1
+    fixture's refilling case with an explicit offset of 0: the parent's
+    bits."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from sbi_for_diffusion_models_tpu_torch.models.rt_choice_model import (
+        generate_pulse_matrix,
+        n_pulses_max_from_schedule,
+        pulse_schedule,
+    )
+    from sbi_for_diffusion_models_tpu_torch.ops.ddm_cuda import ddm_rt_choice_cuda
+    from sbi_for_diffusion_models_tpu_torch.pipeline import build_prior_theta
+    from sbi_for_diffusion_models_tpu_torch.utils.rng import make_generator
+
+    n_max, spp = pulse_schedule()
+    gen = make_generator(seed, device)
+    theta = build_prior_theta().sample(gen, (n,))
+    s = generate_pulse_matrix(gen, n, n_pulses_max_from_schedule(n_max, spp))
+    whole = ddm_rt_choice_cuda(theta, s, seed, n_max=n_max, steps_per_pulse=spp)
+    differing = {}
+    for name, cuts in (("equal", [n * k // blocks for k in range(blocks + 1)]), ("ragged", [0, 1, 1000, 77_777, n])):
+        got = torch.cat([ddm_rt_choice_cuda(theta[lo:hi].contiguous(), s[lo:hi].contiguous(), seed, n_max=n_max,
+                                            steps_per_pulse=spp, trial_offset=lo, n_total=n)
+                         for lo, hi in zip(cuts[:-1], cuts[1:])])
+        differing[name] = int((got != whole).any(1).sum())
+        _log(f"[K1 offset] n={n} in blocks {cuts}, each from its trial offset: rows differing from one launch = "
+             f"{differing[name]}")
+    fixture = _k1_fixture()
+    case = "kw_n300000_c0"
+    got = fixture.run(functools.partial(ddm_rt_choice_cuda, trial_offset=0), fixture.CASES[case], device)
+    differing["fixture_offset_0"] = int((got.cpu().numpy() != fixture.load()[case]).any(1).sum())
+    _log(f"[K1 offset] the fixture's {case} at trial_offset=0: rows differing from the parent K1 = "
+         f"{differing['fixture_offset_0']}")
+    if any(differing.values()):
+        raise AssertionError(f"K1's trial offset: rows differ {differing}")
+    return differing
+
+
+def _md_sbc(device, mesh, outdir) -> tuple:
+    """The multi-device phase's SBC fold (``run_sbc`` on the flagship under
+    ``CALIBRATED_CONFIG``: 8 datasets, warmup MD_WARMUP, MD_DRAWS draws,
+    trees capped at MD_TREE_DEPTH), on ``mesh`` or unsharded; returns
+    (pooled draws (8, MD_DRAWS, 5), potential calls, seconds)."""
+    import numpy as np
+    import torch
+
+    from sbi_for_diffusion_models_tpu_torch.mnle import load_model, run_sbc
+    from sbi_for_diffusion_models_tpu_torch.pipeline import build_prior_theta
+    from sbi_for_diffusion_models_tpu_torch.run_config import CALIBRATED_CONFIG
+
+    cfg = CALIBRATED_CONFIG.replace(SBC_NUM_DATASETS=8, WARMUP_STEPS=MD_WARMUP, SBC_POST_SAMPLES=MD_DRAWS,
+                                    MCMC_MAX_TREE_DEPTH=MD_TREE_DEPTH)
+    os.environ["MODEL_DIR"] = str(MODEL_DIR)
+    est = load_model(MODEL_FILE, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run_sbc(cfg, build_prior_theta(), est, device, outdir=outdir, seed=13, verbose=False, mesh=mesh)
+    torch.cuda.synchronize()
+    return np.stack(out["all_samples"]), out["potential_calls"], time.perf_counter() - t0
+
+
+def _md_inputs(device) -> tuple:
+    """(theta, stimulus, n_max, steps_per_pulse): the multi-device paths'
+    K1 batch, N_SIM prior draws made from seed 41 on ``device``."""
+    from sbi_for_diffusion_models_tpu_torch.models.rt_choice_model import (
+        generate_pulse_matrix,
+        n_pulses_max_from_schedule,
+        pulse_schedule,
+    )
+    from sbi_for_diffusion_models_tpu_torch.pipeline import build_prior_theta
+    from sbi_for_diffusion_models_tpu_torch.utils.rng import make_generator
+
+    n_max, spp = pulse_schedule()
+    gen = make_generator(41, device)
+    theta = build_prior_theta().sample(gen, (N_SIM,))
+    return theta, generate_pulse_matrix(gen, N_SIM, n_pulses_max_from_schedule(n_max, spp)), n_max, spp
+
+
+def md_rank(outdir: str) -> dict:
+    """One rank of a multi-device world (gloo ranks sharing the card, or
+    NCCL ranks one a card): K1 at N_SIM trials in the ranks' blocks
+    (``sharded_simulate``), the SBC fold of ``_md_sbc`` split over the ranks,
+    and ``dryrun_multichip``; returns the rank's launches and times, and
+    rank 0 the gathered outputs."""
+    import torch
+    import torch.distributed as dist
+
+    from sbi_for_diffusion_models_tpu_torch.graft_entry import dryrun_multichip
+    from sbi_for_diffusion_models_tpu_torch.ops import ceiling_cuda, mnle_cuda  # noqa: F401 (every kernel's count)
+    from sbi_for_diffusion_models_tpu_torch.ops._cuda import KERNELS
+    from sbi_for_diffusion_models_tpu_torch.ops.ddm_cuda import ddm_rt_choice_cuda
+    from sbi_for_diffusion_models_tpu_torch.parallel.mesh import default_mesh, sharded_simulate
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", torch.cuda.current_device())  # NCCL's ranks: each its own card
+    r, world = dist.get_rank(), dist.get_world_size()
+    t_start = time.perf_counter()
+    for k in KERNELS.values():
+        k.launches = 0
+    theta, s, n_max, spp = _md_inputs(device)
+    mesh = default_mesh(world, "data")
+    t0 = time.perf_counter()
+    x = sharded_simulate(ddm_rt_choice_cuda, theta, s, 41, mesh=mesh, n_max=n_max, steps_per_pulse=spp)
+    torch.cuda.synchronize()
+    k1_s = time.perf_counter() - t0
+    draws, calls, wall = _md_sbc(device, default_mesh(world, "chains"), outdir)
+    dry = dryrun_multichip(world, device=device)
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    out = {"rank": r, "card": torch.cuda.get_device_name(device), "launches": launches, "k1_s": k1_s, "sbc_s": wall,
+           "calls": calls,
+           "ms_per_call": wall * 1e3 / calls, "dryrun": dry, "seconds": time.perf_counter() - t_start}
+    if r == 0:
+        out.update(k1=x.cpu().numpy(), draws=draws)
+    return out
+
+
+def phase_multidevice(device) -> dict:
+    """Multi-device (``parallel/``) on the one card.
+
+    (a) A world of one rank under NCCL in this process (a ``FileStore`` in a
+    temporary directory, no port): ``dryrun_multichip(1)``, the SBC fold of
+    ``_md_sbc`` through ``run_sbc(mesh=...)``, whose draws must equal the
+    unsharded call's bit for bit, and ``phase_k1_offset``. (b) MD_RANKS
+    ranks started with a deadline (``launch_local``), each sharing the card
+    over gloo: K1 at N_SIM trials with noise in MD_RANKS blocks, 0 rows of
+    which may differ from one unsharded launch; the same SBC fold, 2,400
+    rows a rank, compared with the unsharded run (bit for bit, or the
+    largest difference and the first transition that differs, printed);
+    and ``dryrun_multichip(MD_RANKS)``, the 2 x 2 TP step included. K1, K2
+    and K3 must have launched on the sharded paths (the unsharded reference
+    run is not counted); the launches are summed over the ranks. One card
+    cannot show scaling over several GPUs: NCCL refuses two ranks on one
+    card, so (a) shows NCCL's communicator and (b) the sharded code paths
+    (``--multichip N`` runs (b) over NCCL on N cards)."""
+    import torch.distributed as dist
+
+    from sbi_for_diffusion_models_tpu_torch.graft_entry import dryrun_multichip
+    from sbi_for_diffusion_models_tpu_torch.ops.ddm_cuda import ddm_rt_choice_cuda
+    from sbi_for_diffusion_models_tpu_torch.parallel.mesh import default_mesh
+    from sbi_for_diffusion_models_tpu_torch.parallel.multihost import init_group
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ref, ref_calls, ref_wall = _md_sbc(device, None, os.path.join(tmp, "ref"))
+        _log(f"[multidevice] unsharded SBC fold: 8 datasets x 4 chains x 6 rungs, warmup {MD_WARMUP}, "
+             f"{MD_DRAWS // 4} draws a chain, depth <= {MD_TREE_DEPTH}: potential_calls={ref_calls} "
+             f"wall_s={ref_wall:.3f} ms_per_call={ref_wall * 1e3 / ref_calls:.3f}")
+
+        # (a) A world of one under NCCL.
+        t0 = time.perf_counter()
+        init_group(1, 0, store=dist.FileStore(os.path.join(tmp, "store"), 1), device=device)
+        _log(f"[multidevice] NCCL world of one: backend={dist.get_backend()} rank={dist.get_rank()} "
+             f"world={dist.get_world_size()} init_s={time.perf_counter() - t0:.3f}")
+
+        def run_a():
+            dry = dryrun_multichip(1)
+            return dry, _md_sbc(device, default_mesh(1, "chains"), os.path.join(tmp, "one"))
+
+        try:
+            (dry1, (one, one_calls, one_wall)), launches_a = _launches_on("multidevice (a)", (), run_a)
+            offset = phase_k1_offset(device)
+        finally:
+            dist.destroy_process_group()
+        one_differ = int((one != ref).sum())
+        _log(f"[multidevice] (a) run_sbc(mesh=<NCCL world of one>) against the unsharded call: values differing "
+             f"{one_differ}/{ref.size}; potential_calls={one_calls} wall_s={one_wall:.3f} "
+             f"ms_per_call={one_wall * 1e3 / one_calls:.3f}; dryrun_multichip(1)={dry1}")
+        if one_differ or one_calls != ref_calls:
+            raise AssertionError(f"multidevice: the NCCL world of one gave other draws ({one_differ} values) or "
+                                 f"calls ({one_calls} against {ref_calls})")
+
+        # (b) MD_RANKS ranks sharing the card over gloo.
+        theta, s, n_max, spp = _md_inputs(device)
+        whole = ddm_rt_choice_cuda(theta, s, 41, n_max=n_max, steps_per_pulse=spp).cpu().numpy()
+        ranks, checked = _md_ranks("(b)", MD_RANKS, "gloo", ref, whole, os.path.join(tmp, "ranks"))
+    launches = {k: launches_a[k] + sum(res["launches"][k] for res in ranks) for k in launches_a}
+    _log(f"[multidevice] launches, (a) and every rank of (b): {json.dumps(launches)}; the ranks started and "
+         f"finished in {checked['spawn_s']:.3f} s; phase {time.perf_counter() - t_phase:.1f} s")
+    missing = [k for k in ("ddm_rt_choice", "mnle_logprob_fwd", "mnle_logprob_bwd") if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the multidevice path: {missing}")
+    return {"launches": launches, "k1_offset": offset, "sbc_one_differing": one_differ, **checked,
+            "seconds": time.perf_counter() - t_phase}
+
+
+def _md_ranks(label: str, n: int, backend: str, ref, whole, outdir: str) -> tuple:
+    """``md_rank`` on ``n`` new ranks (``launch_local``, with a deadline):
+    gloo ranks share the card, NCCL ranks take one card each. Fails unless
+    K1's blocks give ``whole`` (one launch) bit for bit; prints whether the
+    SBC fold's draws equal the unsharded ``ref`` (else the largest
+    difference and the first transition that differs) and each rank's
+    launches and ms a call. Returns (the ranks' results, the checks)."""
+    import numpy as np
+
+    from sbi_for_diffusion_models_tpu_torch.parallel.multihost import launch_local
+
+    t0 = time.perf_counter()
+    ranks = launch_local(md_rank, n, (outdir,), device="cuda", backend=backend, timeout_s=MD_DEADLINE_S)
+    spawn_s = time.perf_counter() - t0
+    for res in ranks:
+        _log(f"[multidevice] {label} rank {res['rank']}/{n} ({backend}, {res['card']}): "
+             f"launches={json.dumps(res['launches'])} k1_s={res['k1_s']:.4f} sbc_s={res['sbc_s']:.3f} "
+             f"potential_calls={res['calls']} ms_per_call={res['ms_per_call']:.3f} rank_s={res['seconds']:.3f} "
+             f"dryrun={res['dryrun']}")
+    k1_differ = int((ranks[0]["k1"] != whole).any(1).sum())
+    _log(f"[multidevice] {label} K1 at {N_SIM} trials with noise in {n} blocks, one a rank, each from its trial "
+         f"offset: rows differing from one unsharded launch = {k1_differ}")
+    if k1_differ:
+        raise AssertionError(f"multidevice: the ranks' K1 blocks differ from one launch on {k1_differ} rows")
+    draws = ranks[0]["draws"]
+    bad = np.argwhere(draws != ref)
+    rows = 9_600 // n
+    if bad.size == 0:
+        _log(f"[multidevice] {label} SBC fold on {n} ranks ({rows:,} rows a rank) against the unsharded call: "
+             f"bit for bit ({draws.size} values)")
+    else:
+        first = int(bad[:, 1].min()) // 4  # pooled row k * C + c is draw k of chain c
+        _log(f"[multidevice] {label} SBC fold on {n} ranks ({rows:,} rows a rank) against the unsharded call: "
+             f"{len(bad)}/{draws.size} values differ, largest difference {float(np.abs(draws - ref).max()):.6g}, "
+             f"first differing transition: draw {first} (after warmup {MD_WARMUP})")
+    if not np.isfinite(draws).all() or {res["calls"] for res in ranks} != {ranks[0]["calls"]}:
+        raise AssertionError("multidevice: non-finite draws, or the ranks made different numbers of calls")
+    return ranks, {"k1_blocks_differing": k1_differ, "sbc_ranks_differing": int(len(bad)), "spawn_s": spawn_s,
+                   "ms_per_call_by_rank": [res["ms_per_call"] for res in ranks]}
+
+
+def multichip_main(n: int) -> int:
+    """``chip_smoke.py --multichip N``, on a host with N cards: the kernels'
+    build, the SBC fold of ``_md_sbc`` unsharded on card 0, then ``md_rank``
+    on N NCCL ranks, one a card (``_md_ranks``), held as the one-card phase
+    holds its gloo ranks. The one-card run (no arguments) cannot show NCCL
+    with more than one rank: NCCL takes one rank a card."""
+    import torch
+
+    if torch.cuda.device_count() < n:
+        print(f"chip_smoke: --multichip {n} needs {n} CUDA cards, found {torch.cuda.device_count()}", file=sys.stderr)
+        return 2
+    from sbi_for_diffusion_models_tpu_torch.ops.ddm_cuda import ddm_rt_choice_cuda
+
+    device = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()
+    _log(f"[device] torch={torch.__version__} cuda={torch.version.cuda} cards={smi}")
+    t_start = time.perf_counter()
+    phase_build()
+    with tempfile.TemporaryDirectory() as tmp:
+        ref, ref_calls, ref_wall = _md_sbc(device, None, os.path.join(tmp, "ref"))
+        _log(f"[multidevice] unsharded SBC fold on card 0: potential_calls={ref_calls} wall_s={ref_wall:.3f} "
+             f"ms_per_call={ref_wall * 1e3 / ref_calls:.3f}")
+        theta, s, n_max, spp = _md_inputs(device)
+        whole = ddm_rt_choice_cuda(theta, s, 41, n_max=n_max, steps_per_pulse=spp).cpu().numpy()
+        _, checked = _md_ranks("(nccl)", n, "nccl", ref, whole, os.path.join(tmp, "ranks"))
+    _log(f"[time] --multichip {n} after start-up: {time.perf_counter() - t_start:.1f} s")
+    print(smi[0])
+    print(json.dumps({"multichip": {"ranks": n, "unsharded_ms_per_call": ref_wall * 1e3 / ref_calls, **checked}}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def phase_snpe(device) -> dict:
     """SNPE and SNLE at the example's shape (``examples/snpe_snle_choice_model.py``):
     the BoxUniform prior, SNPE_THETAS thetas, x the mean choice over
@@ -2333,6 +2627,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:2] == ["--resume-child"]:
         return resume_child(sys.argv[2])
+    if sys.argv[1:2] == ["--multichip"]:
+        return multichip_main(int(sys.argv[2]))
     device = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -2361,6 +2657,7 @@ def main() -> int:
     variants = phase_variants(device)
     hier = phase_hierarchical(device)
     snpe = phase_snpe(device)
+    multi = phase_multidevice(device)
     _log(f"[time] whole script after start-up: {time.perf_counter() - t_start:.1f} s")
 
     src = f"{PKG}/csrc"
@@ -2446,7 +2743,8 @@ def main() -> int:
         k["launches_by_path"] = {name: p["launches"][k["name"]] for name, p in (
             ("main", main_path), ("pulse", pulse_path), ("roofline", roof), ("slice", slice_path),
             ("resume", resume), ("train", train_path), ("sbc", sbc), ("pipeline", pipe), ("sharp", sharp),
-            ("ensemble", ens), ("embed", emb), ("variants", variants), ("hierarchical", hier), ("snpe", snpe))}
+            ("ensemble", ens), ("embed", emb), ("variants", variants), ("hierarchical", hier), ("snpe", snpe),
+            ("multidevice", multi))}
     measured_bounds(kernels, roof["report"])
     print(smi)
     print(json.dumps({"kernels": kernels}))

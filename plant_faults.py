@@ -12,8 +12,12 @@ with the tile product of ``csrc/mnle_tile.cuh``), ``chip_smoke.phase_k2pk3p``
 for K2p/K3p (``csrc/mnle_pulse.cu``), at 1,200 and at 115,200 rows, each
 size on its own; ``chip_smoke.phase_k1_fixture`` for K1
 (``csrc/ddm_rt_choice.cu``: every case of the parent K1's committed
-outputs, bit for bit) and ``chip_smoke.phase_k1_sigma`` for its per-trial
-noise scale (each trial's rows at its own sigma). The unchanged source runs
+outputs, bit for bit), ``chip_smoke.phase_k1_sigma`` for its per-trial
+noise scale (each trial's rows at its own sigma) and
+``chip_smoke.phase_k1_offset`` for its trial offset, the multi-device
+phase's K1 check (a batch launched in blocks, each from its offset, against
+one launch). A check that raises any error (a fault may also make the kernel
+fault) counts as failed. The unchanged source runs
 every check. It prints the checks' lines for each run, then one JSON object
 as the last line: per fault and size, "passed" or "failed". It exits with 0
 only if the unchanged source passes every check at both sizes and every
@@ -93,8 +97,15 @@ FAULTS = {
     # K1's per-trial noise scale: a refilled group keeps its previous trial's sigma.
     "k1_sigma_kept_on_refill": (K1_FILE, "phase_k1_sigma", "if (SIG_ROWS) sig = __fmul_rn(mu_rows[j], sig_sqrt_dt);",
                                 "if (SIG_ROWS) sig = sig;"),
+    # K1's trial offset: Philox's counter takes the local trial index (a block repeats the first block's noise).
+    "k1_counter_ignores_the_offset": (K1_FILE, "phase_k1_offset",
+                                      'asm("add.u32 %0, %1, %2;" : "=r"(r) : "r"(trial_offset), "r"(j));',
+                                      'asm("mov.u32 %0, %1;" : "=r"(r) : "r"(j));'),
+    # K1's trial offset: the output is written at the global index as well (past the block's own rows).
+    "k1_output_at_the_global_index": (K1_FILE, "phase_k1_offset", "out[trial] = make_float2(",
+                                      "out[noise_trial(trial, trial_offset)] = make_float2("),
 }
-PHASES = ("phase_k2k3", "phase_k2pk3p", "phase_k1_fixture", "phase_k1_sigma")
+PHASES = ("phase_k2k3", "phase_k2pk3p", "phase_k1_fixture", "phase_k1_sigma", "phase_k1_offset")
 
 CHILD = """
 import json, sys, torch
@@ -106,8 +117,8 @@ for phase in sys.argv[1:]:
         try:
             getattr(cs, phase)(torch.device("cuda", 0), **({} if n is None else {"sizes": (n,)}))
             out[phase if n is None else f"{phase}@{n}"] = "passed"
-        except AssertionError as e:
-            print("[check failed]", e, flush=True)
+        except Exception as e:  # a fault may also make the kernel fault: the check failed all the same
+            print("[check failed]", type(e).__name__, e, flush=True)
             out[phase if n is None else f"{phase}@{n}"] = "failed"
 print(json.dumps(out))
 """

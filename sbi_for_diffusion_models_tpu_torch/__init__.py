@@ -21,7 +21,11 @@ importing the package itself loads nothing else: the names in ``__all__``
 (the JAX package's public names whose modules are ported, and the entry
 points of ``mnle``, ``analysis`` and ``pipeline``) are imported from their
 modules when first asked for. Every public name of the JAX package's root
-has its counterpart here; multi-device (``parallel``) is not ported.
+has its counterpart here. Multi-device (``parallel``: sharded simulation,
+data- and tensor-parallel training, chain sharding, ``run_sbc(mesh=)`` and
+``run_hierarchical_inference(mesh=)``) runs one process a device under
+``torch.distributed`` (NCCL on the card); ``graft_entry.py`` holds the
+counterpart of the JAX package's ``__graft_entry__.py``.
 """
 
 __version__ = "0.1.0"

@@ -8,12 +8,15 @@ potential is evaluated for all chains at once (``potential_fn`` takes theta
 
 ``method="slice"`` runs the batched slice sampler (``inference/slice.py``),
 and plain NUTS falls back to it when its chains are unhealthy, as in the
-JAX package.
+JAX package. The moves take the sampler's generator, a ``torch.Generator``
+or, on a rank of a sharded run, a ``parallel.comm.ShardedGenerator``: they
+draw and stop their loops through ``utils.rng.draw`` and ``batch_any``.
 """
 
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Optional, Tuple
 
 import numpy as np
@@ -21,7 +24,7 @@ import torch
 
 from ..distributions import Bijector, Distribution
 from ..utils.device import resolve_device
-from ..utils.rng import child_seed, make_generator
+from ..utils.rng import batch_any, child_seed, draw, make_generator
 from .nuts import ReplicaExchange, geometric_ladder, run_nuts
 from .slice import run_slice
 
@@ -288,7 +291,7 @@ def make_grid_hop(bij: Bijector, index: int, delta: float, multiples=(-2, -1, 1,
         C = u.shape[0]
         dev = u.device
         mults = mults_on.setdefault(dev, mults_cpu.to(dev))
-        m = mults[torch.randint(0, mults.shape[0], (C,), generator=gen, device=dev)]
+        m = mults[draw(gen, partial(torch.randint, 0, mults.shape[0]), (C,), dev)]
         theta = bij.forward(u)
         theta_new = theta.clone()
         theta_new[:, index] = theta[:, index] + m * delta
@@ -297,7 +300,7 @@ def make_grid_hop(bij: Bijector, index: int, delta: float, multiples=(-2, -1, 1,
         u_prop = bij.inverse(theta_safe)
         logp_prop, g_prop = vg_fn(u_prop)
         log_ratio = (logp_prop - bij.forward_log_det(u_prop)) - (logp - bij.forward_log_det(u))
-        uni = torch.rand((C,), generator=gen, device=dev)
+        uni = draw(gen, torch.rand, (C,), dev)
         accept = valid & (torch.log(uni) < torch.clamp(log_ratio, max=0.0))
         return (
             torch.where(accept[:, None], u_prop, u),
@@ -331,10 +334,10 @@ def make_dim_slice(index: int, width: float = 1.0, max_stepout: int = 6, max_shr
         C = u.shape[0]
         dev = u.device
         x0 = u[:, index]
-        logy = logp + torch.log1p(-torch.rand((C,), generator=gen, device=dev))
-        lo = x0 - torch.rand((C,), generator=gen, device=dev) * w
+        logy = logp + torch.log1p(-draw(gen, torch.rand, (C,), dev))
+        lo = x0 - draw(gen, torch.rand, (C,), dev) * w
         hi = lo + w
-        j_budget = torch.randint(0, m_total, (C,), generator=gen, device=dev)
+        j_budget = draw(gen, partial(torch.randint, 0, m_total), (C,), dev)
         k_budget = (m_total - 1) - j_budget
 
         # Stepping out; a side that stopped never restarts (its edge and
@@ -344,22 +347,22 @@ def make_dim_slice(index: int, width: float = 1.0, max_stepout: int = 6, max_shr
         for i in range(m_total - 1):
             go_lo = go_lo & (i < j_budget)
             go_hi = go_hi & (i < k_budget)
-            if bool(go_lo.any()):
+            if batch_any(gen, go_lo):
                 go_lo = go_lo & (_lp(vg_fn, u, lo) > logy)
                 lo = torch.where(go_lo, lo - w, lo)
-            if bool(go_hi.any()):
+            if batch_any(gen, go_hi):
                 go_hi = go_hi & (_lp(vg_fn, u, hi) > logy)
                 hi = torch.where(go_hi, hi + w, hi)
-            if not bool((go_lo | go_hi).any()):
+            if not batch_any(gen, go_lo | go_hi):
                 break
 
         # Shrinkage.
         x = x0.clone()
         done = torch.zeros((C,), dtype=torch.bool, device=dev)
         for _ in range(max_shrink):
-            if bool(done.all()):
+            if not batch_any(gen, ~done):
                 break
-            xp = lo + torch.rand((C,), generator=gen, device=dev) * (hi - lo)
+            xp = lo + draw(gen, torch.rand, (C,), dev) * (hi - lo)
             ok = ~done & (_lp(vg_fn, u, xp) > logy)
             miss = ~done & ~ok
             lo = torch.where(miss & (xp < x0), xp, lo)

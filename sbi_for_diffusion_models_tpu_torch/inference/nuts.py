@@ -23,6 +23,14 @@ gradient comes from ``torch.autograd``. Random numbers come from
 ``torch.Generator``s on the chains' device, seeded from an integer seed:
 one for the step-size search and one for each segment of ``run_nuts``.
 
+With ``shard`` (a ``parallel.comm.RowShard``: this rank's chains of a batch
+split over processes, ``parallel.mesh.sharded_run_nuts``) every draw is made
+for the whole batch and each rank keeps its rows (``utils.rng.draw``), each
+loop that stops when no chain is left stops on the whole batch's test
+(``utils.rng.batch_any``), and the swap acceptance is pooled over every
+rank: so each rank's chains take the draws and the decisions of the
+unsharded run.
+
 ``run_nuts`` runs in segments, as the JAX one does, with a host mirror of
 the sampler state, checkpoint/resume on disk (``nuts_segments.npz``) and a
 replay from the mirror after a ``torch.AcceleratorError``.
@@ -42,7 +50,8 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from ..utils.rng import as_seed, child_seed, make_generator
+from ..parallel.comm import ShardedGenerator
+from ..utils.rng import as_seed, batch_any, child_seed, draw, make_generator
 
 __all__ = [
     "run_nuts",
@@ -126,10 +135,12 @@ class _LaggedAny:
     the device at every leaf: the flag of leaf n is copied to pinned memory
     behind an event as soon as it is computed and read at leaf n + 2, while
     leaf n + 1 is already queued. A loop that stops on it runs at most one
-    extra leaf, on which every chain is masked (a no-op)."""
+    extra leaf, on which every chain is masked (a no-op). Read over the
+    whole batch ``gen`` draws for (``utils.rng.batch_any``)."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, gen):
         self.cuda = device.type == "cuda"
+        self.gen = gen
         self.host = torch.ones((2,), dtype=torch.bool, pin_memory=self.cuda)
         self.events = [None, None]
         self.n = 0
@@ -149,7 +160,7 @@ class _LaggedAny:
         i = self.n % 2
         if self.events[i] is not None:
             self.events[i].synchronize()
-        return bool(self.host[i])
+        return batch_any(self.gen, bool(self.host[i]))
 
 
 def _build_subtree(gen, edge, depth: int, direction, eps, inv_mass, H0, max_depth: int, vg_fn, active):
@@ -175,7 +186,7 @@ def _build_subtree(gen, edge, depth: int, direction, eps, inv_mass, H0, max_dept
     r_ckpts = torch.zeros((C, max_depth + 1, D), dtype=edge.dtype, device=dev)
     rsum_ckpts = torch.zeros_like(r_ckpts)
     live = active.clone()
-    flag = _LaggedAny(dev)
+    flag = _LaggedAny(dev, gen)
     flag.push(live)
     for n in range(1 << depth):
         if not flag.any_before_last():
@@ -191,7 +202,7 @@ def _build_subtree(gen, edge, depth: int, direction, eps, inv_mass, H0, max_dept
 
         # Progressive multinomial sampling within the subtree.
         new_log_w = torch.logaddexp(log_w, leaf_log_w)
-        uni = torch.rand((C,), generator=gen, device=dev)
+        uni = draw(gen, torch.rand, (C,), dev)
         take = live & (torch.log(uni) < leaf_log_w - new_log_w)
         rho_after = rho + p_new
         live_col = live[:, None]
@@ -235,7 +246,7 @@ def nuts_step(gen, u, logp, g, *, vg_fn, eps, inv_mass, max_depth: int = 10):
     inv_mass (C, D). Returns (u', logp', g', info dict of (C,) tensors)."""
     C, D = u.shape
     dev = u.device
-    p0 = torch.randn(u.shape, generator=gen, device=dev, dtype=u.dtype) / torch.sqrt(inv_mass)
+    p0 = draw(gen, torch.randn, u.shape, dev, dtype=u.dtype) / torch.sqrt(inv_mass)
     H0 = -logp + _kinetic(p0, inv_mass)
 
     edge_l = edge_r = torch.cat([u, p0, g, logp[:, None]], dim=1)
@@ -250,9 +261,9 @@ def nuts_step(gen, u, logp, g, *, vg_fn, eps, inv_mass, max_depth: int = 10):
 
     for d in range(max_depth):
         active = ~(turning | diverging)
-        if not bool(active.any()):
+        if not batch_any(gen, active):
             break
-        go_right = torch.rand((C,), generator=gen, device=dev) < 0.5
+        go_right = draw(gen, torch.rand, (C,), dev) < 0.5
         direction = torch.where(go_right, 1.0, -1.0)
         right_col = go_right[:, None]
         sub = _build_subtree(gen, torch.where(right_col, edge_r, edge_l), d, direction, eps, inv_mass, H0,
@@ -260,7 +271,7 @@ def nuts_step(gen, u, logp, g, *, vg_fn, eps, inv_mass, max_depth: int = 10):
         ok = active & ~(sub["turning"] | sub["diverging"])
 
         # Merge valid subtrees: biased progressive sampling across subtrees.
-        uni = torch.rand((C,), generator=gen, device=dev)
+        uni = draw(gen, torch.rand, (C,), dev)
         take = ok & (torch.log(uni) < sub["log_w"] - log_w)
         prop = torch.where(take[:, None], sub["prop"], prop)
         log_w = torch.where(ok, torch.logaddexp(log_w, sub["log_w"]), log_w)
@@ -294,7 +305,7 @@ def find_reasonable_step_size(gen, vg_fn, u, inv_mass, eps0: float = 1.0, *, log
     dev = u.device
     if logp is None or g is None:
         logp, g = vg_fn(u)
-    p0 = torch.randn(u.shape, generator=gen, device=dev, dtype=u.dtype) / torch.sqrt(inv_mass)
+    p0 = draw(gen, torch.randn, u.shape, dev, dtype=u.dtype) / torch.sqrt(inv_mass)
     H0 = -logp + _kinetic(p0, inv_mass)
     log_half = math.log(0.5)
 
@@ -311,7 +322,7 @@ def find_reasonable_step_size(gen, vg_fn, u, inv_mass, eps0: float = 1.0, *, log
     while True:
         keep = torch.where(up, d > log_half, d < log_half)
         running = running & keep & (eps > 1e-10) & (eps < 1e7) & (it < 64)
-        if not bool(running.any()):
+        if not batch_any(gen, running):
             return eps
         eps = torch.where(running, eps * torch.where(up, 2.0, 0.5), eps)
         it += 1
@@ -435,12 +446,13 @@ class ReplicaExchange:
     swap_every: int = 1
 
 
-def _exchange_sweep(ex: ReplicaExchange, uniforms, sweep_idx: int, u, data):
+def _exchange_sweep(ex: ReplicaExchange, uniforms, sweep_idx: int, u, data, groups=None):
     """One DEO swap sweep over positions u (C, D). ``uniforms`` (M, R) are
     the sweep's uniform draws, one used per pair (indexed by the pair's
     lower rung). Returns ``(perm, mean acceptance)`` with ``u_new =
     u[perm]``: only positions move between rungs; each rung keeps its step
-    size and mass matrix."""
+    size and mass matrix. ``groups``: the ``RowShard`` of the replica groups
+    when the batch is split over ranks; the mean is then the whole batch's."""
     C = u.shape[0]
     R = int(ex.n_replicas)
     M = C // R
@@ -465,7 +477,8 @@ def _exchange_sweep(ex: ReplicaExchange, uniforms, sweep_idx: int, u, data):
     accept = in_range[None, :] & (torch.log(uni_pair) < log_accept)
     perm_within = torch.where(accept, partner_safe[None, :], r[None, :])
     perm = (torch.arange(M, device=dev)[:, None] * R + perm_within).reshape(-1)
-    return perm, accept.to(torch.float32).mean()
+    accept = accept.to(torch.float32)
+    return perm, accept.mean() if groups is None else groups.mean(accept)
 
 
 # ---------------------------------------------------------------------------
@@ -507,7 +520,8 @@ def _to_host(tensors) -> list:
     """The mirror's host copy: every tensor of ``tensors`` as a numpy array,
     through ONE device-to-host copy of their bytes packed end to end (so one
     synchronization, whatever the number of leaves), bit for bit."""
-    flat = [t.detach().contiguous().view(-1) for t in tensors]
+    # Standard strides: a one-row slice counts as contiguous whatever its stride, and a byte view needs stride 1.
+    flat = [t.detach().clone(memory_format=torch.contiguous_format).view(-1) for t in tensors]
     packed = torch.cat([f.view(torch.uint8) for f in flat]).cpu().numpy()
     out, pos = [], 0
     for t, f in zip(tensors, flat):
@@ -554,19 +568,23 @@ def _wait_for_device(device) -> bool:
         time.sleep(_PROBE_POLL_S)
 
 
-def _run_fingerprint(seed: int, L: int, W: int, S: int, thin: int, max_depth: int, mode_hop, exchange) -> str:
+def _run_fingerprint(seed: int, L: int, W: int, S: int, thin: int, max_depth: int, mode_hop, exchange,
+                     shard=None) -> str:
     """The JAX ``run_nuts``'s run fingerprint, with the integer seed in place
     of the key's data: a checkpoint whose (chains, D) match but whose seed,
     segment length, warmup, draws, thinning, depth, extra move or ladder
-    differ is not spliced into this run."""
+    differ (or, on a rank of a sharded run, whose rows of the batch differ)
+    is not spliced into this run."""
     ex_tag = "none"
     if exchange is not None:
         betas = np.asarray(exchange.betas.detach().cpu().numpy(), np.float32)
         ex_tag = (f"R={exchange.n_replicas}/every={exchange.swap_every}/"
                   + hashlib.sha256(betas.tobytes()).hexdigest()[:8])
+    rows = b"" if shard is None else np.asarray(shard.rows.cpu().numpy(), np.int64).tobytes() + f"/{shard.n}".encode()
     return hashlib.sha256(
         np.asarray(seed, np.int64).tobytes()
         + f"L={L}/W={W}/S={S}/thin={thin}/depth={max_depth}/hop={mode_hop is not None}/ex={ex_tag}".encode()
+        + rows
     ).hexdigest()[:16]
 
 
@@ -588,6 +606,7 @@ def run_nuts(
     mode_hop=None,
     exchange: Optional[ReplicaExchange] = None,
     value_and_grad_fn: Optional[Callable] = None,
+    shard=None,
 ) -> Tuple[torch.Tensor, dict]:
     """Run NUTS on every chain of ``init_u`` (C, D): warmup with step-size
     and diagonal-mass adaptation, then sampling. Returns (samples (C,
@@ -602,7 +621,12 @@ def run_nuts(
     A sample is the state after the move and before the sweep, as in the
     JAX package. ``value_and_grad_fn``: optional ``(u[, data], need_grad)
     -> (logp, grad or None)`` of the same density, used in place of
-    autograd through ``logp_fn`` (a closed-form gradient).
+    autograd through ``logp_fn`` (a closed-form gradient). ``shard``: a
+    ``parallel.comm.RowShard`` when ``init_u`` holds this rank's rows of a
+    batch split over ranks (``parallel.mesh.sharded_run_nuts``, which every
+    rank of the group calls together): the draws, the loops' stopping and
+    the swap acceptance are then the whole batch's, and a checkpoint whose
+    next segment differs between the ranks is not resumed.
 
     Segments. The W + S transitions run in ``ceil((W + S) / L)`` segments of
     ``L = segment_length``; segment s draws from its own generator,
@@ -656,6 +680,11 @@ def run_nuts(
         if tuple(exchange.betas.shape) != (num_chains,):
             raise ValueError(f"exchange.betas must be ({num_chains},), got {tuple(exchange.betas.shape)}")
     seed_ex = child_seed(seed, 0x45584348)  # exchange-sweep stream
+    groups = None if shard is None or exchange is None else shard.groups(int(exchange.n_replicas))
+
+    def bind(gen, rows):
+        """``gen`` drawing for the batch's ``rows`` (a RowShard) on a sharded run."""
+        return gen if rows is None else ShardedGenerator(gen, rows)
 
     # Per-step warmup flags from the Stan-style schedule.
     W, S = int(num_warmup), int(num_samples)
@@ -691,7 +720,7 @@ def run_nuts(
     rec = {k: torch.zeros((num_chains, total, *shape), dtype=dt, device=dev) for k, (shape, dt) in rec_spec.items()}
     host = {k: np.zeros(tuple(v.shape), str(v.dtype).replace("torch.", "")) for k, v in rec.items()}
 
-    run_fingerprint = _run_fingerprint(seed, L, W, S, thin, max_depth, mode_hop, exchange)
+    run_fingerprint = _run_fingerprint(seed, L, W, S, thin, max_depth, mode_hop, exchange, shard)
     ckpt_file = None
     state = None
     start_segment = 0
@@ -709,16 +738,22 @@ def run_nuts(
                     stale_reason = "run fingerprint mismatch (key/L/warmup/samples/thin)"
                 if stale_reason is not None:
                     print(f"[run_nuts] ignoring stale checkpoint {ckpt_file} ({stale_reason})")
-                elif int(blob["next_segment"]) > 0:
+                else:
                     start_segment = int(blob["next_segment"])
-                    t_done = min(start_segment * L, total)
-                    for k in host:
-                        host[k][:, :t_done] = blob[k]
-                    state = _state_from_leaves([blob[f"state_{i}"] for i in range(_N_STATE_LEAVES)], t_done, dev)
-                    print(f"[run_nuts] resumed at segment {start_segment}/{n_segments}")
+        if shard is not None and not shard.all_equal(start_segment):
+            print(f"[run_nuts] not resuming at segment {start_segment}: the ranks' checkpoints stop at different "
+                  "segments")
+            start_segment = 0
+        if start_segment > 0:
+            t_done = min(start_segment * L, total)
+            with np.load(ckpt_file, allow_pickle=False) as blob:
+                for k in host:
+                    host[k][:, :t_done] = blob[k]
+                state = _state_from_leaves([blob[f"state_{i}"] for i in range(_N_STATE_LEAVES)], t_done, dev)
+            print(f"[run_nuts] resumed at segment {start_segment}/{n_segments}")
 
     if state is None:
-        gen0 = make_generator(child_seed(seed, 0), dev)
+        gen0 = bind(make_generator(child_seed(seed, 0), dev), shard)
         u = init_u.to(torch.float32)
         inv_mass = torch.ones((num_chains, D), device=dev)
         logp, g = vg_fn(u)
@@ -758,8 +793,8 @@ def run_nuts(
             swap_every = max(int(exchange.swap_every), 1)
             if t % swap_every == 0:
                 R = int(exchange.n_replicas)
-                uni = torch.rand((num_chains // R, R), generator=gen_ex, device=dev)
-                perm, acc = _exchange_sweep(exchange, uni, t // swap_every, u, data)
+                uni = draw(gen_ex, torch.rand, (num_chains // R, R), dev)
+                perm, acc = _exchange_sweep(exchange, uni, t // swap_every, u, data, groups)
                 u = u[perm]
                 logp, g = vg_fn(u)
                 rec["swap_accept"][:, t] = acc
@@ -784,8 +819,8 @@ def run_nuts(
     s = start_segment
     while s < n_segments:
         try:
-            gen = make_generator(child_seed(seed, 1000 + s), dev)
-            gen_ex = make_generator(child_seed(seed_ex, s), dev) if exchange is not None else None
+            gen = bind(make_generator(child_seed(seed, 1000 + s), dev), shard)
+            gen_ex = bind(make_generator(child_seed(seed_ex, s), dev), groups) if exchange is not None else None
             for _ in range(s * L, min((s + 1) * L, total)):
                 state = transition(state, gen, gen_ex)
             if (s + 1 - start_segment) % mirror_every == 0 or s == n_segments - 1:

@@ -16,7 +16,10 @@ Per-coordinate widths adapt during warmup as in the JAX package: each
 accepted move updates an exponential moving average of |z - x0| per
 dimension (decay ``_WIDTH_EMA``) and the bracket is ``_WIDTH_MULT`` times
 that average, clipped to [1e-3, 1e3]. Random numbers come from one
-``torch.Generator``; only the distribution matches the JAX sampler's.
+``torch.Generator``; only the distribution matches the JAX sampler's. With
+``shard`` (this rank's chains of a batch split over processes,
+``parallel.comm.RowShard``) the draws and the loops' stopping are the whole
+batch's, as in ``inference/nuts.py``.
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ from typing import Callable, Optional, Tuple, Union
 
 import torch
 
-from ..utils.rng import child_seed, make_generator
+from ..parallel.comm import ShardedGenerator
+from ..utils.rng import batch_any, child_seed, draw, make_generator
 from .nuts import value_and_grad
 
 __all__ = ["run_slice"]
@@ -44,7 +48,7 @@ def _slice_one_dim(gen, x, logp0, d: int, value_fn, width, max_steps_out: int, m
     (C,). Returns (new x, its log-densities, accepted (C,), |move| (C,))."""
     C = x.shape[0]
     dev = x.device
-    logy = logp0 + torch.log(torch.rand((C,), generator=gen, device=dev))
+    logy = logp0 + torch.log(draw(gen, torch.rand, (C,), dev))
     x0 = x[:, d]
 
     def logp_at(z):
@@ -52,14 +56,14 @@ def _slice_one_dim(gen, x, logp0, d: int, value_fn, width, max_steps_out: int, m
         xz[:, d] = z
         return value_fn(xz)
 
-    L = x0 - torch.rand((C,), generator=gen, device=dev) * width
+    L = x0 - draw(gen, torch.rand, (C,), dev) * width
     R = L + width
 
     def step_out(edge, sign):
         active = torch.ones((C,), dtype=torch.bool, device=dev)
         for _ in range(max_steps_out):
             active = active & (logp_at(edge) > logy)
-            if not bool(active.any()):
+            if not batch_any(gen, active):
                 break
             edge = torch.where(active, edge + sign * width, edge)
         return edge
@@ -70,7 +74,7 @@ def _slice_one_dim(gen, x, logp0, d: int, value_fn, width, max_steps_out: int, m
     z, lp_z = x0, logp0
     accepted = torch.zeros((C,), dtype=torch.bool, device=dev)
     for _ in range(max_shrink):
-        z_new = L + (R - L) * torch.rand((C,), generator=gen, device=dev)
+        z_new = L + (R - L) * draw(gen, torch.rand, (C,), dev)
         lp_new = logp_at(z_new)
         ok = ~accepted & (lp_new > logy)
         miss = ~accepted & ~ok
@@ -79,7 +83,7 @@ def _slice_one_dim(gen, x, logp0, d: int, value_fn, width, max_steps_out: int, m
         z = torch.where(ok, z_new, z)
         lp_z = torch.where(ok, lp_new, lp_z)
         accepted = accepted | ok
-        if bool(accepted.all()):
+        if not batch_any(gen, ~accepted):
             break
     x_new = x.clone()
     x_new[:, d] = z  # z is x0 where no in-slice point was found
@@ -101,6 +105,7 @@ def run_slice(
     adapt_width: bool = True,
     mode_hop=None,
     value_and_grad_fn: Optional[Callable] = None,
+    shard=None,
 ) -> Tuple[torch.Tensor, dict]:
     """Run the batched slice sampler on every chain of ``init_u`` (C, D),
     given in *unconstrained* space. ``logp_fn(u)`` (or ``logp_fn(u, data)``
@@ -119,7 +124,9 @@ def run_slice(
     (see ``run_nuts``). ``value_and_grad_fn``: optional ``(u[, data],
     need_grad) -> (logp, grad or None)`` of the same density, used in place
     of autograd through ``logp_fn`` (the slice updates call it with
-    ``need_grad=False``).
+    ``need_grad=False``). ``shard``: a ``parallel.comm.RowShard`` when
+    ``init_u`` holds this rank's rows of a batch split over ranks (every
+    rank of the group calls together, with the same generator or seed).
     """
     num_chains, D = init_u.shape
     dev = init_u.device
@@ -127,6 +134,8 @@ def run_slice(
         gen = generator_or_seed
     else:
         gen = make_generator(child_seed(generator_or_seed, 0), dev)
+    if shard is not None:
+        gen = ShardedGenerator(gen, shard)
 
     if value_and_grad_fn is None:
         vg_once = value_and_grad(logp_fn, data)

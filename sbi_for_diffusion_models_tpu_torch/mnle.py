@@ -30,6 +30,7 @@ import re
 import shutil
 import time
 import warnings
+from functools import partial
 from pathlib import Path
 from typing import Optional
 
@@ -751,12 +752,16 @@ def _fold_density(cfg: RunConfig, prior_theta: Distribution, bij, est: MNLE, x_g
 
 def _sbc_launch(cfg: RunConfig, prior_theta: Distribution, est: MNLE, x_g, s_g, seed_init: int, seed_run: int,
                 warmup: int, ladder, per_chain: int, mode_hop, tau_init: bool = False,
-                checkpoint_dir: Optional[str] = None) -> tuple:
+                checkpoint_dir: Optional[str] = None, mesh=None) -> tuple:
     """One sampler launch over the Gl sessions (x_g, s_g) x C chains x R
     replicas, the rows dataset-major, then chain, then replica (cold rung
     first), the chains started from prior draws of ``seed_init`` (with
     ``tau_init`` the t_nd column from ``_min_rt_tau_init``); NUTS keeps its
     segment checkpoints in ``checkpoint_dir`` (the slice sampler has none).
+    With ``mesh`` the rows are split over its (first) axis
+    (``parallel.mesh.sharded_run_nuts``; padded by whole replica groups, by
+    wrap-around, so that every rank holds whole groups, the padding dropped
+    after) and every rank returns the whole launch's results.
     Returns (cold draws (Gl, C, per_chain, dim) as numpy, per-dataset cold
     divergence counts or None, mean accept, total divergences or None, swap
     acceptance or None, batched potential calls)."""
@@ -774,14 +779,22 @@ def _sbc_launch(cfg: RunConfig, prior_theta: Distribution, est: MNLE, x_g, s_g, 
     betas = torch.as_tensor(np.asarray(ladder, np.float32), device=device).repeat(Gl * C)
     data = (sessions, betas)
     logp, ll, vg = _fold_density(cfg, prior_theta, bij, est, x_g, s_g)
+    if mesh is not None:
+        from .parallel.mesh import _sharded_run, sharded_run_nuts
+
+        axis = mesh.mesh_dim_names[0]
+        slice_fn = partial(_sharded_run, run_slice, mesh=mesh, axis_name=axis)
+        nuts_fn = partial(sharded_run_nuts, mesh=mesh, axis_name=axis)
+    else:
+        slice_fn, nuts_fn = run_slice, run_nuts
     if cfg.MCMC_METHOD in ("slice", "slice_np_vectorized"):
-        samples_u, info = run_slice(seed_run, logp, init_u, num_warmup=warmup, num_samples=per_chain,
-                                    thin=cfg.MCMC_THIN, data=data, mode_hop=mode_hop, value_and_grad_fn=vg)
+        samples_u, info = slice_fn(seed_run, logp, init_u, num_warmup=warmup, num_samples=per_chain,
+                                   thin=cfg.MCMC_THIN, data=data, mode_hop=mode_hop, value_and_grad_fn=vg)
     else:
         exchange = None
         if R > 1:
             exchange = ReplicaExchange(n_replicas=R, betas=betas, ll_fn=ll, swap_every=cfg.MCMC_PT_SWAP_EVERY)
-        samples_u, info = run_nuts(
+        samples_u, info = nuts_fn(
             seed_run, logp, init_u, num_warmup=warmup, num_samples=per_chain,
             max_depth=cfg.MCMC_MAX_TREE_DEPTH, target_accept=cfg.MCMC_TARGET_ACCEPT, thin=cfg.MCMC_THIN,
             data=data, mode_hop=mode_hop, exchange=exchange, value_and_grad_fn=vg, checkpoint_dir=checkpoint_dir,
@@ -811,6 +824,7 @@ def _run_sbc_batched(
     verbose: bool,
     device: torch.device,
     group_size: int = 8,
+    mesh=None,
 ) -> dict:
     """Every SBC dataset x chain x replica folded into the chain axis of one
     sampler run, ``group_size`` datasets at a time.
@@ -835,6 +849,16 @@ def _run_sbc_batched(
     first. So the same call again, in the same ``outdir``, replays the
     finished groups from their checkpoints without a potential call and
     resumes a cut group at its last segment, to the same ranks.
+
+    With ``mesh`` (``parallel.mesh.default_mesh``; every rank calls with the
+    same arguments) each launch's rows are split over the mesh's ranks
+    (``_sbc_launch``) and gathered before the mixing gate, the ranks and the
+    files, so every rank takes the same decisions and returns the same
+    result. Each rank simulates every session (K1, the same bits). The run id
+    includes the number of ranks; rank 0 alone clears another run's
+    ``nuts_ckpt/`` (the ranks wait for it), each rank keeps its segments in
+    ``<group>/rank_{r}``, and rank 0 alone prints and writes ``outdir``'s
+    files.
     """
     from .analysis import sbc_uniformity_stats
     from .inference.diagnostics import effective_sample_size, split_r_hat
@@ -875,20 +899,30 @@ def _run_sbc_batched(
     calls = [0]
 
     # Crash-resume guard: segment checkpoints are only valid for the same
-    # (seed, workload shape); clear any stale ones from a different run.
+    # (seed, workload shape, number of ranks); clear any stale ones from a
+    # different run.
+    from .parallel.comm import barrier, rank, world_size
+
+    n_ranks = world_size() if mesh is not None else 1
+    writer = mesh is None or rank() == 0  # the rank that clears, prints and writes
+    verbose = verbose and writer
     run_id = hashlib.sha256(
         np.asarray(seed, np.int64).tobytes() + f"{D}/{C}/{cfg.WARMUP_STEPS}/{per_chain}/{T}/R={R}".encode()
+        + (f"/ranks={n_ranks}".encode() if mesh is not None else b"")
     ).hexdigest()[:16]
     ckpt_root = outdir / "nuts_ckpt"
     run_id_file = ckpt_root / "run_id.txt"
-    if ckpt_root.exists() and (not run_id_file.exists() or run_id_file.read_text() != run_id):
-        shutil.rmtree(ckpt_root)
-    ckpt_root.mkdir(parents=True, exist_ok=True)
-    run_id_file.write_text(run_id)
-    # Stale partials from a previous run in the same outdir would read as a
-    # snapshot of this run until the first group lands.
-    for stale in ("sbc_ranks.partial.npy", "partial_summary.json"):
-        (outdir / stale).unlink(missing_ok=True)
+    if writer:
+        if ckpt_root.exists() and (not run_id_file.exists() or run_id_file.read_text() != run_id):
+            shutil.rmtree(ckpt_root)
+        ckpt_root.mkdir(parents=True, exist_ok=True)
+        run_id_file.write_text(run_id)
+        # Stale partials from a previous run in the same outdir would read as a
+        # snapshot of this run until the first group lands.
+        for stale in ("sbc_ranks.partial.npy", "partial_summary.json"):
+            (outdir / stale).unlink(missing_ok=True)
+    if mesh is not None:
+        barrier()
     if verbose:
         print(f"[run_sbc] batched: {n_groups} groups of {G} datasets x {C} chains, {per_chain} draws/chain",
               flush=True)
@@ -903,7 +937,7 @@ def _run_sbc_batched(
         rows = torch.as_tensor(np.asarray(idx), device=device)
         *out, n_calls = _sbc_launch(cfg, prior_theta, est, x_d[rows], s_d[rows], seed_init, seed_run, warmup,
                                     ladder_arr, per_chain, mode_hop, tau_init=tau_init,
-                                    checkpoint_dir=str(ckpt_root / ckpt_name))
+                                    checkpoint_dir=str(ckpt_root / ckpt_name), mesh=mesh)
         calls[0] += n_calls
         return out
 
@@ -934,6 +968,8 @@ def _run_sbc_batched(
         # Partial results after every group, so a run cut short leaves a
         # readable uniformity readout over the datasets it finished.
         done = min((g + 1) * G, D)
+        if not writer:
+            continue
         part_ranks = (np.concatenate(pooled_groups, axis=0)[:done] < tt_np[:done, None, :]).sum(axis=1)
         partial = {
             "datasets_done": int(done),
@@ -1039,13 +1075,14 @@ def _run_sbc_batched(
         for i in range(D):
             print(f"[run_sbc] dataset {i + 1}/{D} ranks={ranks[i].tolist()}")
 
-    np.save(outdir / "sbc_thetas_true.npy", tt_np)
-    np.save(outdir / "sbc_ranks.npy", ranks)
-    # The pooled posterior draws (D, S, dim), for analyses after the run.
-    np.save(outdir / "sbc_samples.npy", samples_np.astype(np.float32))
     flagged_final = _flagged_idx() if gate_active else np.asarray([], dtype=int)
-    np.savez(outdir / "sbc_mixing_diagnostics.npz", rhat_max=rhat_np, min_ess=ess_np, divergences=div_np,
-             flagged_final=flagged_final)
+    if writer:
+        np.save(outdir / "sbc_thetas_true.npy", tt_np)
+        np.save(outdir / "sbc_ranks.npy", ranks)
+        # The pooled posterior draws (D, S, dim), for analyses after the run.
+        np.save(outdir / "sbc_samples.npy", samples_np.astype(np.float32))
+        np.savez(outdir / "sbc_mixing_diagnostics.npz", rhat_max=rhat_np, min_ess=ess_np, divergences=div_np,
+                 flagged_final=flagged_final)
     if verbose:
         print(f"[run_sbc] wrote {outdir / 'sbc_thetas_true.npy'}")
         print(f"[run_sbc] wrote {outdir / 'sbc_ranks.npy'}")
@@ -1054,7 +1091,8 @@ def _run_sbc_batched(
               f"{np.nanmax(rhat_np) if rhat_np.size else float('nan'):.3f}, "
               f"min ESS={np.nanmin(ess_np) if ess_np.size else float('nan'):.0f}, "
               f"{n_bad}/{D} datasets with R-hat > 1.05")
-    _plot_sbc_rank_histograms(ranks, post_samples, outdir)
+    if writer:
+        _plot_sbc_rank_histograms(ranks, post_samples, outdir)
     return {
         "thetas_true": tt_np,
         "ranks": ranks,
@@ -1067,6 +1105,9 @@ def _run_sbc_batched(
         "flagged_final": [int(v) for v in flagged_final],
         "potential_calls": calls[0],
     }
+
+
+_BATCHED_METHODS = ("nuts", "nuts_pyro", "hmc", "slice", "slice_np_vectorized")
 
 
 def run_sbc(
@@ -1096,11 +1137,14 @@ def run_sbc(
     per-dataset diagnostics, sbc_samples.npy, sbc_mixing_diagnostics.npz
     and the partials after every group); ``batched=False`` runs the
     datasets one after another through ``run_inference_mcmc``. ``mesh``
-    (sharding over several devices) is not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_sbc(mesh=...) is not ported to PyTorch yet (see ROADMAP.md, Queue 1: multi-device)"
-        )
+    (a ``parallel.mesh.default_mesh`` of the ranks, every rank calling with
+    the same arguments) splits the batched driver's rows over the ranks, as
+    the JAX package shards them over its mesh, and gives every rank the
+    unsharded run's result; rank 0 writes the files. The serial driver takes
+    no mesh."""
+    if mesh is not None and not (batched and cfg.MCMC_METHOD in _BATCHED_METHODS):
+        raise ValueError(f"run_sbc(mesh=...) runs the batched driver (batched=True, MCMC_METHOD in "
+                         f"{_BATCHED_METHODS}), got batched={batched}, MCMC_METHOD={cfg.MCMC_METHOD!r}")
     device = torch.device(device) if device is not None else density_estimator.device
     density_estimator.to(device)
     num_datasets = int(num_datasets or cfg.SBC_NUM_DATASETS)
@@ -1109,9 +1153,9 @@ def run_sbc(
     outdir = Path(outdir)
     outdir.mkdir(parents=True, exist_ok=True)
 
-    if batched and cfg.MCMC_METHOD in ("nuts", "nuts_pyro", "hmc", "slice", "slice_np_vectorized"):
+    if batched and cfg.MCMC_METHOD in _BATCHED_METHODS:
         return _run_sbc_batched(cfg, prior_theta, density_estimator, num_datasets, post_samples, outdir, seed,
-                                verbose, device, group_size=group_size)
+                                verbose, device, group_size=group_size, mesh=mesh)
 
     sbc_cfg = cfg.replace(POSTERIOR_SAMPLES=post_samples)
     thetas_true, ranks, all_samples = [], [], []

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, replace
+from functools import partial
 from typing import Optional
 
 import torch
@@ -284,17 +285,16 @@ def run_hierarchical_inference(
     hyperprior's center, jittered by 0.1 of each block's prior scale
     (``child_seed(seed, 0)``); the sampler draws from ``child_seed(seed,
     1)``. ``density_estimator`` is an ``MNLE`` or an ensemble of them.
-    ``mesh`` (sharding over several devices) is not ported.
+    ``mesh``: a ``parallel.mesh.default_mesh`` of the ranks (every rank
+    calling with the same arguments); the sampler's rows are then split over
+    its first axis (``parallel.mesh.sharded_run_nuts``), each rank's K3
+    launch holding its own rows' (row, subject) pairs, and every rank
+    returns the unsharded run's result.
 
     Returns {"raw": draws in q-space (B, C, N, dim) or (C, N, dim),
     "theta_subjects": (B, C*N, S, D) or (C*N, S, D), "population_theta":
     bijector.forward(mu) (B, C*N, D) or (C*N, D), "swap_accept" (None
     without tempering), "info": the sampler's info dict}."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_hierarchical_inference(mesh=...) is not ported to PyTorch yet (see ROADMAP.md, Queue 1: "
-            "multi-device)"
-        )
     from ..inference.nuts import ReplicaExchange, geometric_ladder, run_nuts
 
     seed = as_seed(seed)
@@ -322,7 +322,12 @@ def run_hierarchical_inference(
     data = (rep, betas)
     logp, ll, vg = _hierarchical_density(model, bij, est, xs, ps, logprob_kernel)
     exchange = ReplicaExchange(n_replicas=R, betas=betas, ll_fn=ll, swap_every=1) if R > 1 else None
-    samples, info = run_nuts(
+    sampler = run_nuts
+    if mesh is not None:
+        from ..parallel.mesh import sharded_run_nuts
+
+        sampler = partial(sharded_run_nuts, mesh=mesh, axis_name=mesh.mesh_dim_names[0])
+    samples, info = sampler(
         child_seed(seed, 1), logp, init_q, num_warmup=num_warmup, num_samples=N, max_depth=max_tree_depth,
         target_accept=target_accept, data=data, segment_length=segment_length, exchange=exchange,
         value_and_grad_fn=vg,

@@ -21,6 +21,13 @@ K1 that (N,) array and sqrt(dt) rounded to float32, and K1's per-trial
 instances form each trial's sigma * sqrt(dt) in one float32 rounding, as
 the plain version's product; with a float those are not run and the
 scalar instances are unchanged.
+
+``trial_offset`` is the index of the launch's first trial in a larger batch
+(a rank's block of a sharded run, ``parallel.mesh.sharded_simulate``): K1
+takes trial j's noise at index trial_offset + j, so blocks launched with
+their offsets give the bits of one launch over the whole batch. The plain
+version draws the whole batch's noise (``n_total`` trials) and keeps its
+block's columns.
 """
 
 from __future__ import annotations
@@ -46,7 +53,7 @@ K1 = CudaKernel(
     [ctypes.c_void_p] * 5
     + [ctypes.c_int] * 3
     + [ctypes.c_float] * 5
-    + [ctypes.c_uint64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    + [ctypes.c_uint64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_uint],
     flags=("--fmad=false",),
 )
 K1_THREADS = 128  # threads a block: csrc/ddm_rt_choice.cu's K1_THREADS
@@ -133,9 +140,15 @@ def ddm_rt_choice_cuda(
     t_max: float = float(T_MAX),
     steps_per_pulse: int = 200,
     n_max: Optional[int] = None,
+    trial_offset: int = 0,
+    n_total: Optional[int] = None,
 ) -> torch.Tensor:
     """theta (N, 5), pulse_sides (N, P >= n_max/steps_per_pulse), mu_sensory
-    a float or (N,) -> (N, 2) float32 [rt, choice], choice in {0, 1, 2}."""
+    a float or (N,) -> (N, 2) float32 [rt, choice], choice in {0, 1, 2}.
+
+    ``trial_offset``: the index of trial 0 in a batch of ``n_total`` trials
+    (default: this launch's N) of which these are a block; only the noise
+    depends on it (K1 reads the offset; the plain version, ``n_total``)."""
     if n_max is None:
         n_max = int(t_max / dt)
     if n_max % steps_per_pulse != 0:
@@ -144,11 +157,14 @@ def ddm_rt_choice_cuda(
                                                  or mu_sensory.device != theta.device):
         raise ValueError(f"a per-trial mu_sensory must be ({theta.shape[0]},) on {theta.device}, got "
                          f"{tuple(mu_sensory.shape)} on {mu_sensory.device}")
+    trial_offset = int(trial_offset)
+    if trial_offset < 0 or trial_offset + theta.shape[0] > 2**32:
+        raise ValueError(f"trial_offset={trial_offset} with {theta.shape[0]} trials leaves K1's 32-bit trial counter")
     if not theta.is_cuda:
         return ddm_rt_choice_scan(
             theta, pulse_sides, seed, mu_sensory=mu_sensory, collapse_rate=collapse_rate,
             dt=dt, t_max=t_max, steps_per_pulse=steps_per_pulse,
-            chunk_steps=steps_per_pulse, n_max=n_max,
+            chunk_steps=steps_per_pulse, n_max=n_max, trial_offset=trial_offset, n_total=n_total,
         )
     if steps_per_pulse % 4 != 0:
         raise ValueError(
@@ -185,7 +201,7 @@ def ddm_rt_choice_cuda(
         next_trial.data_ptr(),
         N, n_max, steps_per_pulse,
         float(dt), float(t_max), float(t_max) - 1e-6, sig, float(collapse_rate),
-        as_seed(seed), G, blocks, stream_handle(theta.device),
+        as_seed(seed), G, blocks, stream_handle(theta.device), trial_offset,
     )
     K1_LAST_LAUNCH.update(n=N, G=G, blocks=blocks)
     return out

@@ -13,9 +13,13 @@ for step:
 
 Time runs in pulse-aligned chunks; a chunk in which no trial is active is
 skipped. The noise of chunk ``c`` comes from ``noise(c)``, a ``(chunk_steps,
-N)`` block of standard normals. By default it is drawn from a generator
-seeded with ``child_seed(seed, c)``, so the stream does not depend on which
-chunks were skipped. Tests inject the exact draws the JAX scan kernel uses.
+n_total)`` block of standard normals for the whole batch, of which the
+trials [trial_offset, trial_offset + N) take their columns (a rank's block
+of a sharded run; padded trials past ``n_total`` take the last column). By
+default it is drawn from a generator seeded with ``child_seed(seed, c)``, so
+the stream does not depend on which chunks were skipped, nor a trial's
+noise on how the batch is split. Tests inject the exact draws the JAX scan
+kernel uses.
 
 Every float constant is a float32 tensor on the trials' device, so each
 step rounds exactly as the JAX kernels and the CUDA kernel K1 do (no scalar
@@ -65,6 +69,8 @@ def ddm_rt_choice_scan(
     chunk_steps: int = 200,
     n_max: Optional[int] = None,
     noise: Optional[Callable[[int], torch.Tensor]] = None,
+    trial_offset: int = 0,
+    n_total: Optional[int] = None,
 ) -> torch.Tensor:
     """Batched RT+choice pulse-DDM simulator.
 
@@ -73,6 +79,8 @@ def ddm_rt_choice_scan(
     n_max / steps_per_pulse; ``mu_sensory`` a float or a per-trial (N,)
     tensor (the 7-parameter model's sigma_a). Returns (N, 2) float32 [rt,
     choice], choice in {0., 1., 2.} (2 = censored), on theta's device.
+    ``trial_offset`` / ``n_total`` (default 0 / N): these N trials are the
+    block from ``trial_offset`` of a batch of ``n_total``.
     """
     if n_max is None:
         n_max = int(t_max / dt)
@@ -92,10 +100,14 @@ def ddm_rt_choice_scan(
     # correctly rounded float32 root of float32(dt), rounded on the host as K1's wrapper rounds it.
     sigma_sqrt_dt = torch.as_tensor(mu_sensory, dtype=torch.float32, device=dev) * float(np.sqrt(np.float32(dt)))
     crate = _f32(collapse_rate, dev)
+    n_total = N if n_total is None else int(n_total)
+    cols = None  # the block's columns of the whole batch's noise; None: all of them
+    if (trial_offset, n_total) != (0, N):
+        cols = torch.clamp(torch.arange(trial_offset, trial_offset + N, device=dev), max=n_total - 1)
     if noise is None:
         def noise(c):
             g = make_generator(child_seed(seed, c), dev)
-            return torch.randn((chunk_steps, N), generator=g, device=dev, dtype=torch.float32)
+            return torch.randn((chunk_steps, n_total), generator=g, device=dev, dtype=torch.float32)
 
     a = a0_frac * B
     hit = torch.zeros((N,), dtype=torch.bool, device=dev)
@@ -109,7 +121,8 @@ def ddm_rt_choice_scan(
         t0 = c * chunk_steps
         if not bool(torch.any(~hit & (t0 < n_steps))):
             continue
-        eps_block = noise(c).to(device=dev, dtype=torch.float32) * sigma_sqrt_dt
+        block = noise(c).to(device=dev, dtype=torch.float32)
+        eps_block = (block if cols is None else block[:, cols]) * sigma_sqrt_dt
         for i in range(chunk_steps):
             t = t0 + i
             active = ~hit & (t < n_steps)

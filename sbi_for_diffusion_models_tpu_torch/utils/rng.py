@@ -7,6 +7,9 @@ parent seed and the tags), and ``make_generator`` turns a seed into a
 ``torch.Generator`` on the device that will draw from it. The two frameworks
 give different numbers for the same seed, so parity tests make their inputs
 with numpy and hand them to both.
+
+``draw`` and ``batch_any`` serve the batched samplers, whose rows may be
+split over processes (``parallel.comm.RowShard``).
 """
 
 from __future__ import annotations
@@ -61,3 +64,26 @@ def make_generator(seed: SeedLike, device=None) -> torch.Generator:
     g = torch.Generator(device=torch.device(device) if device is not None else "cpu")
     g.manual_seed(as_seed(seed))
     return g
+
+
+def draw(gen, sample, shape, device, **kwargs) -> torch.Tensor:
+    """``sample(shape, generator=gen, device=device, **kwargs)`` (e.g.
+    ``torch.rand``) for a batch of rows (the leading dim of ``shape``).
+    ``gen`` is a ``torch.Generator``, or a ``parallel.comm.ShardedGenerator``
+    whose rank holds some rows of a larger batch: it then draws for the
+    whole batch, in its shape, and keeps its own rows, so every row gets the
+    numbers an unsharded run gives it."""
+    if isinstance(gen, torch.Generator):
+        return sample(shape, generator=gen, device=device, **kwargs)
+    if shape[0] != gen.shard.rows.shape[0]:
+        raise ValueError(f"a draw of {shape[0]} rows for a shard of {gen.shard.rows.shape[0]}")
+    return gen.shard.take(sample((gen.shard.n, *shape[1:]), generator=gen.generator, device=device, **kwargs))
+
+
+def batch_any(gen, mask) -> bool:
+    """Whether any row of the batch ``gen`` draws for has ``mask`` set (a
+    tensor, or one bool for this process's rows): with a sharded generator,
+    over every rank's rows, so that every rank leaves a loop when the
+    unsharded run would."""
+    local = bool(mask.any()) if isinstance(mask, torch.Tensor) else bool(mask)
+    return local if isinstance(gen, torch.Generator) else gen.shard.any(local)

@@ -132,6 +132,45 @@ def test_k1_equals_the_parent_k1_bit_for_bit(case):
     assert diff.size == 0, f"{diff.size} rows differ from the parent K1, first {diff[:5].tolist()}"
 
 
+@pytest.mark.parametrize("collapse", [0.0, 2.0])
+@pytest.mark.parametrize("per_trial", [False, True])
+def test_k1_blocks_with_their_offsets_equal_one_launch(collapse, per_trial):
+    """A batch of 131,072 trials with noise launched as blocks (four equal
+    ones, as four ranks of a sharded run launch them, and a ragged split),
+    each with its trial offset: the rows of one launch over the batch bit for
+    bit, with one noise scale and with one a trial (each instance family),
+    and another output for a block launched without its offset."""
+    n = 131_072
+    theta, s = _theta_and_pulses(n, seed=6)
+    mu = (0.5 + torch.rand(n, generator=make_generator(7, DEV), device=DEV)) if per_trial else 1.0
+    kw = dict(KW, collapse_rate=collapse)
+
+    def launch(lo, hi, offset):
+        m = mu[lo:hi].contiguous() if per_trial else mu
+        return ddm_rt_choice_cuda(theta[lo:hi].contiguous(), s[lo:hi].contiguous(), 9, mu_sensory=m,
+                                  trial_offset=offset, **kw)
+
+    whole = launch(0, n, 0)
+    for cuts in ((0, n // 4, n // 2, 3 * n // 4, n), (0, 1, 1000, 77_777, n)):
+        blocks = torch.cat([launch(lo, hi, lo) for lo, hi in zip(cuts[:-1], cuts[1:])])
+        diff = torch.nonzero((blocks != whole).any(1)).reshape(-1)
+        assert diff.numel() == 0, f"blocks {cuts}: {diff.numel()} rows differ, first {diff[:5].tolist()}"
+    assert not torch.equal(launch(n // 2, n, 0), whole[n // 2:])
+
+
+def test_k1_at_offset_zero_gives_the_parent_bits():
+    """An explicit trial_offset of 0 is the launch the fixture was made by."""
+    c = k1_fixture.CASES["kw_n8192_c0"]
+    got = k1_fixture.run(functools.partial(ddm_rt_choice_cuda, trial_offset=0), c, DEV).cpu().numpy()
+    assert np.array_equal(got, _k1_fixture()["kw_n8192_c0"])
+
+
+def test_k1_rejects_an_offset_past_its_32_bit_counter():
+    theta, s = _theta_and_pulses(16)
+    with pytest.raises(ValueError, match="32-bit"):
+        ddm_rt_choice_cuda(theta, s, 1, trial_offset=2**32 - 8, **KW)
+
+
 def _k1_capacity(collapse):
     from sbi_for_diffusion_models_tpu_torch.ops.ddm_cuda import _card_capacity
 

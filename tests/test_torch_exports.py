@@ -47,7 +47,7 @@ def test_root_exports_every_ported_jax_name():
         getattr(port, "not_a_name")
 
 
-@pytest.mark.parametrize("sub", ["models", "nets"])
+@pytest.mark.parametrize("sub", ["models", "nets", "parallel"])
 def test_subpackage_exports_match_jax(sub):
     jmod = importlib.import_module(f"sbi_for_diffusion_models_tpu.{sub}")
     tmod = importlib.import_module(f"sbi_for_diffusion_models_tpu_torch.{sub}")

@@ -260,5 +260,3 @@ def test_torch_tiny_run_hierarchical_inference(batched):
     assert out["info"]["accept_prob"].shape == ((8 if batched else 4), 5)
     s = out["theta_subjects"].reshape(-1, 5)
     assert bool(torch.isfinite(prior.log_prob(torch.from_numpy(s))).all())
-    with pytest.raises(NotImplementedError, match="Queue 1: multi-device"):
-        th.run_hierarchical_inference(est, prior, x, pulses, mesh=object())

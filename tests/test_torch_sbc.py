@@ -316,12 +316,6 @@ def test_torch_run_sbc_batched_with_slice(tiny_setup, tmp_path):
     assert np.isnan(out["divergences_per_dataset"]).all()  # slice has no divergences
 
 
-def test_run_sbc_with_a_mesh_is_not_ported(tiny_setup, tmp_path):
-    prior, est, cfg = tiny_setup
-    with pytest.raises(NotImplementedError, match="Queue 1: multi-device"):
-        tmnle.run_sbc(cfg, prior, est, outdir=tmp_path, seed=0, verbose=False, mesh=object())
-
-
 def test_run_id_guard_clears_another_runs_checkpoints_and_keeps_its_own(tiny_setup, tmp_path):
     prior, est, cfg = tiny_setup
     cfg = cfg.replace(SBC_NUM_DATASETS=1, SBC_POST_SAMPLES=10, WARMUP_STEPS=10)
