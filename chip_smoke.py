@@ -167,21 +167,24 @@ port's paths once each through their public entry points:
    SNPE_CHAIN_DRAWS draws a chain, depth <= 6); it prints the training ms
    a step;
 19. the multi-device path (``phase_multidevice``): the SBC fold of phase 10
-   cut to warmup MD_WARMUP / MD_DRAWS draws, depth MD_TREE_DEPTH, run
-   unsharded; then (a) an NCCL world of one rank in this process (a
-   ``FileStore`` in a temporary directory): ``dryrun_multichip(1)`` and the
-   fold through ``run_sbc(mesh=...)``, whose draws must equal the unsharded
-   call's bit for bit, and K1's trial offset (``phase_k1_offset``: N_SIM
-   trials in blocks, each launched from its offset, against one launch, 0
-   rows may differ; the fixture at offset 0); (b) MD_RANKS ranks sharing
-   the card over gloo, started with a deadline: K1 at N_SIM trials in one
-   block a rank (0 rows may differ from one launch), the fold at 2,400 rows
-   a rank against the unsharded call (printed: bit for bit, or the largest
-   difference and the first transition that differs), and
-   ``dryrun_multichip(MD_RANKS)`` with the 2 x 2 TP step. K1, K2 and K3 must
-   have launched on the sharded paths; each rank's launches and ms a call
-   are printed. One card shows NCCL's communicator and the sharded code
-   paths, not scaling over several GPUs.
+   cut to warmup MD_WARMUP / MD_DRAWS draws, depth MD_TREE_DEPTH, and the
+   hierarchical fold of phase 17, run unsharded; then (a) an NCCL world of
+   one rank in this process (a ``FileStore`` in a temporary directory):
+   ``dryrun_multichip(1)`` and the two folds through ``run_sbc(mesh=...)``
+   and ``run_hierarchical_inference(mesh=...)``, whose draws must equal the
+   unsharded calls' bit for bit, and K1's trial offset
+   (``phase_k1_offset``: N_SIM trials in blocks, each launched from its
+   offset, against one launch, 0 rows may differ; the fixture at offset
+   0); (b) MD_RANKS ranks started with a deadline, one a card over NCCL on
+   a host with MD_RANKS cards, else sharing the card over gloo: K1 at N_SIM
+   trials in one block a rank (0 rows may differ from one launch), the SBC
+   fold at 2,400 rows a rank and the hierarchical fold against the
+   unsharded calls (printed: bit for bit, or the largest difference and the
+   first transition that differs), and ``dryrun_multichip(MD_RANKS)`` with
+   the 2 x 2 TP step. K1, K2 and K3 must have launched on the sharded
+   paths; each rank's launches and ms a call are printed. One card shows
+   NCCL's communicator and the sharded code paths, not scaling over
+   several GPUs.
 
 Each kernel's bound is the larger of its FP32 operations over 67 TFLOP/s
 and its bytes (inputs read once, outputs written once) over 3.35 TB/s, the
@@ -253,7 +256,10 @@ SLICE_WARMUP, SLICE_DRAWS = 20, 240  # the slice path's cut (24 chains: 10 draws
 SERVE_WARMUP, SERVE_DRAWS = 10, 40
 PULSE_DRAWS = 20  # the pulse path's draws (its warmup is SERVE_WARMUP)
 TRAIN_SERVE_WARMUP, TRAIN_SERVE_DRAWS = 10, 20
-SBC_WARMUP, SBC_DRAWS = 10, 40
+# The SBC phase's warmup went from 10 to 5 when the whole script took 919.8 s on an H100 host at 4.483 ms an SBC
+# call (SBC 217.6 s; the remediation round's warmup is 2 x SBC_WARMUP): a cut of depth that keeps the mixing gate
+# (10 draws a chain) and the remediation round.
+SBC_WARMUP, SBC_DRAWS = 5, 40
 RESUME_WARMUP, RESUME_DRAWS, RESUME_SEGMENT = 10, 20, 5  # 30 transitions, 6 segments; draws a chain
 RESUME_TREE_DEPTH = 6  # the resume phase's cap on NUTS tree depth (CALIBRATED_CONFIG's is 10)
 RESUME_CUT_AT = 3  # the cut child is killed once its checkpoint's next_segment reaches this
@@ -278,16 +284,14 @@ CHOICE_GRID = {"t_max": 2.0, "n_max": 4_000, "steps_per_pulse": 200, "chunk_step
 SNPE_LO, SNPE_HI = (0.1, 0.05, 0.2, 2.0, 0.0), (0.9, 1.0, 3.0, 20.0, 0.5)
 SNPE_THETAS, SNPE_DRAWS = 20_000, 2_000
 SNPE_EPOCHS = 30  # the example's 60 epochs, cut for time (patience 12, as there)
-# The SNLE posterior's NUTS run: 4 chains, trees capped at depth 6. The multidevice phase (48.5 s) took the whole
-# script to 738.7 s on the H100, so this run, the script's longest sampler by autograd (67.5 s at 20 / 20), went to
-# 10 / 10.
-SNPE_WARMUP, SNPE_CHAIN_DRAWS = 10, 10
+SNPE_WARMUP, SNPE_CHAIN_DRAWS = 20, 20  # the SNLE posterior's NUTS run: 4 chains, trees capped at depth 6
 # The hierarchical coverage configuration (artifacts/hierarchical_coverage_pt_a.json: warmup 250, 300 draws a
 # chain, depth 8), cut for time.
 HIER_WARMUP, HIER_DRAWS, HIER_TREE_DEPTH = 10, 10, 6
-# The multi-device phase: a world of one rank under NCCL in this process, then MD_RANKS ranks sharing the card over
-# gloo. Its SBC fold is the SBC phase's (8 datasets, 9,600 rows a K3 launch; 2,400 a rank) cut to warmup MD_WARMUP,
-# MD_DRAWS draws (5 a chain: the mixing gate is off, so no remediation), trees capped at MD_TREE_DEPTH. Predicted
+# The multi-device phase: a world of one rank under NCCL in this process, then MD_RANKS ranks, one a card over NCCL
+# where the host has MD_RANKS cards, else sharing the card over gloo. Its SBC fold is the SBC phase's (8 datasets,
+# 9,600 rows a K3 launch; 2,400 a rank) cut to warmup MD_WARMUP, MD_DRAWS draws (5 a chain: the mixing gate is off,
+# so no remediation), trees capped at MD_TREE_DEPTH; its hierarchical fold is the hierarchical phase's. Predicted
 # before its first run (PERF.md): 40-70 s, most of it starting the ranks, each of which loads the built kernels.
 MD_RANKS = 4
 MD_WARMUP, MD_DRAWS, MD_TREE_DEPTH = 5, 20, 6
@@ -2165,6 +2169,30 @@ def _hierarchical_setup(device):
     return conf, est, prior, model, xs, ps
 
 
+HIER_SEED = 2000
+
+
+def _run_hierarchical(device, mesh=None) -> tuple:
+    """``run_hierarchical_inference`` at the coverage configuration
+    (``_hierarchical_setup``), warmup HIER_WARMUP, HIER_DRAWS draws a chain,
+    trees capped at HIER_TREE_DEPTH, on ``mesh`` or unsharded; returns the
+    setup, the output and the sampler's seconds."""
+    import torch
+
+    from sbi_for_diffusion_models_tpu_torch.models.hierarchical import run_hierarchical_inference
+
+    conf, est, prior, model, xs, ps = _hierarchical_setup(device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run_hierarchical_inference(est, prior, xs, ps, model=model, num_chains=conf["chains"],
+                                     num_warmup=HIER_WARMUP, num_samples=HIER_DRAWS,
+                                     max_tree_depth=HIER_TREE_DEPTH, pt_replicas=conf["pt_replicas"],
+                                     pt_beta_min=conf["pt_beta_min"], segment_length=8, seed=HIER_SEED, mesh=mesh,
+                                     verbose=mesh is None)
+    torch.cuda.synchronize()
+    return (conf, est, prior, model, xs, ps), out, time.perf_counter() - t0
+
+
 def phase_hierarchical(device) -> dict:
     """The hierarchical path at the repo's coverage configuration
     (``artifacts/hierarchical_coverage_pt_a.json``: ``mnle_1m_censor.npz``,
@@ -2183,25 +2211,13 @@ def phase_hierarchical(device) -> dict:
 
     from sbi_for_diffusion_models_tpu_torch.distributions import mcmc_transform
     from sbi_for_diffusion_models_tpu_torch.inference.nuts import geometric_ladder
-    from sbi_for_diffusion_models_tpu_torch.models.hierarchical import _hierarchical_density, run_hierarchical_inference
+    from sbi_for_diffusion_models_tpu_torch.models.hierarchical import _hierarchical_density
     from sbi_for_diffusion_models_tpu_torch.utils.rng import child_seed, make_generator
 
-    seed = 2000
-
-    def run():
-        conf, est, prior, model, xs, ps = _hierarchical_setup(device)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = run_hierarchical_inference(est, prior, xs, ps, model=model, num_chains=conf["chains"],
-                                         num_warmup=HIER_WARMUP, num_samples=HIER_DRAWS,
-                                         max_tree_depth=HIER_TREE_DEPTH, pt_replicas=conf["pt_replicas"],
-                                         pt_beta_min=conf["pt_beta_min"], segment_length=8, seed=seed)
-        torch.cuda.synchronize()
-        return conf, est, prior, model, xs, ps, out, time.perf_counter() - t0
-
+    seed = HIER_SEED
     with _recording_k3() as (rows_seen, k3_first):
-        (conf, est, prior, model, xs, ps, out, wall), launches = _launches_on(
-            "hierarchical", ("ddm_rt_choice", "mnle_logprob_bwd"), run)
+        ((conf, est, prior, model, xs, ps), out, wall), launches = _launches_on(
+            "hierarchical", ("ddm_rt_choice", "mnle_logprob_bwd"), lambda: _run_hierarchical(device))
     B, S, T = xs.shape[:3]
     C, R = conf["chains"], conf["pt_replicas"]
     rows = B * C * R * S * T
@@ -2336,9 +2352,10 @@ def _md_inputs(device) -> tuple:
 def md_rank(outdir: str) -> dict:
     """One rank of a multi-device world (gloo ranks sharing the card, or
     NCCL ranks one a card): K1 at N_SIM trials in the ranks' blocks
-    (``sharded_simulate``), the SBC fold of ``_md_sbc`` split over the ranks,
-    and ``dryrun_multichip``; returns the rank's launches and times, and
-    rank 0 the gathered outputs."""
+    (``sharded_simulate``), the SBC fold of ``_md_sbc`` and the hierarchical
+    fold of ``_run_hierarchical`` split over the ranks, and
+    ``dryrun_multichip``; returns the rank's launches and times, and rank 0
+    the gathered outputs."""
     import torch
     import torch.distributed as dist
 
@@ -2360,35 +2377,41 @@ def md_rank(outdir: str) -> dict:
     x = sharded_simulate(ddm_rt_choice_cuda, theta, s, 41, mesh=mesh, n_max=n_max, steps_per_pulse=spp)
     torch.cuda.synchronize()
     k1_s = time.perf_counter() - t0
-    draws, calls, wall = _md_sbc(device, default_mesh(world, "chains"), outdir)
+    chains = default_mesh(world, "chains")
+    draws, calls, wall = _md_sbc(device, chains, outdir)
+    _, hier, hier_s = _run_hierarchical(device, chains)
     dry = dryrun_multichip(world, device=device)
     launches = {name: k.launches for name, k in KERNELS.items()}
     out = {"rank": r, "card": torch.cuda.get_device_name(device), "launches": launches, "k1_s": k1_s, "sbc_s": wall,
-           "calls": calls,
-           "ms_per_call": wall * 1e3 / calls, "dryrun": dry, "seconds": time.perf_counter() - t_start}
+           "calls": calls, "ms_per_call": wall * 1e3 / calls, "hier_s": hier_s,
+           "hier_calls": hier["info"]["potential_calls"], "dryrun": dry, "seconds": time.perf_counter() - t_start}
     if r == 0:
-        out.update(k1=x.cpu().numpy(), draws=draws)
+        out.update(k1=x.cpu().numpy(), draws=draws, hier=hier["raw"])
     return out
 
 
 def phase_multidevice(device) -> dict:
-    """Multi-device (``parallel/``) on the one card.
+    """Multi-device (``parallel/``) on the cards this host has.
 
     (a) A world of one rank under NCCL in this process (a ``FileStore`` in a
     temporary directory, no port): ``dryrun_multichip(1)``, the SBC fold of
-    ``_md_sbc`` through ``run_sbc(mesh=...)``, whose draws must equal the
-    unsharded call's bit for bit, and ``phase_k1_offset``. (b) MD_RANKS
-    ranks started with a deadline (``launch_local``), each sharing the card
-    over gloo: K1 at N_SIM trials with noise in MD_RANKS blocks, 0 rows of
-    which may differ from one unsharded launch; the same SBC fold, 2,400
-    rows a rank, compared with the unsharded run (bit for bit, or the
-    largest difference and the first transition that differs, printed);
-    and ``dryrun_multichip(MD_RANKS)``, the 2 x 2 TP step included. K1, K2
-    and K3 must have launched on the sharded paths (the unsharded reference
-    run is not counted); the launches are summed over the ranks. One card
-    cannot show scaling over several GPUs: NCCL refuses two ranks on one
-    card, so (a) shows NCCL's communicator and (b) the sharded code paths
-    (``--multichip N`` runs (b) over NCCL on N cards)."""
+    ``_md_sbc`` through ``run_sbc(mesh=...)`` and the hierarchical fold
+    through ``run_hierarchical_inference(mesh=...)``, whose draws must equal
+    the unsharded calls' bit for bit, and ``phase_k1_offset``. (b) MD_RANKS
+    ranks started with a deadline (``launch_local``): over NCCL, one rank a
+    card, where the host has MD_RANKS cards, else sharing the card over
+    gloo (NCCL refuses two ranks on one card). Each rank runs K1 at N_SIM
+    trials with noise in its block, 0 rows of which may differ from one
+    unsharded launch; the same SBC fold, 2,400 rows a rank, and the same
+    hierarchical fold, a quarter of its replica groups a rank, each compared
+    with the unsharded run (bit for bit, or the largest difference and the
+    first transition that differs, printed); and
+    ``dryrun_multichip(MD_RANKS)``, the 2 x 2 TP step included. K1, K2 and
+    K3 must have launched on the sharded paths (the unsharded reference runs
+    are not counted); the launches are summed over the ranks. One card shows
+    NCCL's communicator and the sharded code paths, not scaling over
+    several GPUs."""
+    import torch
     import torch.distributed as dist
 
     from sbi_for_diffusion_models_tpu_torch.graft_entry import dryrun_multichip
@@ -2402,6 +2425,11 @@ def phase_multidevice(device) -> dict:
         _log(f"[multidevice] unsharded SBC fold: 8 datasets x 4 chains x 6 rungs, warmup {MD_WARMUP}, "
              f"{MD_DRAWS // 4} draws a chain, depth <= {MD_TREE_DEPTH}: potential_calls={ref_calls} "
              f"wall_s={ref_wall:.3f} ms_per_call={ref_wall * 1e3 / ref_calls:.3f}")
+        _, hier_out, hier_wall = _run_hierarchical(device)
+        hier_ref, hier_calls = hier_out["raw"], hier_out["info"]["potential_calls"]
+        _log(f"[multidevice] unsharded hierarchical fold (the coverage configuration, warmup {HIER_WARMUP}, "
+             f"{HIER_DRAWS} draws a chain, depth <= {HIER_TREE_DEPTH}): potential_calls={hier_calls} "
+             f"wall_s={hier_wall:.3f}")
 
         # (a) A world of one under NCCL.
         t0 = time.perf_counter()
@@ -2411,44 +2439,69 @@ def phase_multidevice(device) -> dict:
 
         def run_a():
             dry = dryrun_multichip(1)
-            return dry, _md_sbc(device, default_mesh(1, "chains"), os.path.join(tmp, "one"))
+            mesh = default_mesh(1, "chains")
+            return dry, _md_sbc(device, mesh, os.path.join(tmp, "one")), _run_hierarchical(device, mesh)
 
         try:
-            (dry1, (one, one_calls, one_wall)), launches_a = _launches_on("multidevice (a)", (), run_a)
+            (dry1, (one, one_calls, one_wall), (_, hier_one, hier_one_wall)), launches_a = _launches_on(
+                "multidevice (a)", (), run_a)
             offset = phase_k1_offset(device)
         finally:
             dist.destroy_process_group()
         one_differ = int((one != ref).sum())
+        hier_one_differ = int((hier_one["raw"] != hier_ref).sum())
         _log(f"[multidevice] (a) run_sbc(mesh=<NCCL world of one>) against the unsharded call: values differing "
              f"{one_differ}/{ref.size}; potential_calls={one_calls} wall_s={one_wall:.3f} "
-             f"ms_per_call={one_wall * 1e3 / one_calls:.3f}; dryrun_multichip(1)={dry1}")
-        if one_differ or one_calls != ref_calls:
-            raise AssertionError(f"multidevice: the NCCL world of one gave other draws ({one_differ} values) or "
-                                 f"calls ({one_calls} against {ref_calls})")
+             f"ms_per_call={one_wall * 1e3 / one_calls:.3f}; run_hierarchical_inference(mesh=<NCCL world of one>) "
+             f"against the unsharded call: values differing {hier_one_differ}/{hier_ref.size}, potential_calls="
+             f"{hier_one['info']['potential_calls']} wall_s={hier_one_wall:.3f}; dryrun_multichip(1)={dry1}")
+        if one_differ or one_calls != ref_calls or hier_one_differ:
+            raise AssertionError(f"multidevice: the NCCL world of one gave other draws (SBC {one_differ} values, "
+                                 f"hierarchical {hier_one_differ}) or calls ({one_calls} against {ref_calls})")
 
-        # (b) MD_RANKS ranks sharing the card over gloo.
+        # (b) MD_RANKS ranks: one a card over NCCL where there are enough cards, else sharing the card over gloo.
+        backend = "nccl" if torch.cuda.device_count() >= MD_RANKS else "gloo"
         theta, s, n_max, spp = _md_inputs(device)
         whole = ddm_rt_choice_cuda(theta, s, 41, n_max=n_max, steps_per_pulse=spp).cpu().numpy()
-        ranks, checked = _md_ranks("(b)", MD_RANKS, "gloo", ref, whole, os.path.join(tmp, "ranks"))
+        ranks, checked = _md_ranks("(b)", MD_RANKS, backend, (ref, hier_ref), whole, os.path.join(tmp, "ranks"))
     launches = {k: launches_a[k] + sum(res["launches"][k] for res in ranks) for k in launches_a}
     _log(f"[multidevice] launches, (a) and every rank of (b): {json.dumps(launches)}; the ranks started and "
          f"finished in {checked['spawn_s']:.3f} s; phase {time.perf_counter() - t_phase:.1f} s")
     missing = [k for k in ("ddm_rt_choice", "mnle_logprob_fwd", "mnle_logprob_bwd") if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the multidevice path: {missing}")
-    return {"launches": launches, "k1_offset": offset, "sbc_one_differing": one_differ, **checked,
-            "seconds": time.perf_counter() - t_phase}
+    return {"launches": launches, "k1_offset": offset, "sbc_one_differing": one_differ,
+            "hierarchical_one_differing": hier_one_differ, **checked, "seconds": time.perf_counter() - t_phase}
 
 
-def _md_ranks(label: str, n: int, backend: str, ref, whole, outdir: str) -> tuple:
+def _held_to(label: str, what: str, got, ref, per_chain: int, chain_of) -> int:
+    """Prints whether the sharded run's draws ``got`` equal the unsharded
+    ``ref`` (else how many values differ, the largest difference and the
+    first draw that differs: ``chain_of`` maps an index of ``got`` to
+    (chain, draw)); returns the number of values that differ."""
+    import numpy as np
+
+    bad = np.argwhere(got != ref)
+    if bad.size == 0:
+        _log(f"[multidevice] {label} {what} against the unsharded call: bit for bit ({got.size} values)")
+    else:
+        first = min(chain_of(tuple(b))[1] for b in bad)
+        _log(f"[multidevice] {label} {what} against the unsharded call: {len(bad)}/{got.size} values differ, "
+             f"largest difference {float(np.abs(got - ref).max()):.6g}, first differing transition: draw {first} of "
+             f"{per_chain} (after the warmup)")
+    if not np.isfinite(got).all():
+        raise AssertionError(f"multidevice: non-finite draws in {what}")
+    return int(len(bad))
+
+
+def _md_ranks(label: str, n: int, backend: str, refs, whole, outdir: str) -> tuple:
     """``md_rank`` on ``n`` new ranks (``launch_local``, with a deadline):
     gloo ranks share the card, NCCL ranks take one card each. Fails unless
     K1's blocks give ``whole`` (one launch) bit for bit; prints whether the
-    SBC fold's draws equal the unsharded ``ref`` (else the largest
-    difference and the first transition that differs) and each rank's
-    launches and ms a call. Returns (the ranks' results, the checks)."""
-    import numpy as np
-
+    SBC fold's and the hierarchical fold's draws equal the unsharded
+    ``refs`` (else the largest difference and the first transition that
+    differs) and each rank's launches and ms a call. Returns (the ranks'
+    results, the checks)."""
     from sbi_for_diffusion_models_tpu_torch.parallel.multihost import launch_local
 
     t0 = time.perf_counter()
@@ -2457,62 +2510,24 @@ def _md_ranks(label: str, n: int, backend: str, ref, whole, outdir: str) -> tupl
     for res in ranks:
         _log(f"[multidevice] {label} rank {res['rank']}/{n} ({backend}, {res['card']}): "
              f"launches={json.dumps(res['launches'])} k1_s={res['k1_s']:.4f} sbc_s={res['sbc_s']:.3f} "
-             f"potential_calls={res['calls']} ms_per_call={res['ms_per_call']:.3f} rank_s={res['seconds']:.3f} "
-             f"dryrun={res['dryrun']}")
+             f"potential_calls={res['calls']} ms_per_call={res['ms_per_call']:.3f} hier_s={res['hier_s']:.3f} "
+             f"hier_calls={res['hier_calls']} rank_s={res['seconds']:.3f} dryrun={res['dryrun']}")
     k1_differ = int((ranks[0]["k1"] != whole).any(1).sum())
     _log(f"[multidevice] {label} K1 at {N_SIM} trials with noise in {n} blocks, one a rank, each from its trial "
          f"offset: rows differing from one unsharded launch = {k1_differ}")
     if k1_differ:
         raise AssertionError(f"multidevice: the ranks' K1 blocks differ from one launch on {k1_differ} rows")
-    draws = ranks[0]["draws"]
-    bad = np.argwhere(draws != ref)
-    rows = 9_600 // n
-    if bad.size == 0:
-        _log(f"[multidevice] {label} SBC fold on {n} ranks ({rows:,} rows a rank) against the unsharded call: "
-             f"bit for bit ({draws.size} values)")
-    else:
-        first = int(bad[:, 1].min()) // 4  # pooled row k * C + c is draw k of chain c
-        _log(f"[multidevice] {label} SBC fold on {n} ranks ({rows:,} rows a rank) against the unsharded call: "
-             f"{len(bad)}/{draws.size} values differ, largest difference {float(np.abs(draws - ref).max()):.6g}, "
-             f"first differing transition: draw {first} (after warmup {MD_WARMUP})")
-    if not np.isfinite(draws).all() or {res["calls"] for res in ranks} != {ranks[0]["calls"]}:
-        raise AssertionError("multidevice: non-finite draws, or the ranks made different numbers of calls")
-    return ranks, {"k1_blocks_differing": k1_differ, "sbc_ranks_differing": int(len(bad)), "spawn_s": spawn_s,
+    sbc_ref, hier_ref = refs
+    # The pooled SBC draws: row k * 4 + c is draw k of chain c. The hierarchical draws: (dataset, chain, draw, dim).
+    sbc_bad = _held_to(label, f"SBC fold on {n} ranks ({9_600 // n:,} rows a rank)", ranks[0]["draws"], sbc_ref,
+                       MD_DRAWS // 4, lambda b: (b[1] % 4, b[1] // 4))
+    hier_bad = _held_to(label, f"hierarchical fold on {n} ranks", ranks[0]["hier"], hier_ref, HIER_DRAWS,
+                        lambda b: (b[1], b[2]))
+    if len({(res["calls"], res["hier_calls"]) for res in ranks}) != 1:
+        raise AssertionError("multidevice: the ranks made different numbers of calls")
+    return ranks, {"k1_blocks_differing": k1_differ, "sbc_ranks_differing": sbc_bad,
+                   "hierarchical_ranks_differing": hier_bad, "backend": backend, "spawn_s": spawn_s,
                    "ms_per_call_by_rank": [res["ms_per_call"] for res in ranks]}
-
-
-def multichip_main(n: int) -> int:
-    """``chip_smoke.py --multichip N``, on a host with N cards: the kernels'
-    build, the SBC fold of ``_md_sbc`` unsharded on card 0, then ``md_rank``
-    on N NCCL ranks, one a card (``_md_ranks``), held as the one-card phase
-    holds its gloo ranks. The one-card run (no arguments) cannot show NCCL
-    with more than one rank: NCCL takes one rank a card."""
-    import torch
-
-    if torch.cuda.device_count() < n:
-        print(f"chip_smoke: --multichip {n} needs {n} CUDA cards, found {torch.cuda.device_count()}", file=sys.stderr)
-        return 2
-    from sbi_for_diffusion_models_tpu_torch.ops.ddm_cuda import ddm_rt_choice_cuda
-
-    device = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()
-    _log(f"[device] torch={torch.__version__} cuda={torch.version.cuda} cards={smi}")
-    t_start = time.perf_counter()
-    phase_build()
-    with tempfile.TemporaryDirectory() as tmp:
-        ref, ref_calls, ref_wall = _md_sbc(device, None, os.path.join(tmp, "ref"))
-        _log(f"[multidevice] unsharded SBC fold on card 0: potential_calls={ref_calls} wall_s={ref_wall:.3f} "
-             f"ms_per_call={ref_wall * 1e3 / ref_calls:.3f}")
-        theta, s, n_max, spp = _md_inputs(device)
-        whole = ddm_rt_choice_cuda(theta, s, 41, n_max=n_max, steps_per_pulse=spp).cpu().numpy()
-        _, checked = _md_ranks("(nccl)", n, "nccl", ref, whole, os.path.join(tmp, "ranks"))
-    _log(f"[time] --multichip {n} after start-up: {time.perf_counter() - t_start:.1f} s")
-    print(smi[0])
-    print(json.dumps({"multichip": {"ranks": n, "unsharded_ms_per_call": ref_wall * 1e3 / ref_calls, **checked}}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
-    return 0
 
 
 def phase_snpe(device) -> dict:
@@ -2627,8 +2642,6 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:2] == ["--resume-child"]:
         return resume_child(sys.argv[2])
-    if sys.argv[1:2] == ["--multichip"]:
-        return multichip_main(int(sys.argv[2]))
     device = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(

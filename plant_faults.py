@@ -16,9 +16,11 @@ outputs, bit for bit), ``chip_smoke.phase_k1_sigma`` for its per-trial
 noise scale (each trial's rows at its own sigma) and
 ``chip_smoke.phase_k1_offset`` for its trial offset, the multi-device
 phase's K1 check (a batch launched in blocks, each from its offset, against
-one launch). A check that raises any error (a fault may also make the kernel
-fault) counts as failed. The unchanged source runs
-every check. It prints the checks' lines for each run, then one JSON object
+one launch). The copy's kernels are built before any check runs: a planted
+source that does not build or load fails this script, not the check. A check
+that raises an AssertionError, or the CUDA error of a kernel that faults or
+fails to launch, counts as failed; any other error fails this script. The
+unchanged source runs every check. It prints the checks' lines for each run, then one JSON object
 as the last line: per fault and size, "passed" or "failed". It exits with 0
 only if the unchanged source passes every check at both sizes and every
 fault fails at both.
@@ -107,17 +109,29 @@ FAULTS = {
 }
 PHASES = ("phase_k2k3", "phase_k2pk3p", "phase_k1_fixture", "phase_k1_sigma", "phase_k1_offset")
 
+# The source each check's kernels are built from.
+PHASE_SOURCES = {"phase_k2k3": K3_FILE, "phase_k2pk3p": K3P_FILE, "phase_k1_fixture": K1_FILE,
+                 "phase_k1_sigma": K1_FILE, "phase_k1_offset": K1_FILE}
+
+# argv: the sources to build (comma-separated), then the checks.
 CHILD = """
 import json, sys, torch
 import chip_smoke as cs
+from sbi_for_diffusion_models_tpu_torch.ops import _cuda, ddm_cuda, mnle_cuda  # noqa: F401 (their kernels)
 torch.backends.cuda.matmul.allow_tf32 = False
+for lib in _cuda._LIBRARIES.values():  # a build or load error ends this process: it is no check's verdict
+    if lib.source.name in sys.argv[1].split(","):
+        lib.load()
+fault_errors = (AssertionError, getattr(torch, "AcceleratorError", AssertionError))
 out = {}
-for phase in sys.argv[1:]:
+for phase in sys.argv[2:]:
     for n in ((None,) if phase.startswith("phase_k1") else (cs.ROWS_MAIN, cs.ROWS_SBC)):
         try:
             getattr(cs, phase)(torch.device("cuda", 0), **({} if n is None else {"sizes": (n,)}))
             out[phase if n is None else f"{phase}@{n}"] = "passed"
-        except Exception as e:  # a fault may also make the kernel fault: the check failed all the same
+        except Exception as e:  # a planted fault may also make the kernel fault or fail to launch
+            if not (isinstance(e, fault_errors) or "kernel launch failed" in str(e) or "CUDA error" in str(e)):
+                raise
             print("[check failed]", type(e).__name__, e, flush=True)
             out[phase if n is None else f"{phase}@{n}"] = "failed"
 print(json.dumps(out))
@@ -159,8 +173,9 @@ def main(names: list) -> int:
             else:  # the unchanged source runs every check, or those of the chosen faults
                 phases = PHASES if not names else tuple(p for p in PHASES if any(FAULTS[k][1] == p for k in names
                                                                                  if FAULTS[k] is not None))
-            proc = subprocess.run([sys.executable, "-c", CHILD, *phases], cwd=tmp, capture_output=True, text=True,
-                                  timeout=900)
+            sources = ",".join(sorted({PHASE_SOURCES[p] for p in phases}))
+            proc = subprocess.run([sys.executable, "-c", CHILD, sources, *phases], cwd=tmp, capture_output=True,
+                                  text=True, timeout=900)
         print(f"== {name} (rc {proc.returncode})", flush=True)
         print(proc.stdout.rstrip(), flush=True)
         if proc.returncode != 0:

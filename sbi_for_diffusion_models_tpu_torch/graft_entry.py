@@ -12,8 +12,9 @@ data-parallel MNLE step, a dp x tp step on a (n/2, 2) mesh when n >= 4 and
 even, chain-sharded NUTS, and replica-exchange NUTS with the replica groups
 sharded. Call it on every rank of a group of n ranks (``torchrun
 --nproc-per-node n``, ``parallel.multihost.launch_local``); outside a group,
-n = 1 starts a world of one and n > 1 starts n local ranks on the CPU over
-gloo, as the JAX dry run makes n CPU devices.
+n = 1 starts a world of one and n > 1 starts n local ranks, on the card
+unless the caller names the CPU: over NCCL, one rank a card, when there are
+n cards, else over gloo with the ranks sharing the card.
 """
 
 from __future__ import annotations
@@ -53,16 +54,31 @@ def dryrun_multichip(n_devices: int, *, device=None) -> dict:
     """The sharded training step, chain sharding and replica exchange over
     ``n_devices`` ranks, one step or a few transitions each at tiny shapes;
     returns {"loss", "loss_tp" (None below 4 ranks), "swap_accept"} (rank
-    0's, when it starts local ranks). ``device``: this rank's device
-    (default: the card; the CPU where it starts local ranks)."""
+    0's, when it starts local ranks). ``device``: this rank's device, or
+    the local ranks' (default: the card; ``"cpu"`` runs every rank on the
+    CPU over gloo)."""
+    from .utils.device import resolve_device
+
+    device = resolve_device(device)
     if not dist.is_initialized() and n_devices > 1:
         from .parallel.multihost import launch_local
 
-        return launch_local(dryrun_multichip, n_devices, (n_devices,), device="cpu")[0]
+        # NCCL takes one rank a card: with fewer cards than ranks they share the card over gloo.
+        nccl = device.type == "cuda" and torch.cuda.device_count() >= n_devices
+        return launch_local(_dryrun_rank, n_devices, (int(n_devices), device), device=device,
+                            backend="nccl" if nccl else "gloo")[0]
     return _dryrun(int(n_devices), device)
 
 
-def _dryrun(n: int, device) -> dict:
+def _dryrun_rank(n: int, device: torch.device) -> dict:
+    """A local rank of ``dryrun_multichip``: NCCL's ranks run on the card
+    their group was made on."""
+    if dist.get_backend() == "nccl":
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _dryrun(n, device)
+
+
+def _dryrun(n: int, device: torch.device) -> dict:
     from torch.distributed.device_mesh import init_device_mesh
 
     from .inference.nuts import ReplicaExchange, geometric_ladder
@@ -78,9 +94,6 @@ def _dryrun(n: int, device) -> dict:
     # Stage 0: the multi-host wiring: a no-op inside a group (and without a
     # launcher's environment), and the global mesh spans every rank.
     mesh = default_mesh(n, "data", device=device)
-    if device is None:  # a rank of a group: NCCL's ranks run on the card, gloo's on the CPU unless told otherwise
-        device = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    device = torch.device(device)
     info = initialize_multihost()
     assert info == process_info() and info["process_count"] == n, (info, n)
     assert global_mesh().size() == n

@@ -75,16 +75,16 @@ def _train_pairs(n=66):
     return ddm_rt_choice_scan(theta, pulses, 2, **SIM_KW), torch.cat([theta, pulses], -1)
 
 
-def _sbc_setup(R: int, datasets: int):
+def _sbc_setup(R: int, datasets: int, method: str = "nuts"):
     est = build_mnle(0, SBC_TINY, device="cpu")
     cfg = RUN_CONFIG_PARAMS.replace(NUM_TRIALS_OBS=5, NUM_CHAINS=2, WARMUP_STEPS=6, SBC_NUM_DATASETS=datasets,
                                     SBC_POST_SAMPLES=10, MCMC_MAX_TREE_DEPTH=4, MCMC_PT_REPLICAS=R,
-                                    MCMC_PT_BETA_MIN=0.3)
+                                    MCMC_PT_BETA_MIN=0.3, MCMC_METHOD=method)
     return build_prior_theta(), est, cfg
 
 
-def _sbc(R, datasets, outdir, mesh):
-    prior, est, cfg = _sbc_setup(R, datasets)
+def _sbc(R, datasets, outdir, mesh, method="nuts"):
+    prior, est, cfg = _sbc_setup(R, datasets, method)
     out = tmnle.run_sbc(cfg, prior, est, "cpu", outdir=outdir, seed=0, verbose=False, group_size=datasets,
                         mesh=mesh)
     return {k: out[k] for k in ("ranks", "rhat_max", "swap_accept", "potential_calls")} | {
@@ -187,9 +187,11 @@ def _world(world: int, outdir: str) -> dict:
     res["nuts_ck_fresh"] = _nuts(chains, 1, ck)
     res["sbc_plain"] = _sbc(1, 3, os.path.join(outdir, "plain"), chains)
     res["sbc_pt"] = _sbc(3, 3 if world == 4 else 2, os.path.join(outdir, "pt"), chains)
+    res["sbc_slice"] = _sbc(1, 3, os.path.join(outdir, "slice"), chains, "slice")
     res["hierarchical"] = _hierarchical(chains)
     unsharded = [("sbc_pt", lambda d: _sbc(3, 3 if world == 4 else 2, d, None)),
                  ("sbc_plain", lambda d: _sbc(1, 3, d, None)), ("hierarchical", lambda d: _hierarchical(None)),
+                 ("sbc_slice", lambda d: _sbc(1, 3, d, None, "slice")),
                  ("nuts_pt", lambda d: _nuts(None, 3)), ("nuts_plain", lambda d: _nuts(None, 1))]
     for key, run in unsharded[r::world]:
         with tempfile.TemporaryDirectory() as d:
@@ -368,12 +370,13 @@ def test_sharded_run_nuts_resumes_from_each_ranks_checkpoint(world):
         assert res["nuts_ck_fresh"]["potential_calls"] == res["nuts_ck_first"]["potential_calls"] > 0
 
 
-@pytest.mark.parametrize("kind", ["sbc_plain", "sbc_pt"])
+@pytest.mark.parametrize("kind", ["sbc_plain", "sbc_pt", "sbc_slice"])
 def test_run_sbc_on_a_mesh_matches_unsharded(world, kind):
     """``run_sbc(mesh=)``: the fold's rows split over the ranks (padded by
     whole replica groups with PT: 18 rows of groups of 3 to 24 at 4 ranks;
-    plain: 6 rows to 8), every rank with the unsharded draws, ranks, R-hats
-    and swap acceptance; rank 0 writes the files, each rank its segments."""
+    plain NUTS and the slice sampler: 6 rows to 8), every rank with the
+    unsharded draws, ranks, R-hats and swap acceptance; rank 0 writes the
+    files, each rank its NUTS segments."""
     n, results = world
     ref = _refs(results)[kind]
     for res in results:
@@ -405,10 +408,20 @@ def test_entry_simulates_into_the_mnle_log_likelihood():
     assert torch.equal(out, fn(theta, pulses, seed))
 
 
+def test_dryrun_multichip_defaults_to_the_card(monkeypatch):
+    """Without ``device``, ``dryrun_multichip`` runs its ranks on the card:
+    with no card it raises before starting any, as every entry point does."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun_multichip(4)
+    assert not dist.is_initialized()
+
+
 def test_dryrun_multichip():
-    """``dryrun_multichip(4)`` outside a group starts 4 local ranks on the CPU
-    and runs every stage there, the 2 x 2 TP step included (its sharded
-    simulation is checked against the unsharded call inside)."""
-    out = dryrun_multichip(4)
+    """``dryrun_multichip(4, device="cpu")`` outside a group starts 4 local
+    ranks on the CPU over gloo and runs every stage there, the 2 x 2 TP step
+    included (its sharded simulation is checked against the unsharded call
+    inside)."""
+    out = dryrun_multichip(4, device="cpu")
     assert np.isfinite(out["loss"]) and np.isfinite(out["loss_tp"])
     assert 0.0 <= out["swap_accept"] <= 1.0
