@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..distributions import Bijector, Distribution
+from ..utils import metrics
 from ..utils.device import resolve_device
 from ..utils.rng import batch_any, child_seed, draw, make_generator
 from .nuts import ReplicaExchange, geometric_ladder, run_nuts
@@ -288,6 +289,7 @@ def make_grid_hop(bij: Bijector, index: int, delta: float, multiples=(-2, -1, 1,
     mults_on: dict = {}
 
     def hop(gen, u, logp, g, vg_fn):
+        span = metrics.begin("move.grid_hop") if metrics.RECORDING else -1
         C = u.shape[0]
         dev = u.device
         mults = mults_on.setdefault(dev, mults_cpu.to(dev))
@@ -302,11 +304,14 @@ def make_grid_hop(bij: Bijector, index: int, delta: float, multiples=(-2, -1, 1,
         log_ratio = (logp_prop - bij.forward_log_det(u_prop)) - (logp - bij.forward_log_det(u))
         uni = draw(gen, torch.rand, (C,), dev)
         accept = valid & (torch.log(uni) < torch.clamp(log_ratio, max=0.0))
-        return (
+        out = (
             torch.where(accept[:, None], u_prop, u),
             torch.where(accept, logp_prop, logp),
             torch.where(accept[:, None], g_prop, g),
         )
+        if span >= 0:
+            metrics.end(span)
+        return out
 
     return hop
 
@@ -331,6 +336,7 @@ def make_dim_slice(index: int, width: float = 1.0, max_stepout: int = 6, max_shr
         return torch.where(torch.isfinite(lp), lp, -math.inf)
 
     def move(gen, u, logp, g, vg_fn):
+        span = metrics.begin("move.dim_slice") if metrics.RECORDING else -1
         C = u.shape[0]
         dev = u.device
         x0 = u[:, index]
@@ -372,11 +378,14 @@ def make_dim_slice(index: int, width: float = 1.0, max_stepout: int = 6, max_shr
         u_new = u.clone()
         u_new[:, index] = torch.where(done, x, x0)
         logp_new, g_new = vg_fn(u_new)
-        return (
+        out = (
             torch.where(done[:, None], u_new, u),
             torch.where(done, logp_new, logp),
             torch.where(done[:, None], g_new, g),
         )
+        if span >= 0:
+            metrics.end(span)
+        return out
 
     return move
 

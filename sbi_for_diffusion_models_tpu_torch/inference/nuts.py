@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from ..parallel.comm import ShardedGenerator
+from ..utils import metrics
 from ..utils.rng import as_seed, batch_any, child_seed, draw, make_generator
 
 __all__ = [
@@ -158,9 +159,13 @@ class _LaggedAny:
         if self.n < 2:
             return True
         i = self.n % 2
+        span = metrics.begin("wait") if metrics.RECORDING else -1
         if self.events[i] is not None:
             self.events[i].synchronize()
-        return batch_any(self.gen, bool(self.host[i]))
+        out = batch_any(self.gen, bool(self.host[i]))
+        if span >= 0:
+            metrics.end(span)
+        return out
 
 
 def _build_subtree(gen, edge, depth: int, direction, eps, inv_mass, H0, max_depth: int, vg_fn, active):
@@ -189,7 +194,10 @@ def _build_subtree(gen, edge, depth: int, direction, eps, inv_mass, H0, max_dept
     flag = _LaggedAny(dev, gen)
     flag.push(live)
     for n in range(1 << depth):
+        leaf = metrics.begin("nuts.leaf") if metrics.RECORDING else -1
         if not flag.any_before_last():
+            if leaf >= 0:
+                metrics.end(leaf)
             break
         u, p, g = edge[:, :D], edge[:, D : 2 * D], edge[:, 2 * D : 3 * D]
         p_half = torch.addcmul(p, half_e, g)
@@ -234,6 +242,8 @@ def _build_subtree(gen, edge, depth: int, direction, eps, inv_mass, H0, max_dept
         diverging = diverging | (live & (delta > _MAX_DELTA_ENERGY))
         live = live & ~(turning | diverging)
         flag.push(live)
+        if leaf >= 0:
+            metrics.end(leaf)
     return dict(edge=edge, prop=prop, rho=rho, log_w=log_w, sum_accept=sum_accept, n_leaves=n_leaves,
                 turning=turning, diverging=diverging)
 
@@ -522,7 +532,10 @@ def _to_host(tensors) -> list:
     synchronization, whatever the number of leaves), bit for bit."""
     # Standard strides: a one-row slice counts as contiguous whatever its stride, and a byte view needs stride 1.
     flat = [t.detach().clone(memory_format=torch.contiguous_format).view(-1) for t in tensors]
+    span = metrics.begin("wait") if metrics.RECORDING else -1
     packed = torch.cat([f.view(torch.uint8) for f in flat]).cpu().numpy()
+    if span >= 0:
+        metrics.end(span)
     out, pos = [], 0
     for t, f in zip(tensors, flat):
         n = f.numel() * f.element_size()
@@ -667,13 +680,16 @@ def run_nuts(
     ``step_size`` and ``inv_mass`` of the final (or resumed) state;
     ``swap_accept``, the mean sweep acceptance over the whole run, with
     ``exchange``; and ``potential_calls``, the batched potential calls this
-    process made (a resumed run counts only its own, and a replay of a
-    finished checkpoint 0).
+    process made, each exchange sweep's call of ``exchange.ll_fn`` among
+    them (a resumed run counts only its own, and a replay of a finished
+    checkpoint 0).
     """
     num_chains, D = init_u.shape
     dev = init_u.device
     seed = as_seed(seed)
     L = max(int(segment_length), 1)
+    if metrics.RECORDING:
+        metrics.new_run()
     if exchange is not None:
         if num_chains % int(exchange.n_replicas) != 0:
             raise ValueError(f"num_chains={num_chains} not divisible by n_replicas={exchange.n_replicas}")
@@ -705,7 +721,7 @@ def run_nuts(
         vg_once = value_and_grad_fn
     else:
         vg_once = lambda u, need_grad=True: value_and_grad_fn(u, data, need_grad)  # noqa: E731
-    calls = [0]  # batched potential evaluations (each one K2 launch, plus one K3 with the gradient)
+    calls = [0]  # batched potential evaluations (one K3 launch with the gradient, one K2 without)
 
     def vg_fn(u, need_grad: bool = True):
         calls[0] += 1
@@ -753,11 +769,14 @@ def run_nuts(
             print(f"[run_nuts] resumed at segment {start_segment}/{n_segments}")
 
     if state is None:
+        span = metrics.begin("nuts.init") if metrics.RECORDING else -1
         gen0 = bind(make_generator(child_seed(seed, 0), dev), shard)
         u = init_u.to(torch.float32)
         inv_mass = torch.ones((num_chains, D), device=dev)
         logp, g = vg_fn(u)
         eps0 = find_reasonable_step_size(gen0, vg_fn, u, inv_mass, logp=logp, g=g)
+        if span >= 0:
+            metrics.end(span)
         state = _ChainState(u=u, logp=logp, g=g, da=_da_init(eps0), w=_welford_init((num_chains, D), dev),
                             inv_mass=inv_mass, eps_final=eps0)
     state_host = _to_host(_state_leaves(state))
@@ -765,6 +784,7 @@ def run_nuts(
     def transition(st: _ChainState, gen, gen_ex) -> _ChainState:
         """Transition ``st.t`` (x thin), its move, adaptation and sweep;
         writes the transition's record."""
+        span = metrics.begin("nuts.transition") if metrics.RECORDING else -1
         t = st.t
         warm = t < W
         u, logp, g = st.u, st.logp, st.g
@@ -792,14 +812,20 @@ def run_nuts(
         if exchange is not None:
             swap_every = max(int(exchange.swap_every), 1)
             if t % swap_every == 0:
+                sweep = metrics.begin("nuts.exchange") if metrics.RECORDING else -1
                 R = int(exchange.n_replicas)
                 uni = draw(gen_ex, torch.rand, (num_chains // R, R), dev)
+                calls[0] += 1  # the sweep's value-only call of ``exchange.ll_fn``
                 perm, acc = _exchange_sweep(exchange, uni, t // swap_every, u, data, groups)
                 u = u[perm]
                 logp, g = vg_fn(u)
                 rec["swap_accept"][:, t] = acc
+                if sweep >= 0:
+                    metrics.end(sweep)
             else:
                 rec["swap_accept"][:, t] = -1.0
+        if span >= 0:
+            metrics.end(span)
         return _ChainState(u=u, logp=logp, g=g, da=da, w=w, inv_mass=inv_mass, eps_final=eps_final, t=t + 1)
 
     def save_checkpoint(next_segment: int) -> None:
@@ -842,6 +868,8 @@ def run_nuts(
                   f"replaying from segment {mirror_seg} (attempt {attempts}/{device_retries})", flush=True)
             if not _wait_for_device(dev):
                 raise
+            if metrics.RECORDING:
+                metrics.new_run()  # the segment's open spans were cut; the replay records as a run of its own
             # Back to the mirror, on the same device; what ran past it is run again.
             state = _state_from_leaves(state_host, min(mirror_seg * L, total), dev)
             s = mirror_seg

@@ -66,6 +66,7 @@ from .potentials import (
     tempered_value_and_grad,
 )
 from .run_config import RunConfig
+from .utils import metrics
 from .utils.checkpoint import restore_train_state, save_train_state
 from .utils.device import resolve_device
 from .utils.rng import as_seed, child_seed, make_generator
@@ -138,20 +139,36 @@ def train_step(estimator: MNLE, state: TrainState, xb: torch.Tensor, zb: torch.T
     zb)) through the plain ``log_prob_fn``, its gradients w.r.t. the weights
     by autograd, and ``state.apply(step)``. Returns the loss before the
     update (a 0-dim tensor, not read back)."""
+    span = metrics.begin("train.step") if metrics.RECORDING else -1
     state.adam.zero_grad(set_to_none=True)
+    phase = metrics.begin("train.forward") if metrics.RECORDING else -1
     loss = -estimator.log_prob_fn(estimator.net, xb, zb).mean()
+    if phase >= 0:
+        metrics.end(phase)
+    phase = metrics.begin("train.backward") if metrics.RECORDING else -1
     loss.backward()
+    if phase >= 0:
+        metrics.end(phase)
+    phase = metrics.begin("train.optimizer") if metrics.RECORDING else -1
     state.apply(step)
+    if phase >= 0:
+        metrics.end(phase)
+    if span >= 0:
+        metrics.end(span)
     return loss.detach()
 
 
 def _validation_loss(estimator: MNLE, x, z, idx) -> float:
     """-mean(log p) over the rows ``idx``, gathered in chunks to bound memory."""
+    span = metrics.begin("train.validation") if metrics.RECORDING else -1
     total = x.new_zeros(())
     with torch.no_grad():
         for rows in idx.split(_VALIDATION_CHUNK):
             total = total + estimator.log_prob_fn(estimator.net, x[rows], z[rows]).sum()
-    return float(-total / idx.numel())
+    out = float(-total / idx.numel())
+    if span >= 0:
+        metrics.end(span)
+    return out
 
 
 def _mnle_config(cfg: RunConfig, condition_dim: int, num_categories: int, pulse_dim: int) -> MNLEConfig:
@@ -284,6 +301,8 @@ def train_mnle(
     x = torch.as_tensor(x_train, dtype=torch.float32).to(device)
     n = x.shape[0]
     seed = as_seed(seed)
+    if metrics.RECORDING:
+        metrics.new_run()
 
     observed_max = int(x[:, 1].max())
     if cfg.MNLE_NUM_CATEGORIES > 0:

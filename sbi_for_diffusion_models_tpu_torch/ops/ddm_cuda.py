@@ -13,7 +13,9 @@ of N and the card (``k1_launch_shape``): its SM count and resident blocks
 (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` of the kernel that
 runs). No argument chooses it, and every shape gives the
 same bits: a trial's noise depends only on (seed, trial index, step).
-``K1_LAST_LAUNCH`` holds the N, G and blocks of the last launch.
+``K1_LAST_LAUNCH`` holds the N, G and blocks of the last launch. Each call
+with trials adds one to the recorder's ``launch.k1`` (``utils.metrics``),
+whichever route it takes.
 
 ``mu_sensory`` is one float for every trial, or an (N,) tensor, one noise
 scale a trial (the 7-parameter model's sigma_a): the wrapper then passes
@@ -39,6 +41,7 @@ import numpy as np
 import torch
 
 from ..constants import DT_CHOICE, T_MAX
+from ..utils import metrics
 from ..utils.rng import as_seed
 from ._cuda import CudaKernel, check_cuda_tensor, stream_handle
 from .ddm_scan import ddm_rt_choice_scan
@@ -160,6 +163,8 @@ def ddm_rt_choice_cuda(
     trial_offset = int(trial_offset)
     if trial_offset < 0 or trial_offset + theta.shape[0] > 2**32:
         raise ValueError(f"trial_offset={trial_offset} with {theta.shape[0]} trials leaves K1's 32-bit trial counter")
+    if metrics.RECORDING and theta.shape[0] > 0:
+        metrics.count("launch.k1")
     if not theta.is_cuda:
         return ddm_rt_choice_scan(
             theta, pulse_sides, seed, mu_sensory=mu_sensory, collapse_rate=collapse_rate,

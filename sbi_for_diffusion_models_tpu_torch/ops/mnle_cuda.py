@@ -20,7 +20,9 @@ counterpart of the JAX ``_rows_logp``) and ``rows_logp_vjp_plain``
 ``rows_logp_and_vjp`` (K3: value and gradients) and ``rows_logp_vjp`` (K3,
 gradients only) launch the kernels for CUDA tensors and take the plain
 versions for CPU tensors only. A caller that needs a value and its gradient
-calls ``rows_logp_and_vjp``: one launch.
+calls ``rows_logp_and_vjp``: one launch. Each wrapper call adds one to its
+kernel's counter of the recorder (``launch.k2``, ``launch.k3``;
+``utils.metrics``), whichever route it takes.
 
 The pulse-grid representation (absolute anchor) has its own pair, K2p
 (``csrc/mnle_pulse.cu``, ``mnle_pulse_fwd_kernel``) and K3p
@@ -31,7 +33,7 @@ values and the gradients w.r.t. phi, ctx and kf. Their plain versions are
 ``rows_logp_pulse_plain`` and ``rows_logp_pulse_vjp_plain``, their wrappers
 ``rows_logp_pulse``, ``rows_logp_pulse_and_vjp`` and
 ``rows_logp_pulse_vjp``, their ``autograd.Function``
-``FusedPulseRowsLogProb``.
+``FusedPulseRowsLogProb``, their counters ``launch.k2p`` and ``launch.k3p``.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ from ..nets.spline import (
     rq_spline_circular,
     rq_spline_forward,
 )
+from ..utils import metrics
 from ._cuda import CudaKernel, check_cuda_tensor, stream_handle
 
 __all__ = [
@@ -390,6 +393,8 @@ def _check_rows(t, oh, ctx, w: MNLEWeights):
 
 def rows_logp(t, oh, ctx, w: MNLEWeights):
     """K2 for CUDA tensors, ``rows_logp_plain`` for CPU tensors."""
+    if metrics.RECORDING:
+        metrics.count("launch.k2")
     if not t.is_cuda:
         return rows_logp_plain(t, oh, ctx, w)
     N, p = _check_rows(t, oh, ctx, w)
@@ -403,6 +408,8 @@ def rows_logp_and_vjp(t, oh, ctx, w: MNLEWeights, g):
     """(value (N,), dt (N,), dctx (N, D)): K3 alone for CUDA tensors (its
     value has K2's bits), ``rows_logp_plain`` and ``rows_logp_vjp_plain``
     for CPU tensors."""
+    if metrics.RECORDING:
+        metrics.count("launch.k3")
     if not t.is_cuda:
         return (rows_logp_plain(t, oh, ctx, w), *rows_logp_vjp_plain(t, oh, ctx, w, g))
     N, p = _check_rows(t, oh, ctx, w)
@@ -419,6 +426,8 @@ def rows_logp_vjp(t, oh, ctx, w: MNLEWeights, g):
     """(dt, dctx): K3 for CUDA tensors, ``rows_logp_vjp_plain`` for CPU
     tensors."""
     if not t.is_cuda:
+        if metrics.RECORDING:
+            metrics.count("launch.k3")
         return rows_logp_vjp_plain(t, oh, ctx, w, g)
     return rows_logp_and_vjp(t, oh, ctx, w, g)[1:]
 
@@ -454,6 +463,8 @@ def _check_pulse_rows(phi, oh, ctx, kf, kv, w: MNLEWeights):
 
 def rows_logp_pulse(phi, oh, ctx, kf, kv, w: MNLEWeights):
     """K2p for CUDA tensors, ``rows_logp_pulse_plain`` for CPU tensors."""
+    if metrics.RECORDING:
+        metrics.count("launch.k2p")
     if not phi.is_cuda:
         return rows_logp_pulse_plain(phi, oh, ctx, kf, kv, w)
     N, p = _check_pulse_rows(phi, oh, ctx, kf, kv, w)
@@ -467,6 +478,8 @@ def rows_logp_pulse_and_vjp(phi, oh, ctx, kf, kv, w: MNLEWeights, g):
     """(value (N,), dphi (N,), dctx (N, D), dkf (N, F)): K3p alone for CUDA
     tensors (its value has K2p's bits), ``rows_logp_pulse_plain`` and
     ``rows_logp_pulse_vjp_plain`` for CPU tensors."""
+    if metrics.RECORDING:
+        metrics.count("launch.k3p")
     if not phi.is_cuda:
         return (rows_logp_pulse_plain(phi, oh, ctx, kf, kv, w), *rows_logp_pulse_vjp_plain(phi, oh, ctx, kf, kv, w, g))
     N, p = _check_pulse_rows(phi, oh, ctx, kf, kv, w)
@@ -485,6 +498,8 @@ def rows_logp_pulse_vjp(phi, oh, ctx, kf, kv, w: MNLEWeights, g):
     """(dphi (N,), dctx (N, D), dkf (N, F)): K3p for CUDA tensors,
     ``rows_logp_pulse_vjp_plain`` for CPU tensors."""
     if not phi.is_cuda:
+        if metrics.RECORDING:
+            metrics.count("launch.k3p")
         return rows_logp_pulse_vjp_plain(phi, oh, ctx, kf, kv, w, g)
     return rows_logp_pulse_and_vjp(phi, oh, ctx, kf, kv, w, g)[1:]
 

@@ -40,6 +40,7 @@ import torch
 from .distributions import Distribution
 from .nets.mnle_net import MNLE, slot_features, tail_sharp_transform
 from .ops import mnle_cuda
+from .utils import metrics
 
 __all__ = [
     "ConditionedMNLELogLikelihood", "ThetaOnlyPosteriorPotential", "tempered_value_and_grad", "mixture_log_prob",
@@ -118,13 +119,17 @@ class ConditionedMNLELogLikelihood:
                 "params; pass estimator.params or use logprob_kernel='xla'"
             )
         self._check_sessions(sessions)
+        span = metrics.begin("potential") if metrics.RECORDING else -1
         N = theta.shape[0]
         s = _per_chain(self.local_theta, sessions, N)
         T = s.shape[1]
         cond = torch.cat([theta[:, None, :].expand(N, T, theta.shape[-1]), s], dim=-1).reshape(N * T, -1)
         xr = _per_chain(x, sessions, N).reshape(N * T, -1)
         lp = self._lp_fused(xr, cond) if self._lp_fused is not None else est.log_prob_fn(params, xr, cond)
-        return lp.reshape(N, T).sum(-1)
+        out = lp.reshape(N, T).sum(-1)
+        if span >= 0:
+            metrics.end(span)
+        return out
 
     @property
     def closed_form_grad(self) -> bool:
@@ -205,18 +210,24 @@ class ConditionedMNLELogLikelihood:
         if self._lp_fused is None:
             raise ValueError("log_lik_and_grad needs the fused path (logprob_kernel != 'xla')")
         self._check_sessions(sessions)
+        span = metrics.begin("potential") if metrics.RECORDING else -1
         terms = self._session(x, sessions, theta.shape[0])
         rows = [self._member_rows(m, w, sess, theta, need_grad)
                 for m, w, sess in zip(self.members, (f.weights for f in self._fused), terms)]
         if len(rows) == 1:
             lp, grad = rows[0]
-            return lp.sum(-1), grad(None) if need_grad else None
-        lps = torch.stack([lp for lp, _ in rows])  # (K, N, T)
-        ll = (torch.logsumexp(lps, dim=0) - math.log(len(rows))).sum(-1)
-        if not need_grad:
-            return ll, None
-        share = torch.softmax(lps, dim=0)  # each member's share of each row's mixture
-        return ll, sum(grad(share[k]) for k, (_, grad) in enumerate(rows))
+            out = lp.sum(-1), grad(None) if need_grad else None
+        else:
+            lps = torch.stack([lp for lp, _ in rows])  # (K, N, T)
+            ll = (torch.logsumexp(lps, dim=0) - math.log(len(rows))).sum(-1)
+            if need_grad:
+                share = torch.softmax(lps, dim=0)  # each member's share of each row's mixture
+                out = ll, sum(grad(share[k]) for k, (_, grad) in enumerate(rows))
+            else:
+                out = ll, None
+        if span >= 0:
+            metrics.end(span)
+        return out
 
     def _member_rows(self, est: MNLE, weights, sess, theta, need_grad: bool):
         """One member's rows: ``(lp (N, T), grad)``, lp each row's

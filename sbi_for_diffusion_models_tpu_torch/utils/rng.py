@@ -19,6 +19,8 @@ from typing import Union
 import numpy as np
 import torch
 
+from . import metrics
+
 SeedLike = Union[int, np.integer, np.random.Generator, None]
 
 _MASK64 = (1 << 64) - 1
@@ -84,6 +86,11 @@ def batch_any(gen, mask) -> bool:
     """Whether any row of the batch ``gen`` draws for has ``mask`` set (a
     tensor, or one bool for this process's rows): with a sharded generator,
     over every rank's rows, so that every rank leaves a loop when the
-    unsharded run would."""
+    unsharded run would. A tensor's read is a ``wait`` span of the
+    recorder (``utils.metrics``)."""
+    span = metrics.begin("wait") if metrics.RECORDING and isinstance(mask, torch.Tensor) else -1
     local = bool(mask.any()) if isinstance(mask, torch.Tensor) else bool(mask)
-    return local if isinstance(gen, torch.Generator) else gen.shard.any(local)
+    out = local if isinstance(gen, torch.Generator) else gen.shard.any(local)
+    if span >= 0:
+        metrics.end(span)
+    return out

@@ -1,17 +1,15 @@
 """The port's metrics utilities (``utils/metrics.py``) on the CPU: the JSONL
-records of the JAX package's logger, ``timed`` / ``host_sync`` on tensors,
-arrays and nests of them, ``trace``'s Chrome trace, and ``device_time``
-summing the device's events only."""
+records of the JAX package's logger and ``device_time`` summing the device's
+events only. The span and counter recorder is in ``test_torch_tracing.py``."""
 
 import json
 from types import SimpleNamespace
 
 import pytest
-import torch
 from torch.autograd import DeviceType
 
 from sbi_for_diffusion_models_tpu.utils import metrics as jax_metrics
-from sbi_for_diffusion_models_tpu_torch.utils.metrics import MetricsLogger, device_time, host_sync, timed, trace
+from sbi_for_diffusion_models_tpu_torch.utils.metrics import MetricsLogger, device_time
 
 
 def test_metrics_logger_writes_the_jax_packages_records(tmp_path):
@@ -30,23 +28,6 @@ def test_metrics_logger_writes_the_jax_packages_records(tmp_path):
 def test_metrics_logger_prints_without_a_path(capsys):
     MetricsLogger(None).log("a", "b", 1)
     assert "a/b = 1" in capsys.readouterr().out
-
-
-@pytest.mark.parametrize("wrap", [lambda t: t, lambda t: t.numpy(), lambda t: (t, None), lambda t: {"x": [t]}],
-                         ids=["tensor", "array", "tuple", "dict"])
-def test_timed_and_host_sync(wrap):
-    out, seconds = timed(lambda: wrap(torch.arange(10.0).cumsum(0)[-1:]))
-    assert seconds >= 0.0
-    assert host_sync(out) == 45.0
-
-
-def test_trace_writes_a_chrome_trace_and_sees_no_device_time_on_the_cpu(tmp_path):
-    a = torch.randn(16, 16, generator=torch.Generator().manual_seed(0))
-    with trace(tmp_path / "t") as prof:
-        (a @ a).sum()
-    assert json.loads((tmp_path / "t" / "trace.json").read_text())["traceEvents"]
-    assert any(e.key == "aten::mm" for e in prof.key_averages())
-    assert device_time(prof) == (0.0, 0)
 
 
 def test_device_time_sums_the_device_events_once():
