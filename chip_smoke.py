@@ -40,6 +40,17 @@ port's paths once each through their public entry points:
    is held at the shape that path gave it: K4 at 2,097,152 elements and both
    chain lengths against float64 and its plain version, K1 at 524,288 trials
    and K2/K3 at 65,536 rows on that path's model against theirs;
+5b. the NUTS leaf kernel (``ops/nuts_cuda.LeafKernel``, ``nuts_leaf``)
+   against the plain leaf (``inference/nuts._leaf_plain``) on the same
+   inputs and uniforms at the serving cells' 24 chains and the SBC fold's
+   2,304 (96 datasets x 4 chains x 6 rungs), D = 5: every leaf of subtrees
+   of depth 0 to LEAF_DEPTH, on a Gaussian potential with a NaN, a -inf and
+   a divergent log-density on a few chains; counts, booleans and the live
+   flag exact, floats within LEAF_ULPS ulps. Then its device time a launch
+   and the plain leaf's (``torch.profiler``), each side's host time a leaf,
+   and its bound, over LEAF_TIMED leaves on which every chain stays live.
+   Every path below that runs NUTS on the card (phases 6, 9 to 15 and 17
+   to 19) must also have launched ``nuts_leaf``;
 6. the flagship path: simulate 131,072 training pairs, an observed 50-trial
    session, load the flagship model and sample its posterior with the
    calibrated sampler (PT6 NUTS, grid hop, t_nd slice; warmup and draws cut
@@ -196,7 +207,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py`` (one CUDA card,
 ``nvcc`` under /usr/local/cuda or on PATH). The last line of its output is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels with
 their launches, errors, times and bounds at both sizes (K4: both chain
-lengths), K1 also with its launch shape, the four fused kernels' with their
+lengths; the NUTS leaf kernel at 24 and 2,304 chains, its device time a
+leaf against the plain leaf's, with the worst ulps), K1 also with its launch shape, the four fused kernels' with their
 tile height, K2's and K3's also at the SBC fold's 9,600 rows (``fold``), on
 the CLI path's model (``pipeline``), on the tail-sharp model (``sharp``) and
 on the embedded model at context width 123 (``embed``) and at the
@@ -296,6 +308,14 @@ HIER_WARMUP, HIER_DRAWS, HIER_TREE_DEPTH = 10, 10, 6
 MD_RANKS = 4
 MD_WARMUP, MD_DRAWS, MD_TREE_DEPTH = 5, 20, 6
 MD_DEADLINE_S = 420.0  # the ranks' deadline; their collectives time out at the same limit
+# The leaf kernel's check: the serving cells' chains (4 chains x 6 rungs) and the SBC fold's at the calibrated preset
+# (96 datasets of them), D = 5; every leaf of subtrees up to CALIBRATED_CONFIG's MCMC_MAX_TREE_DEPTH.
+LEAF_SHAPES = ((24, 5), (2_304, 5))
+LEAF_DEPTH = 10
+LEAF_ULPS = 4  # the kernel's floats against the plain leaf's, as tests/test_torch_cuda_nuts.py holds them
+LEAF_TIMED = 1_024  # leaves timed a side: one cycle of a depth-10 subtree's checkpoint slots
+# The NUTS paths: each must launch the leaf kernel besides its own kernels.
+NUTS = ("nuts_leaf",)
 
 
 def _log(*args) -> None:
@@ -377,7 +397,7 @@ def mnle_bound(w, n: int, backward: bool) -> tuple[float, str]:
 def phase_build() -> dict:
     """Build every kernel; returns what ptxas -v said of each entry function
     (mangled name -> registers, stack, spill stores and loads in bytes)."""
-    from sbi_for_diffusion_models_tpu_torch.ops import _cuda, ceiling_cuda, ddm_cuda, mnle_cuda  # noqa: F401
+    from sbi_for_diffusion_models_tpu_torch.ops import _cuda, ceiling_cuda, ddm_cuda, mnle_cuda, nuts_cuda  # noqa: F401
 
     t0 = time.perf_counter()
     per_file = _cuda.build_all()
@@ -703,6 +723,218 @@ def phase_k2pk3p(device, sizes=(ROWS_MAIN, ROWS_SBC)) -> dict:
                         ("K3p", mc.rows_logp_pulse_and_vjp, mc.rows_logp_pulse_vjp_plain), sizes)
 
 
+def _ulps(x, y) -> int:
+    """The largest distance in float32 ulps between x and y (0 where both
+    are NaN, 2^31 where one is)."""
+    import torch
+
+    def ordered(t):
+        i = t.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    d = (ordered(x) - ordered(y)).abs()
+    nx, ny = torch.isnan(x), torch.isnan(y)
+    d = torch.where(nx & ny, 0, torch.where(nx ^ ny, 2**31, d))
+    return int(d.max()) if d.numel() else 0
+
+
+def _leaf_start(device, C: int, D: int, S: int, seed: int, moving: bool = True):
+    """A subtree's start for the leaf check: positions and momenta from
+    N(0, 1) on a diagonal Gaussian with random mean and precision, step sizes
+    that make some chains turn within a few leaves, every fifth chain
+    inactive. With ``moving`` False the potential is flat (logp 0, g 0) and
+    H0 the start's kinetic energy, so every chain moves in a straight line
+    and stays live. Returns (state dict, vg, half_e, e_im, inv_mass, H0)."""
+    import numpy as np
+    import torch
+
+    from sbi_for_diffusion_models_tpu_torch.inference import nuts as tn
+
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+    mu, prec = f32(rng.normal(size=D)), f32(rng.uniform(0.3, 3.0, D))
+    logp0, g0 = torch.zeros((C,), device=device), torch.zeros((C, D), device=device)
+
+    def vg(x):
+        return (-0.5 * ((x - mu) ** 2 * prec).sum(-1), -(x - mu) * prec) if moving else (logp0, g0)
+
+    u, p = f32(rng.normal(size=(C, D))), f32(rng.normal(size=(C, D)))
+    inv_mass = f32(rng.uniform(0.5, 2.0, (C, D)))
+    eps = f32(rng.uniform(0.02, 0.6, C))
+    direction = torch.where(f32(rng.uniform(size=C)) < 0.5, 1.0, -1.0)
+    active = torch.from_numpy(np.arange(C) % 5 != 4).to(device) if moving else torch.ones(
+        (C,), dtype=torch.bool, device=device)
+    logp, g = vg(u)
+    H0 = -logp + tn._kinetic(p, inv_mass)
+    edge = torch.cat([u, p, g, logp[:, None]], dim=1)
+    s = dict(edge=edge, prop=torch.cat([edge[:, :D], edge[:, 2 * D :]], dim=1),
+             rho=torch.zeros((C, D), device=device), log_w=torch.full((C,), -math.inf, device=device),
+             sum_accept=torch.zeros((C,), device=device),
+             n_leaves=torch.zeros((C,), dtype=torch.int64, device=device),
+             turning=torch.zeros((C,), dtype=torch.bool, device=device),
+             diverging=torch.zeros((C,), dtype=torch.bool, device=device), live=active.clone(),
+             r_ckpts=torch.zeros((C, S, D), device=device), rsum_ckpts=torch.zeros((C, S, D), device=device))
+    return s, vg, (0.5 * eps * direction)[:, None], (eps * direction)[:, None] * inv_mass, inv_mass, H0
+
+
+def leaf_bound(C: int, D: int, leaves) -> tuple[float, str]:
+    """The leaf kernel's bound per launch, averaged over leaf indices
+    ``leaves``, as ``csrc/nuts_leaf.cu`` does a leaf for each of C live
+    chains. Operations: p_new's D FMAs (2 each), the kinetic energy's 3D,
+    about 12 for the energy error, logaddexp and the take (each special
+    function one), rho's D, the next half step's 2D FMAs, and at an odd
+    leaf 8D for each checkpoint slot of its U-turn test. Bytes, float32
+    unless said, each tensor read once and written once: read p_half,
+    g_new, u_new, inv_mass, e_im, rho (D each), half_e, logp_new, H0,
+    log_w, uni, sum_accept, the odd leaf's 2D a slot of checkpoints, the
+    int64 count and three bools; write edge (3D + 1), prop (2D + 1), rho,
+    p_half, u_next (D each), log_w, sum_accept, the even leaf's 2D of
+    checkpoints, the count and the three bools."""
+    from sbi_for_diffusion_models_tpu_torch.inference import nuts as tn
+
+    ops = nbytes = 0.0
+    for n in leaves:
+        store, lo, hi = tn._leaf_slots(n)
+        k = hi - lo + 1 if lo >= 0 else 0
+        ops += C * (2 * D + 3 * D + 12 + D + 4 * D + 8 * D * k)
+        read = 4 * (6 * D + 6 + 2 * D * k) + 8 + 3
+        write = 4 * ((3 * D + 1) + (2 * D + 1) + 3 * D + 2 + (2 * D if store >= 0 else 0)) + 8 + 3
+        nbytes += C * (read + write)
+    return _bound(ops / len(leaves), nbytes / len(leaves))
+
+
+def phase_leaf(device) -> dict:
+    """The NUTS leaf kernel against the plain leaf at LEAF_SHAPES: every
+    leaf of subtrees of depth 0 to LEAF_DEPTH on the same inputs, potential
+    and uniforms (a NaN, a -inf and a divergent log-density on a few chains
+    at leaves 1 to 3); the counts, booleans and live flag must be exact, the
+    floats within LEAF_ULPS. Then each side over LEAF_TIMED leaves on which
+    every chain stays live: the kernel's device time a launch and the plain
+    leaf's device time a leaf (its half step, body and flag copy, as
+    ``_build_subtree`` ran it; ``torch.profiler``), and each side's host
+    time a leaf. Returns {C: check and times}."""
+    import torch
+
+    from sbi_for_diffusion_models_tpu_torch.inference import nuts as tn
+    from sbi_for_diffusion_models_tpu_torch.ops import nuts_cuda
+    from sbi_for_diffusion_models_tpu_torch.utils.metrics import device_intervals
+    from sbi_for_diffusion_models_tpu_torch.utils.rng import make_generator
+
+    floats = ("edge", "prop", "rho", "log_w", "sum_accept", "r_ckpts", "rsum_ckpts")
+    exact = ("n_leaves", "turning", "diverging", "live")
+    bad = {1: math.nan, 2: -math.inf, 3: -5000.0}
+    S = LEAF_DEPTH + 1
+    out = {}
+
+    def first_half_step(kernel, e, D, half_e, e_im):
+        torch.addcmul(e[:, D : 2 * D], half_e, e[:, 2 * D : 3 * D], out=kernel.p_half)
+        return torch.addcmul(e[:, :D], e_im, kernel.p_half)
+
+    for C, D in LEAF_SHAPES:
+        worst, leaves, diverged, launched = 0, 0, 0, nuts_cuda.LEAF.launches
+        t0 = time.perf_counter()
+        for depth in range(LEAF_DEPTH + 1):
+            plain, vg, half_e, e_im, inv_mass, H0 = _leaf_start(device, C, D, S, seed=1000 * C + depth)
+            fused = {k: v.clone() for k, v in plain.items()}
+            flag = torch.zeros((2,), dtype=torch.bool, pin_memory=True)
+            kernel = nuts_cuda.LeafKernel(fused, half_e, e_im, inv_mass, H0, flag)
+            u_fused = first_half_step(kernel, fused["edge"], D, half_e, e_im)
+            gen = make_generator(depth, device)
+            chain = torch.arange(C, device=device)
+            for n in range(1 << depth):
+                e = plain["edge"]
+                p_half = torch.addcmul(e[:, D : 2 * D], half_e, e[:, 2 * D : 3 * D])
+                u_new = torch.addcmul(e[:, :D], e_im, p_half)
+                logp_new, g_new = vg(u_new)
+                if n in bad:
+                    logp_new = torch.where(chain % 11 == 2 * n, torch.full_like(logp_new, bad[n]), logp_new)
+                uni = torch.rand((C,), generator=gen, device=device)
+                diff = {"u_new": _ulps(u_fused, u_new)}
+                u_fused = kernel.leaf(u_fused, logp_new, g_new, uni, tn._leaf_slots(n), n % 2)
+                plain = tn._leaf_plain(n, plain, u_new, p_half, logp_new, g_new, uni, half_e, inv_mass, H0)
+                torch.cuda.synchronize()
+                diff.update({k: _ulps(fused[k], plain[k]) for k in floats})
+                off = {k: int((fused[k] != plain[k]).sum()) for k in exact}
+                off["flag"] = int(bool(flag[n % 2]) != bool(plain["live"].any()))
+                if any(off.values()) or max(diff.values()) > LEAF_ULPS:
+                    raise AssertionError(f"leaf: C={C} D={D} depth={depth} leaf {n}: the kernel differs from the "
+                                         f"plain leaf: ulps {diff}, chains {off}")
+                worst = max(worst, *diff.values())
+                leaves += 1
+            diverged += int(plain["diverging"].sum())
+        check_s = time.perf_counter() - t0
+        if not diverged or nuts_cuda.LEAF.launches - launched != leaves:
+            raise AssertionError(f"leaf: C={C}: {diverged} chains diverged, "
+                                 f"{nuts_cuda.LEAF.launches - launched} launches for {leaves} leaves")
+        _log(f"[leaf] C={C} D={D}: {leaves} leaves (every leaf of depths 0 to {LEAF_DEPTH}) against the plain leaf: "
+             f"counts, booleans and the flag exact, floats worst {worst} ulps (limit {LEAF_ULPS}); "
+             f"{diverged} chains diverged; check_s={check_s:.3f}")
+
+        # Timing, every chain live on a flat potential: the kernel, then the plain leaf from the same start.
+        timed = [n % (1 << LEAF_DEPTH) for n in range(LEAF_TIMED)]
+        s, vg, half_e, e_im, inv_mass, H0 = _leaf_start(device, C, D, S, seed=C, moving=False)
+        logp0, g0 = vg(None)
+        uni = torch.rand((C,), generator=make_generator(1, device), device=device)
+        plain = {k: v.clone() for k, v in s.items()}
+        flag = torch.zeros((2,), dtype=torch.bool, pin_memory=True)
+        kernel = nuts_cuda.LeafKernel(s, half_e, e_im, inv_mass, H0, flag)
+        u = first_half_step(kernel, s["edge"], D, half_e, e_im)
+
+        def kernel_leaves(u):
+            for n in timed:
+                u = kernel.leaf(u, logp0, g0, uni, tn._leaf_slots(n), n % 2)
+            return u
+
+        def plain_leaves(sp):
+            for n in timed:
+                e = sp["edge"]
+                p_half = torch.addcmul(e[:, D : 2 * D], half_e, e[:, 2 * D : 3 * D])
+                u_new = torch.addcmul(e[:, :D], e_im, p_half)
+                sp = tn._leaf_plain(n, sp, u_new, p_half, logp0, g0, uni, half_e, inv_mass, H0)
+                flag[n % 2].copy_(sp["live"].any(), non_blocking=True)
+            return sp
+
+        times = {}
+        for side, fn, arg in (("kernel", kernel_leaves, u), ("plain", plain_leaves, plain)):
+            arg = fn(arg)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            arg = fn(arg)
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3 / LEAF_TIMED
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                torch.cuda._sleep(1_000_000)  # the profiler can miss an event at the start of its window
+                torch.cuda.synchronize()
+                arg = fn(arg)
+                torch.cuda.synchronize()
+            ev = [e for e in device_intervals(prof) if "spin" not in e[2]]
+            # Should it miss one of the leaves' events all the same (one of 1,024 did on the H100), a side's device
+            # time a leaf is over the leaves it saw (the kernel's launches; the plain side's leaves by its copies).
+            seen = sum(1 for *_, name in ev if "nuts_leaf_kernel" in name) if side == "kernel" else \
+                sum(1 for *_, name in ev if "Memcpy" in name)
+            if not LEAF_TIMED - 4 <= seen <= LEAF_TIMED:
+                raise AssertionError(f"leaf: the profiler saw {seen} of the {side} side's {LEAF_TIMED} leaves: {ev[:8]}")
+            times[side] = {"device_ms": sum(b - a for a, b, _ in ev) / 1e6 / seen, "host_ms": host_ms,
+                           "device_ops_per_leaf": len(ev) / seen}
+            if side == "plain":
+                live = bool(arg["live"].all())
+            else:
+                live = bool(s["live"].all())
+            if not live:
+                raise AssertionError(f"leaf: C={C}: a chain stopped during the {side} side's timed leaves")
+        bound_ms, bound_by = leaf_bound(C, D, timed)
+        out[C] = {"D": D, "leaves_checked": leaves, "worst_ulps": worst, "ms": times["kernel"]["device_ms"],
+                  "plain_ms": times["plain"]["device_ms"], "host_ms": times["kernel"]["host_ms"],
+                  "plain_host_ms": times["plain"]["host_ms"],
+                  "plain_ops_per_leaf": times["plain"]["device_ops_per_leaf"], "bound_ms": bound_ms,
+                  "bound_by": bound_by}
+        _log(f"[leaf] C={C} D={D} over {LEAF_TIMED} live leaves: kernel device_ms={out[C]['ms']:.6f} "
+             f"host_ms={out[C]['host_ms']:.6f}; plain leaf device_ms={out[C]['plain_ms']:.6f} "
+             f"({out[C]['plain_ops_per_leaf']:.2f} device operations) host_ms={out[C]['plain_host_ms']:.6f}; "
+             f"bound_ms={bound_ms:.3g} ({bound_by})")
+    return out
+
+
 def _sample_posterior(label, device, model_file, prior, x_o, pulses_o, warmup: int, draws: int,
                       model_dir=MODEL_DIR, est=None, max_depth=None) -> dict:
     """Load ``model_dir/model_file`` (or take the estimator ``est``) and
@@ -865,7 +1097,7 @@ def phase_main(device, n_sim: int = N_SIM, warmup: int = SERVE_WARMUP, draws: in
         return walls, proposal, z, x
 
     (walls, proposal, z, x), launches = _launches_on(
-        "main", ("ddm_rt_choice", "mnle_logprob_fwd", "mnle_logprob_bwd"), run)
+        "main", ("ddm_rt_choice", "mnle_logprob_fwd", "mnle_logprob_bwd", *NUTS), run)
     _forward_share("main", launches, "mnle_logprob_fwd", "mnle_logprob_bwd")
     os.environ["MODEL_DIR"] = str(MODEL_DIR)
     sample = hold_sample("main", load_model(MODEL_FILE, device=device), load_model(MODEL_FILE, device="cpu"), device)
@@ -887,7 +1119,7 @@ def phase_pulse(device, warmup: int = SERVE_WARMUP, draws: int = PULSE_DRAWS) ->
         _log(f"[pulse] walls_s={json.dumps({k: round(v, 3) for k, v in walls.items()})}")
         return walls
 
-    walls, launches = _launches_on("pulse", ("mnle_pulse_fwd", "mnle_pulse_bwd"), run)
+    walls, launches = _launches_on("pulse", ("mnle_pulse_fwd", "mnle_pulse_bwd", *NUTS), run)
     _forward_share("pulse", launches, "mnle_pulse_fwd", "mnle_pulse_bwd")
     # The slot head's draw and the circular splines' inverse.
     os.environ["MODEL_DIR"] = str(MODEL_DIR)
@@ -1063,7 +1295,8 @@ def phase_resume(device) -> dict:
                               fault_call=RESUME_FAULT_CALL)
             return ref, res, cut, child_wall
 
-        (ref, res, cut, child_wall), launches = _launches_on("resume", ("mnle_logprob_fwd", "mnle_logprob_bwd"), run)
+        (ref, res, cut, child_wall), launches = _launches_on(
+            "resume", ("mnle_logprob_fwd", "mnle_logprob_bwd", *NUTS), run)
         final = next_segment()
     wanted = (f"[run_nuts] resumed at segment {cut}/{n_segments}",
               f"[run_nuts] device lost near segment {cut} (AcceleratorError); waiting for recovery, then replaying "
@@ -1171,7 +1404,7 @@ def phase_sbc(device, datasets: int = 8, warmup: int = SBC_WARMUP, post: int = S
         ConditionedMNLELogLikelihood.log_lik_and_grad = lik_recording
         try:
             with _recording_k3() as (rows_seen, k3_first):
-                (out, wall), launches = _launches_on("sbc", ("ddm_rt_choice", "mnle_logprob_bwd"), run)
+                (out, wall), launches = _launches_on("sbc", ("ddm_rt_choice", "mnle_logprob_bwd", *NUTS), run)
         finally:
             ConditionedMNLELogLikelihood.log_lik_and_grad = lik_and_grad
         _check_sbc_outputs("sbc", Path(tmp), out, datasets, post)
@@ -1304,7 +1537,7 @@ def phase_pipeline(device) -> dict:
         os.environ["OUTDIR"], os.environ["MODEL_DIR"] = str(out_dir), str(model_dir)
         t0 = time.perf_counter()
         with _recording_k3() as (rows_seen, k3_first):
-            result, launches = _launches_on("pipeline", ("ddm_rt_choice", "mnle_logprob_bwd"),
+            result, launches = _launches_on("pipeline", ("ddm_rt_choice", "mnle_logprob_bwd", *NUTS),
                                             lambda: pipeline._cli(["--smoke"]))
         wall = time.perf_counter() - t0
         records = [json.loads(line) for line in (out_dir / "metrics.jsonl").read_text().splitlines()]
@@ -1610,7 +1843,7 @@ def phase_train(device, proposal, z, x, warmup: int = TRAIN_SERVE_WARMUP, draws:
             _log(f"[train] walls_s={json.dumps({k: round(v, 3) for k, v in walls.items()})}")
             return walls, meta
 
-        (walls, meta), launches = _launches_on("train", ("mnle_logprob_fwd", "mnle_logprob_bwd"), run)
+        (walls, meta), launches = _launches_on("train", ("mnle_logprob_fwd", "mnle_logprob_bwd", *NUTS), run)
         _forward_share("train", launches, "mnle_logprob_fwd", "mnle_logprob_bwd")
         # After the counts are read: comparison launches do not count.
         check = phase_k2k3(device, model_file=model_file, model_dir=model_dir)
@@ -1768,7 +2001,8 @@ def phase_sharp(device) -> dict:
                                   NEW_DRAWS * 4, est=est, max_depth=NEW_TREE_DEPTH)
         return walls, prior, x_o, pulses_o
 
-    (walls, prior, x_o, pulses_o), launches = _launches_on("sharp", ("mnle_logprob_fwd", "mnle_logprob_bwd"), run)
+    (walls, prior, x_o, pulses_o), launches = _launches_on(
+        "sharp", ("mnle_logprob_fwd", "mnle_logprob_bwd", *NUTS), run)
     rows = phase_k2k3(device, sizes=(ROWS_MAIN, ROWS_FOLD), model_file=SHARP_MODEL_FILE)
     grad = _closed_form_against_autograd("sharp", est, x_o, pulses_o, prior, device)
     sample = hold_sample("sharp", est, load_model(SHARP_MODEL_FILE, device="cpu"), device)
@@ -1878,7 +2112,7 @@ def phase_ensemble(device) -> dict:
         return walls, counts, prior, x_o, pulses_o
 
     (walls, counts, prior, x_o, pulses_o), launches = _launches_on(
-        "ensemble", ("mnle_logprob_fwd", "mnle_logprob_bwd"), run)
+        "ensemble", ("mnle_logprob_fwd", "mnle_logprob_bwd", *NUTS), run)
     _log(f"[ensemble] {K} members; log_lik_and_grad calls: {counts['grad']} with the gradient, {counts['value']} "
          f"value-only; log_lik_fn calls: {counts['log_lik_fn']}; K3 launches={launches['mnle_logprob_bwd']} K2 "
          f"launches={launches['mnle_logprob_fwd']} ({K} a call)")
@@ -1946,7 +2180,7 @@ def phase_embed(device, proposal, z, x) -> dict:
             return walls, loaded, replace, prior, x_o, pulses_o, theta, value
 
         (walls, est, replace, prior, x_o, pulses_o, theta, value), launches = _launches_on(
-            "embed", ("mnle_logprob_fwd", "mnle_logprob_bwd"), run)
+            "embed", ("mnle_logprob_fwd", "mnle_logprob_bwd", *NUTS), run)
         rows = phase_k2k3(device, sizes=(ROWS_MAIN, ROWS_FOLD), model_file=model_file, model_dir=model_dir)
     D = replace.net.cat_net.layers[0].in_features
     plain = ConditionedMNLELogLikelihood(replace, pulses_o, logprob_kernel="xla").log_lik_fn(replace.params, x_o, theta)
@@ -2217,7 +2451,7 @@ def phase_hierarchical(device) -> dict:
     seed = HIER_SEED
     with _recording_k3() as (rows_seen, k3_first):
         ((conf, est, prior, model, xs, ps), out, wall), launches = _launches_on(
-            "hierarchical", ("ddm_rt_choice", "mnle_logprob_bwd"), lambda: _run_hierarchical(device))
+            "hierarchical", ("ddm_rt_choice", "mnle_logprob_bwd", *NUTS), lambda: _run_hierarchical(device))
     B, S, T = xs.shape[:3]
     C, R = conf["chains"], conf["pt_replicas"]
     rows = B * C * R * S * T
@@ -2360,7 +2594,7 @@ def md_rank(outdir: str) -> dict:
     import torch.distributed as dist
 
     from sbi_for_diffusion_models_tpu_torch.graft_entry import dryrun_multichip
-    from sbi_for_diffusion_models_tpu_torch.ops import ceiling_cuda, mnle_cuda  # noqa: F401 (every kernel's count)
+    from sbi_for_diffusion_models_tpu_torch.ops import ceiling_cuda, mnle_cuda, nuts_cuda  # noqa: F401 (every count)
     from sbi_for_diffusion_models_tpu_torch.ops._cuda import KERNELS
     from sbi_for_diffusion_models_tpu_torch.ops.ddm_cuda import ddm_rt_choice_cuda
     from sbi_for_diffusion_models_tpu_torch.parallel.mesh import default_mesh, sharded_simulate
@@ -2467,7 +2701,7 @@ def phase_multidevice(device) -> dict:
     launches = {k: launches_a[k] + sum(res["launches"][k] for res in ranks) for k in launches_a}
     _log(f"[multidevice] launches, (a) and every rank of (b): {json.dumps(launches)}; the ranks started and "
          f"finished in {checked['spawn_s']:.3f} s; phase {time.perf_counter() - t_phase:.1f} s")
-    missing = [k for k in ("ddm_rt_choice", "mnle_logprob_fwd", "mnle_logprob_bwd") if launches[k] <= 0]
+    missing = [k for k in ("ddm_rt_choice", "mnle_logprob_fwd", "mnle_logprob_bwd", *NUTS) if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the multidevice path: {missing}")
     return {"launches": launches, "k1_offset": offset, "sbc_one_differing": one_differ,
@@ -2595,7 +2829,7 @@ def phase_snpe(device) -> dict:
                 raise AssertionError(f"snpe: {name}'s validation loss never fell below its first epoch's: {m}")
         return {"walls": walls, "step_ms": {k: m["step_ms"] for k, m in metas.items()}}
 
-    out, launches = _launches_on("snpe", ("ddm_rt_choice",), run)
+    out, launches = _launches_on("snpe", ("ddm_rt_choice", *NUTS), run)
     return {"launches": launches, **out}
 
 
@@ -2657,6 +2891,7 @@ def main() -> int:
     k23p = phase_k2pk3p(device)
     k4 = phase_k4(device)
     roof = phase_roofline(device)
+    leaf = phase_leaf(device)
     main_path = phase_main(device)
     pulse_path = phase_pulse(device)
     slice_path = phase_slice(device)
@@ -2752,6 +2987,22 @@ def main() -> int:
                         **dict(zip(("bound_ms", "bound_by"), _bound(2.0 * fma["elements"] * fma["K_lo"],
                                                                     8 * fma["elements"])))},
     })
+    # The NUTS leaf kernel: port-only (the JAX package builds its trees inside one XLA while_loop), at the serving
+    # cells' chains and the SBC fold's at the calibrated preset (``large``); ms and plain_ms are device time a leaf.
+    serve, fold = (leaf[C] for C, _ in LEAF_SHAPES)
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "host_ms", "plain_host_ms", "plain_ops_per_leaf", "worst_ulps")
+    kernels.append({
+        "name": "nuts_leaf", "route": "cuda", "source": f"{src}/nuts_leaf.cu", "replaces": None,
+        "launches": main_path["launches"]["nuts_leaf"], "max_ulps": max(serve["worst_ulps"], fold["worst_ulps"]),
+        "n": LEAF_SHAPES[0][0], **{k: serve[k] for k in timed}, "library_ms": None,
+        "large": {"n": LEAF_SHAPES[1][0], **{k: fold[k] for k in timed}},
+    })
+    found = {e: v for e, v in ptxas.items() if "nuts_leaf_kernel" in e}
+    if len(found) != 1:
+        raise AssertionError(f"ptxas reported {len(found)} builds of nuts_leaf_kernel, expected one: {sorted(ptxas)}")
+    kernels[-1]["ptxas"] = next(iter(found.values()))
+    if kernels[-1]["ptxas"].get("spill_stores", 0) or kernels[-1]["ptxas"].get("spill_loads", 0):
+        raise AssertionError(f"nuts_leaf spills registers: {found}")
     for k in kernels:
         k["launches_by_path"] = {name: p["launches"][k["name"]] for name, p in (
             ("main", main_path), ("pulse", pulse_path), ("roofline", roof), ("slice", slice_path),

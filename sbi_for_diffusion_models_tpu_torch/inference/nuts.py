@@ -50,6 +50,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops.nuts_cuda import LeafKernel
 from ..parallel.comm import ShardedGenerator
 from ..utils import metrics
 from ..utils.rng import as_seed, batch_any, child_seed, draw, make_generator
@@ -137,7 +138,8 @@ class _LaggedAny:
     behind an event as soon as it is computed and read at leaf n + 2, while
     leaf n + 1 is already queued. A loop that stops on it runs at most one
     extra leaf, on which every chain is masked (a no-op). Read over the
-    whole batch ``gen`` draws for (``utils.rng.batch_any``)."""
+    whole batch ``gen`` draws for (``utils.rng.batch_any``). The leaf kernel
+    writes its flag into the pinned byte ``slot()`` itself."""
 
     def __init__(self, device: torch.device, gen):
         self.cuda = device.type == "cuda"
@@ -146,9 +148,16 @@ class _LaggedAny:
         self.events = [None, None]
         self.n = 0
 
-    def push(self, mask: torch.Tensor) -> None:
+    def slot(self) -> int:
+        """The byte of ``host`` that the next ``push`` fills."""
+        return self.n % 2
+
+    def push(self, mask: Optional[torch.Tensor] = None) -> None:
+        """Push ``mask``'s flag, or (``mask`` None) the one a kernel queued
+        into ``host[slot()]``."""
         i = self.n % 2
-        self.host[i].copy_(mask.any(), non_blocking=self.cuda)
+        if mask is not None:
+            self.host[i].copy_(mask.any(), non_blocking=self.cuda)
         if self.cuda:
             self.events[i] = torch.cuda.Event()
             self.events[i].record()
@@ -168,6 +177,70 @@ class _LaggedAny:
         return out
 
 
+def _leaf_slots(n: int) -> tuple:
+    """Leaf n's checkpoint slots: (the slot an even leaf stores into, else
+    -1; the first and last slot of an odd leaf's U-turn tests, else -1, -1)."""
+    if n % 2 == 0:
+        return _popcount(n >> 1), -1, -1
+    idx_max = _popcount(n >> 1)
+    return -1, idx_max - _trailing_ones(n) + 1, idx_max
+
+
+def _leaf_plain(n: int, s: dict, u_new, p_half, logp_new, g_new, uni, half_e, inv_mass, H0) -> dict:
+    """Leaf ``n``'s body after its potential call, in plain PyTorch: from
+    the subtree's state ``s`` (``edge``, ``prop``, ``rho``, ``log_w``,
+    ``sum_accept``, ``n_leaves``, ``turning``, ``diverging``, ``live``,
+    ``r_ckpts``, ``rsum_ckpts``), the leaf's position ``u_new`` and half
+    step ``p_half``, its potential (``logp_new``, ``g_new``) and uniforms
+    ``uni``, the next state (the checkpoints are written in place). The
+    kernel ``ops.nuts_cuda.LeafKernel.leaf`` computes the same."""
+    edge, prop, rho, log_w, live = s["edge"], s["prop"], s["rho"], s["log_w"], s["live"]
+    r_ckpts, rsum_ckpts, turning, diverging = s["r_ckpts"], s["rsum_ckpts"], s["turning"], s["diverging"]
+    p_new = torch.addcmul(p_half, half_e, g_new)
+    delta = (_kinetic(p_new, inv_mass) - logp_new) - H0
+    delta = torch.nan_to_num(delta, nan=math.inf, posinf=math.inf, neginf=-math.inf)
+    leaf_log_w = -delta
+
+    # Progressive multinomial sampling within the subtree.
+    new_log_w = torch.logaddexp(log_w, leaf_log_w)
+    take = live & (torch.log(uni) < leaf_log_w - new_log_w)
+    rho_after = rho + p_new
+    live_col = live[:, None]
+
+    slot, idx_min, idx_max = _leaf_slots(n)
+    if slot >= 0:
+        # Checkpoint store at even leaves.
+        r_ckpts[:, slot] = torch.where(live_col, p_new, r_ckpts[:, slot])
+        rsum_ckpts[:, slot] = torch.where(live_col, rho, rsum_ckpts[:, slot])
+        leaf_turning = None
+    else:
+        # U-turn checks for the aligned segments that end at odd leaf n.
+        v_new = p_new * inv_mass
+        rho_seg = rho_after[:, None, :] - rsum_ckpts[:, idx_min : idx_max + 1]
+        v_ckpt = r_ckpts[:, idx_min : idx_max + 1] * inv_mass[:, None, :]
+        leaf_turning = (((v_ckpt * rho_seg).sum(-1) <= 0.0) | ((v_new[:, None, :] * rho_seg).sum(-1) <= 0.0)).any(-1)
+
+    new_edge = torch.cat([u_new, p_new, g_new, logp_new[:, None]], dim=1)
+    edge = torch.where(live_col, new_edge, edge)
+    prop = torch.where(take[:, None], torch.cat([u_new, g_new, logp_new[:, None]], dim=1), prop)
+    rho = torch.where(live_col, rho_after, rho)
+    log_w = torch.where(live, new_log_w, log_w)
+    sum_accept = s["sum_accept"] + torch.where(live, torch.clamp(torch.exp(-delta), max=1.0), 0.0)
+    n_leaves = s["n_leaves"] + live
+    if leaf_turning is not None:
+        turning = turning | (live & leaf_turning)
+    diverging = diverging | (live & (delta > _MAX_DELTA_ENERGY))
+    live = live & ~(turning | diverging)
+    return dict(edge=edge, prop=prop, rho=rho, log_w=log_w, sum_accept=sum_accept, n_leaves=n_leaves,
+                turning=turning, diverging=diverging, live=live, r_ckpts=r_ckpts, rsum_ckpts=rsum_ckpts)
+
+
+def _takes_leaf_kernel(edge: torch.Tensor) -> bool:
+    """Whether a subtree's leaves run in the leaf kernel: on a CUDA ``edge``
+    (``run_nuts`` works in float32). CPU tensors take ``_leaf_plain``."""
+    return edge.is_cuda
+
+
 def _build_subtree(gen, edge, depth: int, direction, eps, inv_mass, H0, max_depth: int, vg_fn, active):
     """Build 2**depth leaves by repeated leapfrog from ``edge`` = [u | p |
     g | logp] (C, 3D+1), per chain in its ``direction`` (+1/-1). Chains
@@ -175,77 +248,62 @@ def _build_subtree(gen, edge, depth: int, direction, eps, inv_mass, H0, max_dept
     keep their state. Returns a dict: the far ``edge``, the multinomial
     proposal ``prop`` = [u | g | logp] (C, 2D+1), the momentum sum ``rho``,
     ``log_w`` (logsumexp of leaf weights relative to H0), ``sum_accept``,
-    ``n_leaves``, ``turning`` and ``diverging``."""
+    ``n_leaves``, ``turning`` and ``diverging``.
+
+    A leaf is one potential call, one ``torch.rand`` draw and its body: on a
+    CUDA ``edge`` the leaf kernel (``ops.nuts_cuda``), which updates the
+    state in place and queues the next leaf's position, else
+    ``_leaf_plain``. Both give the same draws and decisions."""
     C = edge.shape[0]
     D = (edge.shape[1] - 1) // 3
     dev = edge.device
     half_e = (0.5 * eps * direction)[:, None]
     e_im = (eps * direction)[:, None] * inv_mass
-    prop = torch.cat([edge[:, :D], edge[:, 2 * D :]], dim=1)
-    rho = torch.zeros((C, D), dtype=edge.dtype, device=dev)
-    log_w = torch.full((C,), -math.inf, device=dev)
-    sum_accept = torch.zeros((C,), device=dev)
-    n_leaves = torch.zeros((C,), dtype=torch.int64, device=dev)
-    turning = torch.zeros((C,), dtype=torch.bool, device=dev)
-    diverging = torch.zeros_like(turning)
-    r_ckpts = torch.zeros((C, max_depth + 1, D), dtype=edge.dtype, device=dev)
-    rsum_ckpts = torch.zeros_like(r_ckpts)
-    live = active.clone()
+    s = dict(
+        edge=edge,
+        prop=torch.cat([edge[:, :D], edge[:, 2 * D :]], dim=1),
+        rho=torch.zeros((C, D), dtype=edge.dtype, device=dev),
+        log_w=torch.full((C,), -math.inf, device=dev),
+        sum_accept=torch.zeros((C,), device=dev),
+        n_leaves=torch.zeros((C,), dtype=torch.int64, device=dev),
+        turning=torch.zeros((C,), dtype=torch.bool, device=dev),
+        diverging=torch.zeros((C,), dtype=torch.bool, device=dev),
+        live=active.clone(),
+        r_ckpts=torch.zeros((C, max_depth + 1, D), dtype=edge.dtype, device=dev),
+    )
+    s["rsum_ckpts"] = torch.zeros_like(s["r_ckpts"])
     flag = _LaggedAny(dev, gen)
-    flag.push(live)
+    flag.push(s["live"])
+
+    def half_step(edge, out=None):
+        p_half = torch.addcmul(edge[:, D : 2 * D], half_e, edge[:, 2 * D : 3 * D], out=out)
+        return p_half, torch.addcmul(edge[:, :D], e_im, p_half)
+
+    kernel = None
+    if _takes_leaf_kernel(edge):
+        s["edge"] = s["edge"].contiguous()
+        kernel = LeafKernel(s, half_e, e_im, inv_mass, H0, flag.host)
+        # The first leaf's half step, into the kernel's; the kernel computes every later leaf's.
+        _, u_new = half_step(s["edge"], out=kernel.p_half)
     for n in range(1 << depth):
         leaf = metrics.begin("nuts.leaf") if metrics.RECORDING else -1
         if not flag.any_before_last():
             if leaf >= 0:
                 metrics.end(leaf)
             break
-        u, p, g = edge[:, :D], edge[:, D : 2 * D], edge[:, 2 * D : 3 * D]
-        p_half = torch.addcmul(p, half_e, g)
-        u_new = torch.addcmul(u, e_im, p_half)
+        if kernel is None:
+            p_half, u_new = half_step(s["edge"])
         logp_new, g_new = vg_fn(u_new)
-        p_new = torch.addcmul(p_half, half_e, g_new)
-        delta = (_kinetic(p_new, inv_mass) - logp_new) - H0
-        delta = torch.nan_to_num(delta, nan=math.inf, posinf=math.inf, neginf=-math.inf)
-        leaf_log_w = -delta
-
-        # Progressive multinomial sampling within the subtree.
-        new_log_w = torch.logaddexp(log_w, leaf_log_w)
         uni = draw(gen, torch.rand, (C,), dev)
-        take = live & (torch.log(uni) < leaf_log_w - new_log_w)
-        rho_after = rho + p_new
-        live_col = live[:, None]
-
-        if n % 2 == 0:
-            # Checkpoint store at even leaves.
-            slot = _popcount(n >> 1)
-            r_ckpts[:, slot] = torch.where(live_col, p_new, r_ckpts[:, slot])
-            rsum_ckpts[:, slot] = torch.where(live_col, rho, rsum_ckpts[:, slot])
-            leaf_turning = None
+        if kernel is None:
+            s = _leaf_plain(n, s, u_new, p_half, logp_new, g_new, uni, half_e, inv_mass, H0)
+            flag.push(s["live"])
         else:
-            # U-turn checks for the aligned segments that end at odd leaf n.
-            idx_max = _popcount(n >> 1)
-            idx_min = idx_max - _trailing_ones(n) + 1
-            v_new = p_new * inv_mass
-            rho_seg = rho_after[:, None, :] - rsum_ckpts[:, idx_min : idx_max + 1]
-            v_ckpt = r_ckpts[:, idx_min : idx_max + 1] * inv_mass[:, None, :]
-            leaf_turning = (((v_ckpt * rho_seg).sum(-1) <= 0.0) | ((v_new[:, None, :] * rho_seg).sum(-1) <= 0.0)).any(-1)
-
-        new_edge = torch.cat([u_new, p_new, g_new, logp_new[:, None]], dim=1)
-        edge = torch.where(live_col, new_edge, edge)
-        prop = torch.where(take[:, None], torch.cat([u_new, g_new, logp_new[:, None]], dim=1), prop)
-        rho = torch.where(live_col, rho_after, rho)
-        log_w = torch.where(live, new_log_w, log_w)
-        sum_accept = sum_accept + torch.where(live, torch.clamp(torch.exp(-delta), max=1.0), 0.0)
-        n_leaves = n_leaves + live
-        if leaf_turning is not None:
-            turning = turning | (live & leaf_turning)
-        diverging = diverging | (live & (delta > _MAX_DELTA_ENERGY))
-        live = live & ~(turning | diverging)
-        flag.push(live)
+            u_new = kernel.leaf(u_new, logp_new, g_new, uni, _leaf_slots(n), flag.slot())
+            flag.push()
         if leaf >= 0:
             metrics.end(leaf)
-    return dict(edge=edge, prop=prop, rho=rho, log_w=log_w, sum_accept=sum_accept, n_leaves=n_leaves,
-                turning=turning, diverging=diverging)
+    return {k: s[k] for k in ("edge", "prop", "rho", "log_w", "sum_accept", "n_leaves", "turning", "diverging")}
 
 
 # ---------------------------------------------------------------------------

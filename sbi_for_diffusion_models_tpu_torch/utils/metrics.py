@@ -48,7 +48,10 @@ The port's spans (name: what it encloses):
 Counters: ``launch.k1``, ``launch.k2``, ``launch.k3``, ``launch.k2p`` and
 ``launch.k3p``, the calls of each kernel's dispatcher, whichever route
 (kernel or plain version) they take; a replay of captured launches counts
-the launches it replays.
+the launches it replays. ``launch.leaf``: the NUTS leaf kernel's launches
+(``ops/nuts_cuda.py``), one a leaf that took it; a plain leaf counts none,
+so ``launch.leaf`` over the ``nuts.leaf`` spans is the share of leaves run
+in the kernel.
 """
 
 from __future__ import annotations

@@ -316,3 +316,200 @@ def test_mcmc_posterior_prints_and_records_diagnostics_as_jax_does(method, verbo
         assert set(post._last_diagnostics) == {"ess", "r_hat"}
     else:
         assert post._last_diagnostics is None and out == ""
+
+
+# ---------------------------------------------------------------------------
+# The leaf body: the plain leaf against the loop body it replaced
+# ---------------------------------------------------------------------------
+_STATE = ("edge", "prop", "rho", "log_w", "sum_accept", "n_leaves", "turning", "diverging", "live", "r_ckpts",
+          "rsum_ckpts")
+_LEAF_CASES = ["finite", "nan_logp", "neginf_logp", "divergent"]
+
+
+def _former_build_subtree(gen, edge, depth, direction, eps, inv_mass, H0, max_depth, vg_fn, active, snapshots=None):
+    """``inference/nuts._build_subtree`` as it stood before the leaf kernel,
+    verbatim (its spans aside); with ``snapshots`` (a list) it runs every
+    leaf, without the lagged flag's stop, and appends the state after each."""
+    _kinetic, _popcount, _trailing_ones, _MAX_DELTA_ENERGY = tn._kinetic, tn._popcount, tn._trailing_ones, \
+        tn._MAX_DELTA_ENERGY
+    draw = tn.draw
+    C = edge.shape[0]
+    D = (edge.shape[1] - 1) // 3
+    dev = edge.device
+    half_e = (0.5 * eps * direction)[:, None]
+    e_im = (eps * direction)[:, None] * inv_mass
+    prop = torch.cat([edge[:, :D], edge[:, 2 * D :]], dim=1)
+    rho = torch.zeros((C, D), dtype=edge.dtype, device=dev)
+    log_w = torch.full((C,), -math.inf, device=dev)
+    sum_accept = torch.zeros((C,), device=dev)
+    n_leaves = torch.zeros((C,), dtype=torch.int64, device=dev)
+    turning = torch.zeros((C,), dtype=torch.bool, device=dev)
+    diverging = torch.zeros_like(turning)
+    r_ckpts = torch.zeros((C, max_depth + 1, D), dtype=edge.dtype, device=dev)
+    rsum_ckpts = torch.zeros_like(r_ckpts)
+    live = active.clone()
+    flag = tn._LaggedAny(dev, gen)
+    flag.push(live)
+    for n in range(1 << depth):
+        if snapshots is None and not flag.any_before_last():
+            break
+        u, p, g = edge[:, :D], edge[:, D : 2 * D], edge[:, 2 * D : 3 * D]
+        p_half = torch.addcmul(p, half_e, g)
+        u_new = torch.addcmul(u, e_im, p_half)
+        logp_new, g_new = vg_fn(u_new)
+        p_new = torch.addcmul(p_half, half_e, g_new)
+        delta = (_kinetic(p_new, inv_mass) - logp_new) - H0
+        delta = torch.nan_to_num(delta, nan=math.inf, posinf=math.inf, neginf=-math.inf)
+        leaf_log_w = -delta
+
+        # Progressive multinomial sampling within the subtree.
+        new_log_w = torch.logaddexp(log_w, leaf_log_w)
+        uni = draw(gen, torch.rand, (C,), dev)
+        take = live & (torch.log(uni) < leaf_log_w - new_log_w)
+        rho_after = rho + p_new
+        live_col = live[:, None]
+
+        if n % 2 == 0:
+            # Checkpoint store at even leaves.
+            slot = _popcount(n >> 1)
+            r_ckpts[:, slot] = torch.where(live_col, p_new, r_ckpts[:, slot])
+            rsum_ckpts[:, slot] = torch.where(live_col, rho, rsum_ckpts[:, slot])
+            leaf_turning = None
+        else:
+            # U-turn checks for the aligned segments that end at odd leaf n.
+            idx_max = _popcount(n >> 1)
+            idx_min = idx_max - _trailing_ones(n) + 1
+            v_new = p_new * inv_mass
+            rho_seg = rho_after[:, None, :] - rsum_ckpts[:, idx_min : idx_max + 1]
+            v_ckpt = r_ckpts[:, idx_min : idx_max + 1] * inv_mass[:, None, :]
+            leaf_turning = (((v_ckpt * rho_seg).sum(-1) <= 0.0) | ((v_new[:, None, :] * rho_seg).sum(-1) <= 0.0)).any(-1)
+
+        new_edge = torch.cat([u_new, p_new, g_new, logp_new[:, None]], dim=1)
+        edge = torch.where(live_col, new_edge, edge)
+        prop = torch.where(take[:, None], torch.cat([u_new, g_new, logp_new[:, None]], dim=1), prop)
+        rho = torch.where(live_col, rho_after, rho)
+        log_w = torch.where(live, new_log_w, log_w)
+        sum_accept = sum_accept + torch.where(live, torch.clamp(torch.exp(-delta), max=1.0), 0.0)
+        n_leaves = n_leaves + live
+        if leaf_turning is not None:
+            turning = turning | (live & leaf_turning)
+        diverging = diverging | (live & (delta > _MAX_DELTA_ENERGY))
+        live = live & ~(turning | diverging)
+        flag.push(live)
+        if snapshots is not None:
+            snapshots.append({k: v.clone() for k, v in zip(_STATE, (
+                edge, prop, rho, log_w, sum_accept, n_leaves, turning, diverging, live, r_ckpts, rsum_ckpts))})
+    return dict(edge=edge, prop=prop, rho=rho, log_w=log_w, sum_accept=sum_accept, n_leaves=n_leaves,
+                turning=turning, diverging=diverging)
+
+
+def _leaf_inputs(case: str, C: int = 9, D: int = 3, seed: int = 0):
+    """A subtree's start on a Gaussian (every third chain inactive) and a
+    potential that, by ``case``, gives one chain a NaN or a -inf log-density
+    or one past the divergence threshold at its first call."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+    u, p, mu = f32(rng.normal(size=(C, D))), f32(rng.normal(size=(C, D))), f32(rng.normal(size=(D,)))
+    prec = f32(rng.uniform(0.5, 2.0, (D,)))
+    inv_mass = f32(rng.uniform(0.5, 2.0, (C, D)))
+    eps = f32(rng.uniform(0.2, 1.2, C))
+    direction = torch.where(f32(rng.uniform(size=C)) < 0.5, 1.0, -1.0)
+    active = torch.from_numpy(np.arange(C) % 3 != 2)
+    calls = [0]
+
+    def gauss(x):
+        return -0.5 * ((x - mu) ** 2 * prec).sum(-1), -(x - mu) * prec
+
+    def vg_fn(x):
+        logp, g = gauss(x)
+        if calls[0] == 0 and case != "finite":
+            logp[1] = {"nan_logp": math.nan, "neginf_logp": -math.inf, "divergent": -5000.0}[case]
+        calls[0] += 1
+        return logp, g
+
+    logp, g = gauss(u)
+    H0 = -logp + tn._kinetic(p, inv_mass)
+    edge = torch.cat([u, p, g, logp[:, None]], dim=1)
+    return dict(edge=edge, direction=direction, eps=eps, inv_mass=inv_mass, H0=H0, active=active), vg_fn, calls
+
+
+@pytest.mark.parametrize("case", _LEAF_CASES)
+@pytest.mark.parametrize("depth", [0, 1, 2, 3, 4])
+def test_plain_leaf_equals_the_former_loop_body(depth, case):
+    """``_leaf_plain`` after each leaf of a subtree gives every state tensor
+    of the loop body it replaced, bit for bit: inactive chains, a NaN or
+    -inf log-density and a divergent leaf included."""
+    a, vg_old, _ = _leaf_inputs(case)
+    _, vg_new, _ = _leaf_inputs(case)
+    max_depth = 5
+    snaps: list = []
+    _former_build_subtree(make_generator(7), a["edge"], depth, a["direction"], a["eps"], a["inv_mass"], a["H0"],
+                          max_depth, vg_old, a["active"], snapshots=snaps)
+    gen = make_generator(7)
+    edge, C, D = a["edge"], a["edge"].shape[0], 3
+    half_e = (0.5 * a["eps"] * a["direction"])[:, None]
+    e_im = (a["eps"] * a["direction"])[:, None] * a["inv_mass"]
+    s = dict(edge=edge, prop=torch.cat([edge[:, :D], edge[:, 2 * D :]], dim=1), rho=torch.zeros((C, D)),
+             log_w=torch.full((C,), -math.inf), sum_accept=torch.zeros((C,)),
+             n_leaves=torch.zeros((C,), dtype=torch.int64), turning=torch.zeros((C,), dtype=torch.bool),
+             diverging=torch.zeros((C,), dtype=torch.bool), live=a["active"].clone(),
+             r_ckpts=torch.zeros((C, max_depth + 1, D)), rsum_ckpts=torch.zeros((C, max_depth + 1, D)))
+    tn._LaggedAny(edge.device, gen).push(s["live"])  # the former loop's first flag: no draw
+    assert len(snaps) == 1 << depth
+    for n, want in enumerate(snaps):
+        e = s["edge"]
+        p_half = torch.addcmul(e[:, D : 2 * D], half_e, e[:, 2 * D : 3 * D])
+        u_new = torch.addcmul(e[:, :D], e_im, p_half)
+        logp_new, g_new = vg_new(u_new)
+        uni = tn.draw(gen, torch.rand, (C,), edge.device)
+        s = tn._leaf_plain(n, s, u_new, p_half, logp_new, g_new, uni, half_e, a["inv_mass"], a["H0"])
+        for k in _STATE:
+            assert torch.equal(s[k], want[k]) or (k in ("edge", "prop") and _equal_with_nans(s[k], want[k])), \
+                (n, k)
+    if case != "finite":
+        assert bool(s["diverging"][1]) == bool(a["active"][1])
+
+
+def _equal_with_nans(x, y) -> bool:
+    return torch.equal(torch.isnan(x), torch.isnan(y)) and torch.equal(torch.nan_to_num(x), torch.nan_to_num(y))
+
+
+@pytest.mark.parametrize("case", _LEAF_CASES)
+@pytest.mark.parametrize("depth", [0, 1, 2, 3, 4])
+def test_build_subtree_equals_the_former_one(depth, case):
+    """The whole subtree, lagged stop included: the same state, the same
+    number of potential calls and the generator left in the same state."""
+    a, vg_old, calls_old = _leaf_inputs(case)
+    _, vg_new, calls_new = _leaf_inputs(case)
+    g_old, g_new = make_generator(11), make_generator(11)
+    args = (a["direction"], a["eps"], a["inv_mass"], a["H0"], 5)
+    want = _former_build_subtree(g_old, a["edge"], depth, *args, vg_old, a["active"])
+    got = tn._build_subtree(g_new, a["edge"].clone(), depth, *args, vg_new, a["active"])
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]) or _equal_with_nans(got[k], want[k]), k
+    assert calls_new[0] == calls_old[0]
+    assert torch.equal(g_new.get_state(), g_old.get_state())
+
+
+def test_build_subtree_on_the_cpu_takes_the_plain_leaf(monkeypatch):
+    """CPU tensors take ``_leaf_plain`` at every leaf; ``launch.leaf`` stays
+    0 under the recorder and no kernel launches."""
+    from sbi_for_diffusion_models_tpu_torch.ops import nuts_cuda
+    from sbi_for_diffusion_models_tpu_torch.utils import metrics
+
+    plain = tn._leaf_plain
+    seen = []
+    monkeypatch.setattr(tn, "_leaf_plain", lambda n, *rest: seen.append(n) or plain(n, *rest))
+    a, vg_fn, calls = _leaf_inputs("finite")
+    before = nuts_cuda.LEAF.launches
+    metrics.enable()
+    try:
+        tn._build_subtree(make_generator(3), a["edge"], 3, a["direction"], a["eps"], a["inv_mass"], a["H0"], 5,
+                          vg_fn, a["active"])
+    finally:
+        spans, counters = metrics.drain()
+    assert seen == list(range(calls[0])) and calls[0] > 0
+    assert counters.get("launch.leaf", 0) == 0
+    assert sum(s.name == "nuts.leaf" for s in spans) >= calls[0]
+    assert nuts_cuda.LEAF.launches == before
