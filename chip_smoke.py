@@ -43,7 +43,8 @@ port's paths once each through their public entry points:
 5b. the NUTS leaf kernel (``ops/nuts_cuda.LeafKernel``, ``nuts_leaf``)
    against the plain leaf (``inference/nuts._leaf_plain``) on the same
    inputs and uniforms at the serving cells' 24 chains and the SBC fold's
-   2,304 (96 datasets x 4 chains x 6 rungs), D = 5: every leaf of subtrees
+   2,304 (96 datasets x 4 chains x 6 rungs), D = 5, and at 24 chains of the
+   hierarchical sampler's D = 330 (64 subjects): every leaf of subtrees
    of depth 0 to LEAF_DEPTH, on a Gaussian potential with a NaN, a -inf and
    a divergent log-density on a few chains; counts, booleans and the live
    flag exact, floats within LEAF_ULPS ulps. Then its device time a launch
@@ -309,8 +310,9 @@ MD_RANKS = 4
 MD_WARMUP, MD_DRAWS, MD_TREE_DEPTH = 5, 20, 6
 MD_DEADLINE_S = 420.0  # the ranks' deadline; their collectives time out at the same limit
 # The leaf kernel's check: the serving cells' chains (4 chains x 6 rungs) and the SBC fold's at the calibrated preset
-# (96 datasets of them), D = 5; every leaf of subtrees up to CALIBRATED_CONFIG's MCMC_MAX_TREE_DEPTH.
-LEAF_SHAPES = ((24, 5), (2_304, 5))
+# (96 datasets of them), D = 5, then the serving chains at the hierarchical sampler's D = 330 (64 subjects: PyTorch
+# sums that D with four-wide loads); every leaf of subtrees up to CALIBRATED_CONFIG's MCMC_MAX_TREE_DEPTH.
+LEAF_SHAPES = ((24, 5), (2_304, 5), (24, 330))
 LEAF_DEPTH = 10
 LEAF_ULPS = 4  # the kernel's floats against the plain leaf's, as tests/test_torch_cuda_nuts.py holds them
 LEAF_TIMED = 1_024  # leaves timed a side: one cycle of a depth-10 subtree's checkpoint slots
@@ -812,7 +814,7 @@ def phase_leaf(device) -> dict:
     every chain stays live: the kernel's device time a launch and the plain
     leaf's device time a leaf (its half step, body and flag copy, as
     ``_build_subtree`` ran it; ``torch.profiler``), and each side's host
-    time a leaf. Returns {C: check and times}."""
+    time a leaf. Returns {(C, D): check and times}."""
     import torch
 
     from sbi_for_diffusion_models_tpu_torch.inference import nuts as tn
@@ -923,14 +925,14 @@ def phase_leaf(device) -> dict:
             if not live:
                 raise AssertionError(f"leaf: C={C}: a chain stopped during the {side} side's timed leaves")
         bound_ms, bound_by = leaf_bound(C, D, timed)
-        out[C] = {"D": D, "leaves_checked": leaves, "worst_ulps": worst, "ms": times["kernel"]["device_ms"],
+        out[C, D] = r = {"D": D, "leaves_checked": leaves, "worst_ulps": worst, "ms": times["kernel"]["device_ms"],
                   "plain_ms": times["plain"]["device_ms"], "host_ms": times["kernel"]["host_ms"],
                   "plain_host_ms": times["plain"]["host_ms"],
                   "plain_ops_per_leaf": times["plain"]["device_ops_per_leaf"], "bound_ms": bound_ms,
                   "bound_by": bound_by}
-        _log(f"[leaf] C={C} D={D} over {LEAF_TIMED} live leaves: kernel device_ms={out[C]['ms']:.6f} "
-             f"host_ms={out[C]['host_ms']:.6f}; plain leaf device_ms={out[C]['plain_ms']:.6f} "
-             f"({out[C]['plain_ops_per_leaf']:.2f} device operations) host_ms={out[C]['plain_host_ms']:.6f}; "
+        _log(f"[leaf] C={C} D={D} over {LEAF_TIMED} live leaves: kernel device_ms={r['ms']:.6f} "
+             f"host_ms={r['host_ms']:.6f}; plain leaf device_ms={r['plain_ms']:.6f} "
+             f"({r['plain_ops_per_leaf']:.2f} device operations) host_ms={r['plain_host_ms']:.6f}; "
              f"bound_ms={bound_ms:.3g} ({bound_by})")
     return out
 
@@ -2988,14 +2990,16 @@ def main() -> int:
                                                                     8 * fma["elements"])))},
     })
     # The NUTS leaf kernel: port-only (the JAX package builds its trees inside one XLA while_loop), at the serving
-    # cells' chains and the SBC fold's at the calibrated preset (``large``); ms and plain_ms are device time a leaf.
-    serve, fold = (leaf[C] for C, _ in LEAF_SHAPES)
+    # cells' chains, the SBC fold's at the calibrated preset (``large``) and the serving chains at the hierarchical
+    # sampler's D (``wide``); ms and plain_ms are device time a leaf.
+    serve, fold, wide = (leaf[shape] for shape in LEAF_SHAPES)
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "host_ms", "plain_host_ms", "plain_ops_per_leaf", "worst_ulps")
     kernels.append({
         "name": "nuts_leaf", "route": "cuda", "source": f"{src}/nuts_leaf.cu", "replaces": None,
-        "launches": main_path["launches"]["nuts_leaf"], "max_ulps": max(serve["worst_ulps"], fold["worst_ulps"]),
+        "launches": main_path["launches"]["nuts_leaf"], "max_ulps": max(r["worst_ulps"] for r in leaf.values()),
         "n": LEAF_SHAPES[0][0], **{k: serve[k] for k in timed}, "library_ms": None,
         "large": {"n": LEAF_SHAPES[1][0], **{k: fold[k] for k in timed}},
+        "wide": {"n": LEAF_SHAPES[2][0], "D": LEAF_SHAPES[2][1], **{k: wide[k] for k in timed}},
     })
     found = {e: v for e, v in ptxas.items() if "nuts_leaf_kernel" in e}
     if len(found) != 1:

@@ -22,7 +22,8 @@
 // __fmul_rn / __fadd_rn / __fsub_rn (no contraction into an FMA), an addcmul is rounded once (one FMA), as
 // PyTorch's CUDA addcmul rounds a + b * c, logf, expf and log1pf are
 // the math library's (no fast-math intrinsics), and a sum over D is taken in the order PyTorch's CUDA
-// reduction takes it over a contiguous last dimension (torch_order_sum). Nothing of one chain depends on another
+// reduction takes it over a contiguous last dimension (torch_order_sum), its four-wide loads from D = 128 on
+// included. Nothing of one chain depends on another
 // chain, so a run split over ranks by rows gives each chain the bits of the unsharded run.
 //
 // What bounds it: the launch and one chain's chain of dependent operations. It moves about 150 bytes a
@@ -72,13 +73,32 @@ __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b);
 __device__ __forceinline__ float addcmul(float a, float b, float c) { return __fmaf_rn(b, c, a); }
 
 // sum(term(0), ..., term(D - 1)) in the order of PyTorch's CUDA reduction over a contiguous last dimension
-// of D < 128 elements (ATen's Reduce.cuh: thread_reduce_impl, then block_x_reduce): W = min(2^floor(log2 D),
-// 32) lanes; lane t adds elements t, t + W, t + 2W, ... into four accumulators in turn (element
-// t + (i + 4k) W into accumulator i), starting from 0, then adds the four in order; then, for offsets W/2,
-// W/4, ..., 1, lane t adds lane t + offset (the warp shuffle down). Reduce.cuh takes that W wherever
-// D <= 32, or the reduction has 16 outputs or more; the kernel takes it always, so that a chain's sums do
-// not depend on how many chains the launch holds. W is a template argument, so that the lanes unroll into
-// registers.
+// (ATen's Reduce.cuh: a thread reduction, then block_x_reduce), for a reduction of 16 outputs or more.
+//
+// Below VEC_MIN_D elements (thread_reduce_impl): W = min(2^floor(log2 D), 32) lanes; lane t adds elements
+// t, t + W, t + 2W, ... into four accumulators in turn (element t + (i + 4k) W into accumulator i), starting
+// from 0, then adds the four in order. From VEC_MIN_D elements on (input_vectorized_thread_reduce_impl), ATen
+// loads four elements at a time from 16-byte boundaries, W = 32 lanes: where the row starts `shift` elements
+// past a boundary (1 to 3), its first 4 - shift elements are the head, element e going to lane e + shift;
+// lane t then adds the vectors t, t + W, ... of the rest, element i of a vector into accumulator i; the last
+// (rest mod 4) elements go to lanes 0, 1, 2 (accumulator 0); the four accumulators are added in order.
+// Either way, for offsets W/2, W/4, ..., 1, lane t then adds lane t + offset (the warp shuffle down).
+// Reduce.cuh takes that W wherever D <= 32, or the reduction has 16 outputs or more; the kernel takes it
+// always, so that a chain's sums do not depend on how many chains the launch holds. It splits a row over
+// warps only from about 8,192 elements, which the kernel does not follow. W is a template argument, so that
+// the lanes unroll into registers.
+constexpr int VEC_MIN_D = 128;  // Reduce.cuh's setReduceConfig: vectorize_input from 128 inputs an output
+
+template <int W>
+__device__ __forceinline__ float lane_tree(float* lane) {
+#pragma unroll
+  for (int off = W >> 1; off > 0; off >>= 1) {
+#pragma unroll
+    for (int t = 0; t < off; ++t) lane[t] = add(lane[t], lane[t + off]);
+  }
+  return lane[0];
+}
+
 template <int W, class Term>
 __device__ __forceinline__ float torch_order_sum_w(int D, Term term) {
   float lane[W];
@@ -98,16 +118,35 @@ __device__ __forceinline__ float torch_order_sum_w(int D, Term term) {
     }
     lane[t] = add(add(add(acc[0], acc[1]), acc[2]), acc[3]);
   }
-#pragma unroll
-  for (int off = W >> 1; off > 0; off >>= 1) {
-#pragma unroll
-    for (int t = 0; t < off; ++t) lane[t] = add(lane[t], lane[t + off]);
-  }
-  return lane[0];
+  return lane_tree<W>(lane);
 }
 
 template <class Term>
-__device__ __forceinline__ float torch_order_sum(int D, Term term) {
+__device__ __forceinline__ float torch_order_sum_vec(int D, int shift, Term term) {
+  constexpr int W = 32;
+  const int head = shift > 0 ? 4 - shift : 0;
+  const int end = D - head;  // the elements after the head, from a 16-byte boundary
+  const int tail = end - end % 4;
+  float lane[W];
+#pragma unroll
+  for (int t = 0; t < W; ++t) {
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    if (shift > 0 && t >= shift && t < 4) acc[0] = add(acc[0], term(t - shift));
+    for (int v = t; 4 * v + 3 < end; v += W) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i] = add(acc[i], term(head + 4 * v + i));
+    }
+    if (tail + t < end) acc[0] = add(acc[0], term(head + tail + t));
+    lane[t] = add(add(add(acc[0], acc[1]), acc[2]), acc[3]);
+  }
+  return lane_tree<W>(lane);
+}
+
+// row: the index of the sum's row in the plain path's (rows, D) summand, a fresh tensor whose start lies on a
+// 16-byte boundary, so that row r starts (r * D) mod 4 elements past one.
+template <class Term>
+__device__ __forceinline__ float torch_order_sum(int D, long long row, Term term) {
+  if (D >= VEC_MIN_D) return torch_order_sum_vec(D, (int)((row * D) & 3), term);
   if (D >= 32) return torch_order_sum_w<32>(D, term);
   if (D >= 16) return torch_order_sum_w<16>(D, term);
   if (D >= 8) return torch_order_sum_w<8>(D, term);
@@ -158,7 +197,8 @@ __global__ void __launch_bounds__(MAX_THREADS) nuts_leaf_kernel(SdmNutsLeafState
     const auto p_new = [&](int d) { return addcmul(ph[d], he, gn[d]); };
 
     // Energy error, leaf weight and the multinomial take.
-    const float kinetic = mul(0.5f, torch_order_sum(D, [&](int d) {
+    // The plain path sums (C, D) for the energy and (C, k, D) for the k slots of the U-turn tests.
+    const float kinetic = mul(0.5f, torch_order_sum(D, c, [&](int d) {
       const float p = p_new(d);
       return mul(mul(p, p), im[d]);
     }));
@@ -171,12 +211,14 @@ __global__ void __launch_bounds__(MAX_THREADS) nuts_leaf_kernel(SdmNutsLeafState
 
     // U-turn tests of the aligned segments that end at this (odd) leaf.
     bool leaf_turning = false;
+    const int k = idx_max - idx_min + 1;
     for (int s = idx_min; s >= 0 && s <= idx_max; ++s) {
+      const long long row = (long long)c * k + (s - idx_min);
       const float* rck = st.r_ckpts + ((long long)c * S + s) * D;
       const float* rsk = st.rsum_ckpts + ((long long)c * S + s) * D;
       const auto rho_seg = [&](int d) { return sub(add(rho[d], p_new(d)), rsk[d]); };
-      const float a = torch_order_sum(D, [&](int d) { return mul(mul(rck[d], im[d]), rho_seg(d)); });
-      const float b = torch_order_sum(D, [&](int d) { return mul(mul(p_new(d), im[d]), rho_seg(d)); });
+      const float a = torch_order_sum(D, row, [&](int d) { return mul(mul(rck[d], im[d]), rho_seg(d)); });
+      const float b = torch_order_sum(D, row, [&](int d) { return mul(mul(p_new(d), im[d]), rho_seg(d)); });
       leaf_turning = leaf_turning || a <= 0.0f || b <= 0.0f;
     }
 

@@ -36,6 +36,7 @@ from typing import Optional
 import torch
 
 from ..distributions import Distribution, mcmc_transform
+from ..utils import metrics
 from ..utils.device import resolve_device
 from ..utils.rng import as_seed, child_seed, make_generator
 
@@ -196,7 +197,11 @@ def _hierarchical_density(model: HierarchicalModel, bij, est, xs: torch.Tensor, 
     data, need_grad=True)`` the same density with its gradient in closed
     form (one K3 launch over the N*S*T rows, K2 without the gradient), or
     None where the likelihood has no closed form (the sampler then
-    differentiates ``logp`` by autograd)."""
+    differentiates ``logp`` by autograd).
+
+    Each of the three runs inside a ``hier.density`` span (the likelihood's
+    ``potential`` span nested in it) and adds its N*S*T rows to the counter
+    ``hier.rows`` while the recorder (``utils.metrics``) is on."""
     from ..potentials import ConditionedMNLELogLikelihood
 
     B, S, T, _ = xs.shape
@@ -223,18 +228,32 @@ def _hierarchical_density(model: HierarchicalModel, bij, est, xs: torch.Tensor, 
             return ll.reshape(N, S).sum(-1), None if g is None else g.reshape(N, S, D)
         return lik.log_lik_fn(est.params, x_sessions, flat, sessions=sessions_of(rep)).reshape(N, S).sum(-1), None
 
+    def done(span: int, q) -> None:
+        """Close a ``hier.density`` span and count its rows."""
+        if span >= 0:
+            metrics.end(span)
+        if metrics.RECORDING:
+            metrics.count("hier.rows", q.shape[0] * S * T)
+
     def ll(q, data):
-        return ll_of_theta(bij.forward(model.subject_u(q, S)), data[0], False)[0]
+        span = metrics.begin("hier.density") if metrics.RECORDING else -1
+        out = ll_of_theta(bij.forward(model.subject_u(q, S)), data[0], False)[0]
+        done(span, q)
+        return out
 
     def logp(q, data):
+        span = metrics.begin("hier.density") if metrics.RECORDING else -1
         u = model.subject_u(q, S)
         base = model.log_prior(q, S) + bij.forward_log_det(u).sum(-1)
-        return base + data[1] * ll_of_theta(bij.forward(u), data[0], False)[0]
+        out = base + data[1] * ll_of_theta(bij.forward(u), data[0], False)[0]
+        done(span, q)
+        return out
 
     if not lik.closed_form_grad:
         return logp, ll, None
 
     def vg(q, data, need_grad: bool = True):
+        span = metrics.begin("hier.density") if metrics.RECORDING else -1
         rep, beta = data
         mu, log_tau, eps = model.unpack(q, S)
         tau = torch.exp(log_tau)
@@ -243,10 +262,11 @@ def _hierarchical_density(model: HierarchicalModel, bij, est, xs: torch.Tensor, 
         lp, g_lp = model.log_prior_and_grad(q, S)
         ll_v, g_ll = ll_of_theta(theta, rep, need_grad)
         value = lp + log_det.sum(-1) + beta * ll_v
-        if not need_grad:
-            return value, None
-        gu = beta[:, None, None] * g_ll * dtheta + dlog_det  # d value / d u, (N, S, D)
-        grad = g_lp + torch.cat([gu.sum(1), (gu * eps).sum(1) * tau, (gu * tau[:, None, :]).flatten(1)], -1)
+        grad = None
+        if need_grad:
+            gu = beta[:, None, None] * g_ll * dtheta + dlog_det  # d value / d u, (N, S, D)
+            grad = g_lp + torch.cat([gu.sum(1), (gu * eps).sum(1) * tau, (gu * tau[:, None, :]).flatten(1)], -1)
+        done(span, q)
         return value, grad
 
     return logp, ll, vg

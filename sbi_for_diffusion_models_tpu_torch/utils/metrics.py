@@ -40,6 +40,9 @@ The port's spans (name: what it encloses):
 * ``move.grid_hop``, ``move.dim_slice``: the extra moves;
 * ``potential``: the body of ``log_lik_and_grad`` and ``log_lik_fn``;
   its parent names the caller;
+* ``hier.density``: one evaluation of the hierarchical model's joint
+  density (``models/hierarchical._hierarchical_density``: value and
+  gradient, value, or the untempered likelihood), its ``potential`` inside;
 * ``wait``: the host blocked on the card (``batch_any``'s read, the lagged
   flag's event, the host mirror's copy);
 * ``train.step`` with ``train.forward``, ``train.backward`` and
@@ -51,7 +54,8 @@ Counters: ``launch.k1``, ``launch.k2``, ``launch.k3``, ``launch.k2p`` and
 the launches it replays. ``launch.leaf``: the NUTS leaf kernel's launches
 (``ops/nuts_cuda.py``), one a leaf that took it; a plain leaf counts none,
 so ``launch.leaf`` over the ``nuts.leaf`` spans is the share of leaves run
-in the kernel.
+in the kernel. ``hier.rows``: the likelihood rows (chain rows x subjects x
+trials) of the ``hier.density`` evaluations.
 """
 
 from __future__ import annotations

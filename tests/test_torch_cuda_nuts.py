@@ -102,8 +102,13 @@ def _poison(logp: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where(c % 11 == 2 * n, torch.full_like(logp, bad[n]), logp)
 
 
-@pytest.mark.parametrize("D", [5, 7])
-@pytest.mark.parametrize("C", [1, 7, 24, 33, 2304])
+# (C, D): every chain count at D = 5 and 7; the hierarchical sampler's widths (D = 2 * 5 + 5 S, 330 at S = 64)
+# and the edges of PyTorch's sum orders over D (its four-wide loads from D = 128) at 24 and 33 chains.
+LEAF_CASES = [(C, D) for D in (5, 7) for C in (1, 7, 24, 33, 2304)] + [
+    (C, D) for D in (30, 127, 128, 129, 170, 330) for C in (24, 33)]
+
+
+@pytest.mark.parametrize("C,D", LEAF_CASES)
 def test_leaf_kernel_matches_the_plain_leaf(C, D):
     """Every leaf of subtrees of depth 0 to 9: the kernel's state, next
     position and flag against the plain leaf's on the same potential and
@@ -285,3 +290,29 @@ def test_a_leaf_launches_the_draw_and_the_kernel_alone():
     extra = {k: v for k, v in extra.items() if v}
     assert sum(extra.values()) == 2 * 31, extra
     assert sum(v for k, v in extra.items() if "nuts_leaf_kernel" in k) == 31, extra
+
+
+def test_hierarchical_run_at_64_subjects_takes_the_kernel_at_every_leaf():
+    """``run_hierarchical_inference`` at S = 64 subjects (D = 330, the
+    benchmark's cohort) on the flagship estimator, 4 chains x 6 rungs: one
+    ``launch.leaf`` for every ``nuts.leaf`` that evaluated the density."""
+    from sbi_for_diffusion_models_tpu_torch.mnle import load_model
+    from sbi_for_diffusion_models_tpu_torch.models import hierarchical as th
+    from sbi_for_diffusion_models_tpu_torch.pipeline import build_prior_theta
+    from sbi_for_diffusion_models_tpu_torch.utils import metrics
+
+    root = Path(__file__).resolve().parents[1]
+    est = load_model(str(root / "artifacts" / "models" / "mnle_10m_shifted_logt_affine.npz"), device=DEV)
+    prior = build_prior_theta()
+    _, x, pulses = th.simulate_hierarchical_sessions(prior, 64, 50, seed=1, hyper_shrink=1.0, device=DEV)
+    metrics.enable()
+    try:
+        out = th.run_hierarchical_inference(est, prior, x, pulses, num_chains=4, num_warmup=3, num_samples=2,
+                                            max_tree_depth=4, pt_replicas=6, seed=2, verbose=False)
+    finally:
+        spans, counters = metrics.drain()
+    assert out["raw"].shape == (4, 2, 330) and np.isfinite(out["raw"]).all()
+    leaves = {i for i, s in enumerate(spans) if s.name == "nuts.leaf"}
+    evaluated = {s.parent for s in spans if s.name == "hier.density" and s.parent in leaves}
+    assert counters["spans.dropped"] == 0
+    assert counters.get("launch.leaf", 0) == len(evaluated) > 0
