@@ -52,6 +52,19 @@ port's paths once each through their public entry points:
    and its bound, over LEAF_TIMED leaves on which every chain stays live.
    Every path below that runs NUTS on the card (phases 6, 9 to 15 and 17
    to 19) must also have launched ``nuts_leaf``;
+5c. the u-space density's kernel pair (``ops/density_cuda.UDensity``,
+   ``density_pre`` and ``density_post``) against the plain composition
+   (``potentials._tempered_vg_plain``) on the flagship's prior at the
+   serving cells' 24 chains and the SBC fold's 2,304, D = 5: value,
+   gradient and the theta the potential gets, bit for bit, with and without
+   the gradient, on normal draws and u at infinities and NaN. Then each
+   side's device time a call (``torch.profiler``), host time a call and
+   device operations a call over DENSITY_TIMED calls around a potential
+   that launches nothing, and the pair's bound. Every path that takes the
+   closed-form density (phases 6 to 15 and 19: the flagship, pulse-grid,
+   slice, training, SBC, CLI, resume, sharp, ensemble, embed and
+   multi-device paths) must launch both; the hierarchical path (phase 17),
+   which has a density of its own, neither;
 6. the flagship path: simulate 131,072 training pairs, an observed 50-trial
    session, load the flagship model and sample its posterior with the
    calibrated sampler (PT6 NUTS, grid hop, t_nd slice; warmup and draws cut
@@ -209,7 +222,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py`` (one CUDA card,
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels with
 their launches, errors, times and bounds at both sizes (K4: both chain
 lengths; the NUTS leaf kernel at 24 and 2,304 chains, its device time a
-leaf against the plain leaf's, with the worst ulps), K1 also with its launch shape, the four fused kernels' with their
+leaf against the plain leaf's, with the worst ulps; the u-space density's
+pair at the same two chain counts, its device time a call against the plain
+composition's), K1 also with its launch shape, the four fused kernels' with their
 tile height, K2's and K3's also at the SBC fold's 9,600 rows (``fold``), on
 the CLI path's model (``pipeline``), on the tail-sharp model (``sharp``) and
 on the embedded model at context width 123 (``embed``) and at the
@@ -318,6 +333,10 @@ LEAF_ULPS = 4  # the kernel's floats against the plain leaf's, as tests/test_tor
 LEAF_TIMED = 1_024  # leaves timed a side: one cycle of a depth-10 subtree's checkpoint slots
 # The NUTS paths: each must launch the leaf kernel besides its own kernels.
 NUTS = ("nuts_leaf",)
+# The u-space density's kernel pair: every path that takes the closed-form density launches both.
+DENSITY = ("density_pre", "density_post")
+DENSITY_CHAINS = (24, 2_304)  # the serving cells' chains, the SBC fold's at the calibrated preset
+DENSITY_TIMED = 512  # calls timed a side
 
 
 def _log(*args) -> None:
@@ -399,7 +418,8 @@ def mnle_bound(w, n: int, backward: bool) -> tuple[float, str]:
 def phase_build() -> dict:
     """Build every kernel; returns what ptxas -v said of each entry function
     (mangled name -> registers, stack, spill stores and loads in bytes)."""
-    from sbi_for_diffusion_models_tpu_torch.ops import _cuda, ceiling_cuda, ddm_cuda, mnle_cuda, nuts_cuda  # noqa: F401
+    from sbi_for_diffusion_models_tpu_torch.ops import (  # noqa: F401
+        _cuda, ceiling_cuda, ddm_cuda, density_cuda, mnle_cuda, nuts_cuda)
 
     t0 = time.perf_counter()
     per_file = _cuda.build_all()
@@ -819,7 +839,7 @@ def phase_leaf(device) -> dict:
 
     from sbi_for_diffusion_models_tpu_torch.inference import nuts as tn
     from sbi_for_diffusion_models_tpu_torch.ops import nuts_cuda
-    from sbi_for_diffusion_models_tpu_torch.utils.metrics import device_intervals
+    from sbi_for_diffusion_models_tpu_torch.utils.metrics import device_intervals, warm_window
     from sbi_for_diffusion_models_tpu_torch.utils.rng import make_generator
 
     floats = ("edge", "prop", "rho", "log_w", "sum_accept", "r_ckpts", "rsum_ckpts")
@@ -905,17 +925,22 @@ def phase_leaf(device) -> dict:
             torch.cuda.synchronize()
             host_ms = (time.perf_counter() - t0) * 1e3 / LEAF_TIMED
             with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                torch.cuda._sleep(1_000_000)  # the profiler can miss an event at the start of its window
-                torch.cuda.synchronize()
+                warm_window()  # the profiler can miss the events at the ends of its window; spins, not counted
                 arg = fn(arg)
-                torch.cuda.synchronize()
-            ev = [e for e in device_intervals(prof) if "spin" not in e[2]]
+                warm_window()
+            everything = device_intervals(prof)
+            ev = [e for e in everything if "spin" not in e[2]]
             # Should it miss one of the leaves' events all the same (one of 1,024 did on the H100), a side's device
             # time a leaf is over the leaves it saw (the kernel's launches; the plain side's leaves by its copies).
-            seen = sum(1 for *_, name in ev if "nuts_leaf_kernel" in name) if side == "kernel" else \
-                sum(1 for *_, name in ev if "Memcpy" in name)
+            marks = [e for e in ev if ("nuts_leaf_kernel" if side == "kernel" else "Memcpy") in e[2]]
+            seen = len(marks)
             if not LEAF_TIMED - 4 <= seen <= LEAF_TIMED:
-                raise AssertionError(f"leaf: the profiler saw {seen} of the {side} side's {LEAF_TIMED} leaves: {ev[:8]}")
+                spins = [e for e in everything if "spin" in e[2]]
+                raise AssertionError(
+                    f"leaf: the profiler saw {seen} of the {side} side's {LEAF_TIMED} leaves, {len(ev)} events and "
+                    f"{len(spins)} spins; the leaves' first and last event at "
+                    f"{[(e[0] - everything[0][0]) / 1e6 for e in (ev[0], ev[-1])] if ev else None} ms of a "
+                    f"{(everything[-1][1] - everything[0][0]) / 1e6 if everything else 0:.3f} ms window: {ev[:4]}")
             times[side] = {"device_ms": sum(b - a for a, b, _ in ev) / 1e6 / seen, "host_ms": host_ms,
                            "device_ops_per_leaf": len(ev) / seen}
             if side == "plain":
@@ -934,6 +959,139 @@ def phase_leaf(device) -> dict:
              f"host_ms={r['host_ms']:.6f}; plain leaf device_ms={r['plain_ms']:.6f} "
              f"({r['plain_ops_per_leaf']:.2f} device operations) host_ms={r['plain_host_ms']:.6f}; "
              f"bound_ms={bound_ms:.3g} ({bound_by})")
+    return out
+
+
+def density_bound(C: int, D: int) -> tuple[float, str]:
+    """The u-space density's bound a call for C chains of D dimensions.
+    Bytes, float32, what the function itself reads and writes: u, ll, beta
+    and g_ll in, theta, the value and the gradient out, 16 D + 12 bytes a
+    chain. The pair's own round trip through its scratch between the two
+    launches (dtheta, dlog_det, g_lp and lp + log_det, 24 D + 8 bytes a
+    chain) is a cost of splitting the work around the potential, and is not
+    counted. Operations, a special function one: about 40 a dimension
+    (sigmoid, exp, two logsigmoids, the prior's column and its gradient,
+    the sums, the chain rule)."""
+    return _bound(C * 40.0 * D, C * (16.0 * D + 12.0))
+
+
+def phase_density(device) -> dict:
+    """The u-space density's kernel pair against the plain composition on
+    the flagship's prior at DENSITY_CHAINS, D = 5 (value, gradient and the
+    theta the potential gets, bit for bit, with and without the gradient,
+    on normal draws at three scales and on u at +-inf and NaN), then each
+    side over DENSITY_TIMED calls around a potential that launches nothing:
+    device time a call (``torch.profiler``), host time a call and device
+    operations a call. Returns {C: check and times}."""
+    import torch
+
+    from sbi_for_diffusion_models_tpu_torch import potentials as tp
+    from sbi_for_diffusion_models_tpu_torch.distributions import mcmc_transform
+    from sbi_for_diffusion_models_tpu_torch.inference.nuts import geometric_ladder
+    from sbi_for_diffusion_models_tpu_torch.ops import density_cuda
+    from sbi_for_diffusion_models_tpu_torch.pipeline import build_prior_theta
+    from sbi_for_diffusion_models_tpu_torch.utils.metrics import device_intervals, warm_window
+
+    prior = build_prior_theta()
+    bij = mcmc_transform(prior)
+    D = bij.dim
+
+    class Potential:
+        """A likelihood that hands back the same (ll, g_ll) and launches nothing."""
+
+        def __init__(self, C):
+            gen = torch.Generator().manual_seed(C)
+            self.local_theta = torch.zeros((1, 1), device=device)
+            self.out = (torch.randn((C,), generator=gen).mul(50.0).to(device),
+                        torch.randn((C, D), generator=gen).mul(5.0).to(device))
+            self.seen = None
+
+        def log_lik_and_grad(self, x, theta, need_grad=True, sessions=None):
+            self.seen = theta
+            return self.out[0], (self.out[1] if need_grad else None)
+
+    def differing(a, b) -> int:
+        same = (a.view(torch.int32) == b.view(torch.int32)) | (torch.isnan(a) & torch.isnan(b))
+        return int((~same).sum())
+
+    def abs_err(a, b) -> float:
+        """The largest |a - b| where both are finite (0.0 where none is)."""
+        both = torch.isfinite(a) & torch.isfinite(b)
+        return float((a[both].double() - b[both].double()).abs().max()) if bool(both.any()) else 0.0
+
+    out = {}
+    for C in DENSITY_CHAINS:
+        lik = Potential(C)
+        vg = tp.tempered_value_and_grad(prior, bij, lik)
+        beta = torch.as_tensor(geometric_ladder(6, 0.04)).repeat(C // 6).to(device)
+        gen = torch.Generator().manual_seed(17 + C)
+        cases = [torch.randn((C, D), generator=gen).mul(scale).to(device) for scale in (0.3, 3.0, 30.0)]
+        edge = cases[0].clone()
+        edge[::7, 1], edge[1::7, 2], edge[2::7, 0], edge[3::7, 4] = math.inf, -math.inf, math.nan, 100.0
+        cases.append(edge)
+        checked, differing_values, max_abs_err = 0, 0, 0.0
+        for u in cases:
+            for need_grad in (True, False):
+                value, grad = vg(u, None, beta, need_grad)
+                theta = lik.seen
+                p_value, p_grad = tp._tempered_vg_plain(prior, bij, lik, 1.0, u, None, beta, need_grad)
+                pairs = {"theta": (theta, lik.seen), "value": (value, p_value)}
+                if need_grad:
+                    pairs["grad"] = (grad, p_grad)
+                off = {k: differing(a, b) for k, (a, b) in pairs.items()}
+                differing_values += sum(off.values())
+                max_abs_err = max(max_abs_err, *(abs_err(a, b) for a, b in pairs.values()))
+                if any(off.values()):
+                    raise AssertionError(f"density: C={C} need_grad={need_grad}: the pair differs from the plain "
+                                         f"composition: {off}, max_abs_err={max_abs_err}")
+                checked += 1
+        _log(f"[density] C={C} D={D}: {checked} calls against the plain composition (value, gradient, theta), "
+             f"normal draws and +-inf, NaN: {differing_values} values differing in their bits, "
+             f"max_abs_err={max_abs_err}")
+
+        u = cases[0]
+        times = {}
+        for side in ("pair", "plain"):
+            def fn(calls=DENSITY_TIMED, pair=side == "pair"):
+                for _ in range(calls):
+                    if pair:
+                        vg(u, None, beta, True)
+                    else:
+                        tp._tempered_vg_plain(prior, bij, lik, 1.0, u, None, beta, True)
+            fn()  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3 / DENSITY_TIMED
+            launched = density_cuda.DENSITY_PRE.launches
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                warm_window()  # the profiler can miss the events at the ends of its window; spins, not counted
+                fn()
+                warm_window()
+            ev = [e for e in device_intervals(prof) if "spin" not in e[2]]
+            if side == "pair" and density_cuda.DENSITY_PRE.launches - launched != DENSITY_TIMED:
+                raise AssertionError("density: the pair did not launch once a call")
+            # The calls the profiler saw: the pair's by density_post, the plain composition's by its one sigmoid
+            # (the bijector's; logsigmoid's kernel has another name).
+            mark = "density_post_kernel" if side == "pair" else "sigmoid_kernel_cuda"
+            seen = sum(1 for *_, name in ev if mark in name)
+            if not DENSITY_TIMED - 4 <= seen <= DENSITY_TIMED:
+                raise AssertionError(f"density: the profiler saw {seen} of the {side} side's {DENSITY_TIMED} calls: "
+                                     f"{sorted({name[:80] for *_, name in ev})}")
+            times[side] = {"device_ms": sum(b - a for a, b, _ in ev) / 1e6 / seen, "host_ms": host_ms,
+                           "ops_per_call": len(ev) / seen}
+        bound_ms, bound_by = density_bound(C, D)
+        out[C] = r = {"D": D, "calls_checked": checked, "differing_values": differing_values,
+                      "max_abs_err": max_abs_err, "ms": times["pair"]["device_ms"],
+                      "plain_ms": times["plain"]["device_ms"], "host_ms": times["pair"]["host_ms"],
+                      "plain_host_ms": times["plain"]["host_ms"], "ops_per_call": times["pair"]["ops_per_call"],
+                      "plain_ops_per_call": times["plain"]["ops_per_call"], "bound_ms": bound_ms,
+                      "bound_by": bound_by}
+        _log(f"[density] C={C} D={D} over {DENSITY_TIMED} calls: pair device_ms={r['ms']:.6f} "
+             f"({r['ops_per_call']:.2f} device operations) host_ms={r['host_ms']:.6f}; plain composition "
+             f"device_ms={r['plain_ms']:.6f} ({r['plain_ops_per_call']:.2f} device operations) "
+             f"host_ms={r['plain_host_ms']:.6f}; bound_ms={bound_ms:.3g} ({bound_by})")
     return out
 
 
@@ -1099,7 +1257,7 @@ def phase_main(device, n_sim: int = N_SIM, warmup: int = SERVE_WARMUP, draws: in
         return walls, proposal, z, x
 
     (walls, proposal, z, x), launches = _launches_on(
-        "main", ("ddm_rt_choice", "mnle_logprob_fwd", "mnle_logprob_bwd", *NUTS), run)
+        "main", ("ddm_rt_choice", "mnle_logprob_fwd", "mnle_logprob_bwd", *NUTS, *DENSITY), run)
     _forward_share("main", launches, "mnle_logprob_fwd", "mnle_logprob_bwd")
     os.environ["MODEL_DIR"] = str(MODEL_DIR)
     sample = hold_sample("main", load_model(MODEL_FILE, device=device), load_model(MODEL_FILE, device="cpu"), device)
@@ -1121,7 +1279,7 @@ def phase_pulse(device, warmup: int = SERVE_WARMUP, draws: int = PULSE_DRAWS) ->
         _log(f"[pulse] walls_s={json.dumps({k: round(v, 3) for k, v in walls.items()})}")
         return walls
 
-    walls, launches = _launches_on("pulse", ("mnle_pulse_fwd", "mnle_pulse_bwd", *NUTS), run)
+    walls, launches = _launches_on("pulse", ("mnle_pulse_fwd", "mnle_pulse_bwd", *NUTS, *DENSITY), run)
     _forward_share("pulse", launches, "mnle_pulse_fwd", "mnle_pulse_bwd")
     # The slot head's draw and the circular splines' inverse.
     os.environ["MODEL_DIR"] = str(MODEL_DIR)
@@ -1166,7 +1324,7 @@ def phase_slice(device, warmup: int = SLICE_WARMUP, draws: int = SLICE_DRAWS) ->
              f"posterior_mean={[round(v, 4) for v in samples.mean(0).tolist()]}")
         return wall, calls
 
-    (wall, calls), launches = _launches_on("slice", ("mnle_logprob_fwd",), run)
+    (wall, calls), launches = _launches_on("slice", ("mnle_logprob_fwd", *DENSITY), run)
     if launches["mnle_logprob_bwd"] != 0 or launches["mnle_logprob_fwd"] != calls:
         raise AssertionError(f"slice: {launches['mnle_logprob_fwd']} K2 and {launches['mnle_logprob_bwd']} K3 launches "
                              f"for {calls} density evaluations (expected one K2 each, no K3)")
@@ -1298,7 +1456,7 @@ def phase_resume(device) -> dict:
             return ref, res, cut, child_wall
 
         (ref, res, cut, child_wall), launches = _launches_on(
-            "resume", ("mnle_logprob_fwd", "mnle_logprob_bwd", *NUTS), run)
+            "resume", ("mnle_logprob_fwd", "mnle_logprob_bwd", *NUTS, *DENSITY), run)
         final = next_segment()
     wanted = (f"[run_nuts] resumed at segment {cut}/{n_segments}",
               f"[run_nuts] device lost near segment {cut} (AcceleratorError); waiting for recovery, then replaying "
@@ -1406,7 +1564,8 @@ def phase_sbc(device, datasets: int = 8, warmup: int = SBC_WARMUP, post: int = S
         ConditionedMNLELogLikelihood.log_lik_and_grad = lik_recording
         try:
             with _recording_k3() as (rows_seen, k3_first):
-                (out, wall), launches = _launches_on("sbc", ("ddm_rt_choice", "mnle_logprob_bwd", *NUTS), run)
+                (out, wall), launches = _launches_on("sbc", ("ddm_rt_choice", "mnle_logprob_bwd", *NUTS, *DENSITY),
+                                                     run)
         finally:
             ConditionedMNLELogLikelihood.log_lik_and_grad = lik_and_grad
         _check_sbc_outputs("sbc", Path(tmp), out, datasets, post)
@@ -1539,7 +1698,7 @@ def phase_pipeline(device) -> dict:
         os.environ["OUTDIR"], os.environ["MODEL_DIR"] = str(out_dir), str(model_dir)
         t0 = time.perf_counter()
         with _recording_k3() as (rows_seen, k3_first):
-            result, launches = _launches_on("pipeline", ("ddm_rt_choice", "mnle_logprob_bwd", *NUTS),
+            result, launches = _launches_on("pipeline", ("ddm_rt_choice", "mnle_logprob_bwd", *NUTS, *DENSITY),
                                             lambda: pipeline._cli(["--smoke"]))
         wall = time.perf_counter() - t0
         records = [json.loads(line) for line in (out_dir / "metrics.jsonl").read_text().splitlines()]
@@ -1845,7 +2004,8 @@ def phase_train(device, proposal, z, x, warmup: int = TRAIN_SERVE_WARMUP, draws:
             _log(f"[train] walls_s={json.dumps({k: round(v, 3) for k, v in walls.items()})}")
             return walls, meta
 
-        (walls, meta), launches = _launches_on("train", ("mnle_logprob_fwd", "mnle_logprob_bwd", *NUTS), run)
+        (walls, meta), launches = _launches_on("train", ("mnle_logprob_fwd", "mnle_logprob_bwd", *NUTS, *DENSITY),
+                                               run)
         _forward_share("train", launches, "mnle_logprob_fwd", "mnle_logprob_bwd")
         # After the counts are read: comparison launches do not count.
         check = phase_k2k3(device, model_file=model_file, model_dir=model_dir)
@@ -2004,7 +2164,7 @@ def phase_sharp(device) -> dict:
         return walls, prior, x_o, pulses_o
 
     (walls, prior, x_o, pulses_o), launches = _launches_on(
-        "sharp", ("mnle_logprob_fwd", "mnle_logprob_bwd", *NUTS), run)
+        "sharp", ("mnle_logprob_fwd", "mnle_logprob_bwd", *NUTS, *DENSITY), run)
     rows = phase_k2k3(device, sizes=(ROWS_MAIN, ROWS_FOLD), model_file=SHARP_MODEL_FILE)
     grad = _closed_form_against_autograd("sharp", est, x_o, pulses_o, prior, device)
     sample = hold_sample("sharp", est, load_model(SHARP_MODEL_FILE, device="cpu"), device)
@@ -2114,7 +2274,7 @@ def phase_ensemble(device) -> dict:
         return walls, counts, prior, x_o, pulses_o
 
     (walls, counts, prior, x_o, pulses_o), launches = _launches_on(
-        "ensemble", ("mnle_logprob_fwd", "mnle_logprob_bwd", *NUTS), run)
+        "ensemble", ("mnle_logprob_fwd", "mnle_logprob_bwd", *NUTS, *DENSITY), run)
     _log(f"[ensemble] {K} members; log_lik_and_grad calls: {counts['grad']} with the gradient, {counts['value']} "
          f"value-only; log_lik_fn calls: {counts['log_lik_fn']}; K3 launches={launches['mnle_logprob_bwd']} K2 "
          f"launches={launches['mnle_logprob_fwd']} ({K} a call)")
@@ -2182,7 +2342,7 @@ def phase_embed(device, proposal, z, x) -> dict:
             return walls, loaded, replace, prior, x_o, pulses_o, theta, value
 
         (walls, est, replace, prior, x_o, pulses_o, theta, value), launches = _launches_on(
-            "embed", ("mnle_logprob_fwd", "mnle_logprob_bwd", *NUTS), run)
+            "embed", ("mnle_logprob_fwd", "mnle_logprob_bwd", *NUTS, *DENSITY), run)
         rows = phase_k2k3(device, sizes=(ROWS_MAIN, ROWS_FOLD), model_file=model_file, model_dir=model_dir)
     D = replace.net.cat_net.layers[0].in_features
     plain = ConditionedMNLELogLikelihood(replace, pulses_o, logprob_kernel="xla").log_lik_fn(replace.params, x_o, theta)
@@ -2454,6 +2614,9 @@ def phase_hierarchical(device) -> dict:
     with _recording_k3() as (rows_seen, k3_first):
         ((conf, est, prior, model, xs, ps), out, wall), launches = _launches_on(
             "hierarchical", ("ddm_rt_choice", "mnle_logprob_bwd", *NUTS), lambda: _run_hierarchical(device))
+    if any(launches[k] for k in DENSITY):
+        raise AssertionError(f"hierarchical: the u-space density's pair launched on a path with a density of its "
+                             f"own: {[launches[k] for k in DENSITY]}")
     B, S, T = xs.shape[:3]
     C, R = conf["chains"], conf["pt_replicas"]
     rows = B * C * R * S * T
@@ -2703,7 +2866,8 @@ def phase_multidevice(device) -> dict:
     launches = {k: launches_a[k] + sum(res["launches"][k] for res in ranks) for k in launches_a}
     _log(f"[multidevice] launches, (a) and every rank of (b): {json.dumps(launches)}; the ranks started and "
          f"finished in {checked['spawn_s']:.3f} s; phase {time.perf_counter() - t_phase:.1f} s")
-    missing = [k for k in ("ddm_rt_choice", "mnle_logprob_fwd", "mnle_logprob_bwd", *NUTS) if launches[k] <= 0]
+    missing = [k for k in ("ddm_rt_choice", "mnle_logprob_fwd", "mnle_logprob_bwd", *NUTS, *DENSITY)
+               if launches[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the multidevice path: {missing}")
     return {"launches": launches, "k1_offset": offset, "sbc_one_differing": one_differ,
@@ -2894,6 +3058,7 @@ def main() -> int:
     k4 = phase_k4(device)
     roof = phase_roofline(device)
     leaf = phase_leaf(device)
+    density = phase_density(device)
     main_path = phase_main(device)
     pulse_path = phase_pulse(device)
     slice_path = phase_slice(device)
@@ -3007,6 +3172,28 @@ def main() -> int:
     kernels[-1]["ptxas"] = next(iter(found.values()))
     if kernels[-1]["ptxas"].get("spill_stores", 0) or kernels[-1]["ptxas"].get("spill_loads", 0):
         raise AssertionError(f"nuts_leaf spills registers: {found}")
+    # The u-space density's kernel pair: port-only (XLA fuses the density into the JAX sampler's program), at the
+    # serving cells' chains and the SBC fold's (``large``); ms and plain_ms are device time a call, each side
+    # around a potential that launches nothing. Its launches are density_pre's (density_post's are the same).
+    serve, fold = (density[C] for C in DENSITY_CHAINS)
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "host_ms", "plain_host_ms", "ops_per_call",
+             "plain_ops_per_call")
+    kernels.append({
+        "name": "density_pre", "route": "cuda", "source": f"{src}/udensity.cu", "replaces": None,
+        "pair": list(DENSITY), "launches": main_path["launches"]["density_pre"],
+        "max_abs_err": max(r["max_abs_err"] for r in density.values()),
+        "differing_values": sum(r["differing_values"] for r in density.values()),
+        "n": DENSITY_CHAINS[0], **{k: serve[k] for k in timed}, "library_ms": None,
+        "large": {"n": DENSITY_CHAINS[1], **{k: fold[k] for k in timed}},
+    })
+    kernels[-1]["ptxas"] = {}
+    for entry in ("density_pre_kernel", "density_post_kernel"):
+        found = {e: v for e, v in ptxas.items() if entry in e}
+        if len(found) != 1:
+            raise AssertionError(f"ptxas reported {len(found)} builds of {entry}, expected one: {sorted(ptxas)}")
+        kernels[-1]["ptxas"][entry] = v = next(iter(found.values()))
+        if v.get("spill_stores", 0) or v.get("spill_loads", 0):
+            raise AssertionError(f"{entry} spills registers: {found}")
     for k in kernels:
         k["launches_by_path"] = {name: p["launches"][k["name"]] for name, p in (
             ("main", main_path), ("pulse", pulse_path), ("roofline", roof), ("slice", slice_path),

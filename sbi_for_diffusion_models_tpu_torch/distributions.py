@@ -88,12 +88,26 @@ class _Consts:
         return out
 
 
+def _kernel_rows(*cols) -> list[list[float]]:
+    """Per-column float32 constants, one list per column, from vectors of
+    one constant each."""
+    return torch.stack(cols, dim=1).tolist()
+
+
 class Distribution:
     event_shape: tuple
 
     @property
     def event_dim(self) -> int:
         return int(self.event_shape[0]) if self.event_shape else 1
+
+    def kernel_groups(self) -> tuple[list, bool]:
+        """``(groups, from_zero)``: the marginals in the order the log-density
+        sums them, each ``(distribution, its columns)``, and whether the sum
+        starts from 0.0, for the u-space density kernel
+        (``ops/density_cuda.py``). One group of every column here; a family
+        the kernel takes has ``kernel_family`` and ``kernel_constants``."""
+        return [(self, list(range(self.event_dim)))], False
 
     def sample(self, generator: torch.Generator, sample_shape=()):  # pragma: no cover
         raise NotImplementedError
@@ -143,6 +157,14 @@ class Beta(Distribution):
         grad = torch.where(ok & (x <= 1.0 - 1e-7) & (x >= 1e-37), c["am1"] / xc - c["bm1"] / one_m, 0.0)
         return torch.where(ok, lp, -math.inf).sum(-1), grad
 
+    kernel_family = 2  # csrc/udensity.cu's code of the family
+
+    def kernel_constants(self) -> list[list[float]]:
+        """a - 1, b - 1, log B(a, b) and 0 a column, the float32 constants
+        of ``log_prob_and_grad``, for the u-space density kernel."""
+        c = self._consts.on(torch.empty(0))
+        return _kernel_rows(c["am1"], c["bm1"], c["log_beta"], torch.zeros_like(c["am1"]))
+
     def supports(self):
         return [interval_support(0.0, 1.0) for _ in range(self.event_dim)]
 
@@ -180,6 +202,14 @@ class LogNormal(Distribution):
         grad = torch.where(x >= 1e-37, (-1.0 - zs / c["sigma"]) / xc, 0.0)
         return torch.where(x > 0.0, lp, -math.inf).sum(-1), grad
 
+    kernel_family = 3  # csrc/udensity.cu's code of the family
+
+    def kernel_constants(self) -> list[list[float]]:
+        """mu, sigma, log sigma and log sqrt(2 pi) a column, the float32
+        constants of ``log_prob_and_grad``, for the u-space density kernel."""
+        c = self._consts.on(torch.empty(0))
+        return _kernel_rows(c["mu"], c["sigma"], c["log_sigma"], torch.full_like(c["mu"], _LOG_SQRT_2PI))
+
     def supports(self):
         return [positive_support() for _ in range(self.event_dim)]
 
@@ -206,6 +236,15 @@ class Normal(Distribution):
         c = self._consts.on(x)
         return self.log_prob(x), -(x - c["mu"]) / (c["sigma"] * c["sigma"])
 
+    kernel_family = 1  # csrc/udensity.cu's code of the family
+
+    def kernel_constants(self) -> list[list[float]]:
+        """mu, sigma, -log sigma - log sqrt(2 pi) and sigma * sigma a
+        column, for the u-space density kernel: the last two rounded once
+        each in float32, as ``log_prob_and_grad`` rounds them."""
+        c = self._consts.on(torch.empty(0))
+        return _kernel_rows(c["mu"], c["sigma"], -c["log_sigma"] - _LOG_SQRT_2PI, c["sigma"] * c["sigma"])
+
     def supports(self):
         return [real_support() for _ in range(self.event_dim)]
 
@@ -231,6 +270,14 @@ class Uniform(Distribution):
     def log_prob_and_grad(self, x):
         """``(log_prob(x), 0)``: the density is flat on its box."""
         return self.log_prob(x), torch.zeros_like(x)
+
+    kernel_family = 0  # csrc/udensity.cu's code of the family
+
+    def kernel_constants(self) -> list[list[float]]:
+        """lo, hi, -log(hi - lo) and 0 a column, the float32 constants of
+        ``log_prob``, for the u-space density kernel."""
+        c = self._consts.on(torch.empty(0))
+        return _kernel_rows(c["lo"], c["hi"], c["neg_log_width"], torch.zeros_like(c["lo"]))
 
     def supports(self):
         return [interval_support(lo, hi) for lo, hi in zip(self.lo, self.hi)]
@@ -288,6 +335,11 @@ class MultipleIndependent(Distribution):
         for i, (d, span) in enumerate(self._merged):
             out = out + d.log_prob(self._columns(x, i, span))
         return out
+
+    def kernel_groups(self) -> tuple[list, bool]:
+        """The merged marginals in the order ``log_prob_and_grad`` sums them,
+        from 0.0 (see ``Distribution.kernel_groups``)."""
+        return list(self._merged), True
 
     def has_closed_form_grad(self) -> bool:
         return all(hasattr(d, "log_prob_and_grad") for d, _ in self._merged)
@@ -372,6 +424,14 @@ class Bijector:
         log_det = torch.where(real, 0.0, torch.where(pos, u, interval)).sum(-1)
         dlog_det = torch.where(real, 0.0, torch.where(pos, 1.0, 1.0 - 2.0 * s))
         return theta, dtheta, log_det, dlog_det
+
+    def kernel_table(self) -> tuple[list[int], np.ndarray]:
+        """``(codes, k)`` for the u-space density kernel
+        (``ops/density_cuda.py``): each dimension's support code (0 real, 1
+        positive, 2 interval) and its lo, span and log span (D, 3) in
+        float32, the constants of ``forward_and_grads``."""
+        c = self._kind_masks.on(torch.empty(0))
+        return list(self._code_list), torch.stack([c["lo"], c["span"], c["log_span"]], dim=1).numpy()
 
     def forward_log_det(self, u):
         lo, hi, code = self._consts(u)

@@ -39,7 +39,7 @@ import torch
 
 from .distributions import Distribution
 from .nets.mnle_net import MNLE, slot_features, tail_sharp_transform
-from .ops import mnle_cuda
+from .ops import density_cuda, mnle_cuda
 from .utils import metrics
 
 __all__ = [
@@ -367,6 +367,27 @@ class ConditionedMNLELogLikelihood:
         return self.log_lik_fn(self.estimator.params, x, theta)[None, :]
 
 
+def _tempered_vg_plain(prior: Distribution, bij, likelihood: ConditionedMNLELogLikelihood, temperature: float,
+                       u, x, beta, need_grad: bool = True, sessions=None):
+    """The plain composition of ``tempered_value_and_grad``'s density, one
+    eager operation at a time: the route of CPU tensors, and what the kernel
+    pair (``ops/density_cuda.py``) follows bit for bit."""
+    theta, dtheta, log_det, dlog_det = bij.forward_and_grads(u)
+    lp, g_lp = prior.log_prob_and_grad(theta)
+    ll, g_ll = likelihood.log_lik_and_grad(x, theta, need_grad, sessions=sessions)
+    beta_t = beta / temperature
+    value = lp + log_det + beta_t * ll
+    if not need_grad:
+        return value, None
+    return value, (g_lp + beta_t[:, None] * g_ll) * dtheta + dlog_det
+
+
+def _takes_density_kernel(u: torch.Tensor) -> bool:
+    """Whether a call of the density runs in the kernel pair: on a CUDA
+    ``u``. CPU tensors take ``_tempered_vg_plain``."""
+    return u.is_cuda
+
+
 def tempered_value_and_grad(prior: Distribution, bij, likelihood: ConditionedMNLELogLikelihood,
                             temperature: float = 1.0):
     """``vg(u, x, beta, need_grad=True, sessions=None) -> (value, grad or
@@ -377,17 +398,21 @@ def tempered_value_and_grad(prior: Distribution, bij, likelihood: ConditionedMNL
     beta (N,) is each row's inverse temperature (ones for the untempered
     density); ``x`` and ``sessions`` go to ``likelihood.log_lik_and_grad``.
     Needs ``likelihood.closed_form_grad`` and a prior with
-    ``log_prob_and_grad``."""
+    ``log_prob_and_grad``.
+
+    On the card the prior, the bijector and the tempering run in two
+    launches around the potential call (``ops/density_cuda.UDensity``:
+    ``density_pre`` before it, ``density_post`` after), which give the plain
+    composition's bits; the pair is built here for a likelihood on a card,
+    and raises for a prior it does not take (see ``DensityTables``)."""
+    pair = density_cuda.UDensity(prior, bij, temperature) if likelihood.local_theta.is_cuda else None
 
     def vg(u, x, beta, need_grad: bool = True, sessions=None):
-        theta, dtheta, log_det, dlog_det = bij.forward_and_grads(u)
-        lp, g_lp = prior.log_prob_and_grad(theta)
+        if not _takes_density_kernel(u):
+            return _tempered_vg_plain(prior, bij, likelihood, temperature, u, x, beta, need_grad, sessions)
+        theta = pair.pre(u, need_grad)
         ll, g_ll = likelihood.log_lik_and_grad(x, theta, need_grad, sessions=sessions)
-        beta_t = beta / temperature
-        value = lp + log_det + beta_t * ll
-        if not need_grad:
-            return value, None
-        return value, (g_lp + beta_t[:, None] * g_ll) * dtheta + dlog_det
+        return pair.post(ll, g_ll, beta, need_grad)
 
     return vg
 

@@ -9,9 +9,10 @@ Counterpart of ``sbi_for_diffusion_models_tpu/utils/metrics.py``:
   boundaries while ``enable()`` is in force (``begin`` / ``end``,
   ``count``, ``new_run``), handed over by ``drain()``;
 * ``device_time``: the card's busy time in a finished profiler run;
-  ``device_intervals``: its device events on the profiler's clock; and
-  ``idle_by_span``: the card's idle time put down to the spans open on the
-  host.
+  ``device_intervals``: its device events on the profiler's clock;
+  ``warm_window``: throwaway device work at the ends of a profiler window
+  whose events are counted; and ``idle_by_span``: the card's idle time put
+  down to the spans open on the host.
 
 The recorder is off by default. Every span site in the port reads
 ``RECORDING`` first and does nothing more while it is False, so off it
@@ -54,8 +55,12 @@ Counters: ``launch.k1``, ``launch.k2``, ``launch.k3``, ``launch.k2p`` and
 the launches it replays. ``launch.leaf``: the NUTS leaf kernel's launches
 (``ops/nuts_cuda.py``), one a leaf that took it; a plain leaf counts none,
 so ``launch.leaf`` over the ``nuts.leaf`` spans is the share of leaves run
-in the kernel. ``hier.rows``: the likelihood rows (chain rows x subjects x
-trials) of the ``hier.density`` evaluations.
+in the kernel. ``launch.density``: the launches of the u-space density's
+kernel pair (``ops/density_cuda.py``: ``density_pre`` and
+``density_post``), two a call of ``potentials.tempered_value_and_grad``'s
+density on the card; the plain route counts none. ``hier.rows``: the
+likelihood rows (chain rows x subjects x trials) of the ``hier.density``
+evaluations.
 """
 
 from __future__ import annotations
@@ -67,7 +72,7 @@ from pathlib import Path
 from typing import Any
 
 __all__ = [
-    "MetricsLogger", "device_time", "device_intervals", "idle_by_span",
+    "MetricsLogger", "device_time", "device_intervals", "warm_window", "idle_by_span",
     "Span", "NO_SPAN", "RECORDING", "enable", "disable", "drain", "begin", "end", "count", "new_run",
 ]
 
@@ -270,6 +275,29 @@ def device_intervals(prof) -> list:
         out.append((int(start), int(start + dur), e.name()))
     out.sort()
     return out
+
+
+# How long the card spins at each end of a profiler window whose events are counted.
+WARM_WINDOW_S = 0.2
+
+
+def warm_window() -> None:
+    """Throwaway device work at an end of a ``torch.profiler`` window on the
+    card, called first inside the window and again after its work. The
+    profiler can leave out events at a window's start: on the H100, in a
+    process that had run for minutes, from one event to those of its first
+    50 ms (a 50 ms spin among them); a 0.2 s wait on the host and 64 short
+    spins at the start did not stop it. So the card runs spins of 0.5 ms,
+    each waited for, for ``WARM_WINDOW_S`` of host time at both ends. The
+    spins' kernel has ``spin`` in its name; the window's readers leave those
+    events out."""
+    import torch
+
+    torch.cuda.synchronize()
+    end = time.perf_counter() + WARM_WINDOW_S
+    while time.perf_counter() < end:
+        torch.cuda._sleep(1_000_000)  # about 0.5 ms
+        torch.cuda.synchronize()
 
 
 def _span_paths(spans) -> list:

@@ -19,7 +19,7 @@ import torch
 from sbi_for_diffusion_models_tpu_torch.inference import nuts as tn
 from sbi_for_diffusion_models_tpu_torch.inference.diagnostics import effective_sample_size, split_r_hat
 from sbi_for_diffusion_models_tpu_torch.ops import nuts_cuda
-from sbi_for_diffusion_models_tpu_torch.utils.metrics import device_intervals
+from sbi_for_diffusion_models_tpu_torch.utils.metrics import device_intervals, warm_window
 from sbi_for_diffusion_models_tpu_torch.utils.rng import make_generator
 
 pytestmark = pytest.mark.requires_cuda
@@ -272,12 +272,10 @@ def test_a_leaf_launches_the_draw_and_the_kernel_alone():
         gen = make_generator(0, DEV)
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            # The profiler can miss an event at the start of its window: a spin first, not counted.
-            torch.cuda._sleep(1_000_000)
-            torch.cuda.synchronize()
+            warm_window()  # the profiler can miss the events at the ends of its window; spins, not counted
             out = tn._build_subtree(gen, edge, depth, torch.ones((C,), device=DEV), eps, inv_mass, H0, 6, vg,
                                     active)
-            torch.cuda.synchronize()
+            warm_window()
         assert int(out["n_leaves"].min()) == 1 << depth
         names: dict = {}
         for _, _, name in device_intervals(prof):
