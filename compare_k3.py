@@ -4,9 +4,9 @@ one gradient call of the potential, of two checkouts in turns on one CUDA
 card: the "before" and the "after" of a change.
 
 Kernel mode (``--kernel``). The rows are made once, by this checkout
-(``chip_smoke.session_rows`` on the kernel's committed model, at 1,200 and
-115,200 rows, with a cotangent): the flagship for K2 and K3, the pulse-grid
-model ``mnle_1m_pulseabs.npz`` for K2p and K3p. They are saved to a
+(``tests/card_common.session_rows`` on the kernel's committed model, at
+1,200 and 115,200 rows, with a cotangent): the flagship for K2 and K3, the
+pulse-grid model ``mnle_1m_pulseabs.npz`` for K2p and K3p. They are saved to a
 temporary file. Each checkout then runs in a process of its own (both hold a
 package of one name) from its own root: it loads the model through its own
 ``load_model``, calls its own wrapper (``ops.mnle_cuda.rows_logp`` for K2,
@@ -32,13 +32,13 @@ Call mode (``--call grad`` on the flagship, ``--call grad_pulse`` on the
 pulse-grid model). Each checkout times one synchronized
 ``ConditionedMNLELogLikelihood.log_lik_and_grad(x, theta, need_grad=True)``
 at 1,200 rows (24 prior draws of theta against the 50 trials of
-``chip_smoke``'s observed session, the rows of one PT6 x 4 leapfrog step) on
+``card_common``'s observed session, the rows of one PT6 x 4 leapfrog step) on
 the host's clock, the mean of REPS_CALL calls after 20 warm-up calls, and
 the two sides' (ll, grad) are compared.
 
 Sampler mode (``--call sampler`` on the flagship, ``--call sampler_pulse``
 on the pulse-grid model). Each checkout samples the posterior of
-``chip_smoke``'s observed session through its own ``run_inference_mcmc``
+``card_common``'s observed session through its own ``run_inference_mcmc``
 under ``CALIBRATED_CONFIG`` (PT6 x 4 chains, grid hop, t_nd slice: 1,200
 rows a call), cut to SAMPLER_WARMUP / SAMPLER_DRAWS draws a chain, after a
 short untimed run that builds and loads its kernels, and gives the wall
@@ -65,6 +65,8 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+MODEL_DIR = ROOT / "artifacts" / "models"
+MODEL_FILE, PULSE_MODEL_FILE = "mnle_10m_shifted_logt_affine.npz", "mnle_1m_pulseabs.npz"
 SIZES = (1_200, 115_200)
 REPS = {1_200: 50, 115_200: 10}
 REPS_CALL = 200
@@ -226,9 +228,15 @@ def _executed_steps(path: Path, n: int, out) -> int:
 
 
 def _model(pulse: bool) -> str:
-    import chip_smoke as cs
+    return PULSE_MODEL_FILE if pulse else MODEL_FILE
 
-    return cs.PULSE_MODEL_FILE if pulse else cs.MODEL_FILE
+
+def _card_common():
+    """``tests/card_common.py``: the session rows and the observed session."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import card_common
+
+    return card_common
 
 
 def _rows(path: Path, device, kernel: str) -> None:
@@ -236,15 +244,14 @@ def _rows(path: Path, device, kernel: str) -> None:
     for the children with the model's file name and the wrapper's name."""
     import torch
 
-    import chip_smoke as cs
     from sbi_for_diffusion_models_tpu_torch.mnle import load_model
     from sbi_for_diffusion_models_tpu_torch.pipeline import build_prior_theta
 
     wrapper, cotangent, _, pulse = KERNELS[kernel]
     model = _model(pulse)
-    os.environ["MODEL_DIR"] = str(cs.MODEL_DIR)
+    os.environ["MODEL_DIR"] = str(MODEL_DIR)
     est = load_model(model, device=device)
-    rows = cs.session_rows(est, build_prior_theta(), device, -(-max(SIZES) // cs.ROWS_MAIN))
+    rows = _card_common().session_rows(est, build_prior_theta(), device, -(-max(SIZES) // 1_200))
     out = {}
     for n in SIZES:
         g = torch.randn((n,), generator=torch.Generator(device).manual_seed(5), device=device)
@@ -253,14 +260,14 @@ def _rows(path: Path, device, kernel: str) -> None:
 
 
 def _session(path: Path, device, call: str) -> int:
-    """chip_smoke's observed session and 24 prior draws of theta, saved for
-    the children; returns the rows a call evaluates."""
+    """The observed session (``card_common.observed_session``) and 24 prior
+    draws of theta, saved for the children; returns the rows a call
+    evaluates."""
     import torch
 
-    import chip_smoke as cs
     from sbi_for_diffusion_models_tpu_torch.utils.rng import make_generator
 
-    prior, x_o, pulses_o = cs._observed_session(device)
+    prior, x_o, pulses_o = _card_common().observed_session(device)
     theta = prior.sample(make_generator(17, device), (24,))
     n = theta.shape[0] * x_o.shape[0]
     torch.save({"model": _model(CALLS[call]), "x": x_o.cpu(), "pulses": pulses_o.cpu(), "theta": theta.cpu(),

@@ -19,7 +19,7 @@ CUDA card and nvcc from a checkout of the parent commit:
 ``python tests/k1_fixture.py --parent DIR --commit SHA`` (DIR holds that
 checkout, e.g. ``git archive SHA | tar -x -C DIR``).
 
-Numpy only at import time: ``chip_smoke.py`` loads this file by its path.
+Numpy only at import time.
 """
 
 from __future__ import annotations

@@ -26,6 +26,7 @@ pytestmark = pytest.mark.requires_cuda
 
 DEV = torch.device("cuda", 0)
 ULPS = 4  # the kernel's floats against the plain leaf's
+LEAF_DEPTH = 10  # CALIBRATED_CONFIG's MCMC_MAX_TREE_DEPTH: the deepest subtree a serving or SBC run builds
 _FLOATS = ("edge", "prop", "rho", "log_w", "sum_accept", "r_ckpts", "rsum_ckpts")
 _EXACT = ("n_leaves", "turning", "diverging", "live")
 
@@ -80,7 +81,7 @@ def _start(C: int, D: int, depth: int, seed: int):
     logp, g = vg(u)
     H0 = -logp + tn._kinetic(p, inv_mass)
     edge = torch.cat([u, p, g, logp[:, None]], dim=1)
-    S = 10
+    S = LEAF_DEPTH + 1
     s = dict(edge=edge, prop=torch.cat([edge[:, :D], edge[:, 2 * D :]], dim=1),
              rho=torch.zeros((C, D), device=DEV), log_w=torch.full((C,), -math.inf, device=DEV),
              sum_accept=torch.zeros((C,), device=DEV), n_leaves=torch.zeros((C,), dtype=torch.int64, device=DEV),
@@ -110,11 +111,12 @@ LEAF_CASES = [(C, D) for D in (5, 7) for C in (1, 7, 24, 33, 2304)] + [
 
 @pytest.mark.parametrize("C,D", LEAF_CASES)
 def test_leaf_kernel_matches_the_plain_leaf(C, D):
-    """Every leaf of subtrees of depth 0 to 9: the kernel's state, next
-    position and flag against the plain leaf's on the same potential and
-    uniforms. Counts and booleans exact, floats within ULPS."""
-    worst, diverged = 0, False
-    for depth in range(10):
+    """Every leaf of subtrees of depth 0 to LEAF_DEPTH: the kernel's state,
+    next position and flag against the plain leaf's on the same potential
+    and uniforms, one launch a leaf. Counts and booleans exact, floats
+    within ULPS."""
+    worst, diverged, launched = 0, False, nuts_cuda.LEAF.launches
+    for depth in range(LEAF_DEPTH + 1):
         plain, vg, half_e, e_im, inv_mass, H0 = _start(C, D, depth, seed=100 * C + 10 * D + depth)
         fused = {k: v.clone() for k, v in plain.items()}
         flag = torch.zeros((2,), dtype=torch.bool, pin_memory=True)
@@ -149,6 +151,7 @@ def test_leaf_kernel_matches_the_plain_leaf(C, D):
                     worst = max(worst, v)
         diverged = diverged or bool(plain["diverging"].any())
     assert diverged == (C > 2)  # the poisoned chains' leaves diverged
+    assert nuts_cuda.LEAF.launches - launched == (1 << (LEAF_DEPTH + 1)) - 1
     print(f"leaf kernel against the plain leaf, C={C} D={D}: worst {worst} ulps")
 
 

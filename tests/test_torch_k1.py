@@ -26,7 +26,7 @@ from sbi_for_diffusion_models_tpu_torch.ops.ddm_cuda import (
     k1_launch_shape,
 )
 
-P_MIN = 1e-3  # as chip_smoke.py's K1 distribution tests
+P_MIN = 1e-3  # as tests/test_torch_cuda.py's K1 distribution tests
 NS = sorted({1, 2, 31, 33, 50, 1000, 2112, 2113, 4096, 8192, 16896, 33000, 131072, 270336, 300000, 524288}
             | {int(1.7**i) for i in range(25)})
 CARDS = {

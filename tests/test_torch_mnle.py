@@ -1,8 +1,8 @@
 """PyTorch port: the MNLE network, its weight converter, ``load_model`` and
 the plain versions of kernels K2/K3 and K2p/K3p, against the JAX package.
 
-The CUDA kernels themselves cannot run here; ``chip_smoke.py`` holds them to
-these plain versions on the card. On CPU tensors the fused path
+The CUDA kernels themselves cannot run here; ``tests/test_torch_cuda.py``
+holds them to these plain versions on the card. On CPU tensors the fused path
 (``dispatch_log_prob("pallas")``) runs its ``autograd.Function`` with the
 plain row function, so its plumbing is tested here too.
 """

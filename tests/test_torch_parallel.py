@@ -17,7 +17,7 @@ width), so one chain's log-density could differ in the last bit between a
 batch of 18 chains and a rank's 9; NUTS then takes another branch. The
 scalar kernels round every element alike, so the sharded runs are held to
 the unsharded ones bit for bit. (On the card every element takes one code
-path; ``chip_smoke.py`` holds the card's sharded runs.)
+path; ``tests/test_torch_cuda_paths.py`` holds the card's sharded runs.)
 """
 
 import os

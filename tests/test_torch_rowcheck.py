@@ -1,5 +1,5 @@
 """PyTorch port: the per-row float64 check that holds the fused kernels to
-their plain versions (``ops/rowcheck.py``, used by ``chip_smoke.py`` and the
+their plain versions (``ops/rowcheck.py``, used by the
 kernel tests). On the committed models and rows as the posterior potential
 builds them, the plain version in float32 passes it, and faults planted in
 the pulse rep's gradient fail it; a float32 knot tie shows why a gradient
